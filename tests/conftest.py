@@ -57,6 +57,11 @@ def pytest_configure(config):
         "slow: multi-minute subprocess/distributed or heavyweight smoke "
         "tests; deselect with -m 'not slow' for the fast tier",
     )
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA device (the PyTorch port's kernels); skips "
+        "without one",
+    )
 
 
 @pytest.fixture(scope="session")
