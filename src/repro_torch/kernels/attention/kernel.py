@@ -1,0 +1,154 @@
+"""Hand-written CUDA flash-attention kernel for Hopper, its plain torch
+version, and the launch wrapper.
+
+Replaces the Pallas TPU kernel `_fa_kernel` of
+`repro/kernels/attention/kernel.py` (launched there by
+`flash_attention_bhsd`): the FlashAttention-2 forward over folded
+(batch*head, S, D) arrays, with the running max, the normaliser and the
+output accumulator in f32, causal masking by ``ik <= iq`` (masked scores
+-1e30), key blocks above the diagonal skipped, and the output in q's dtype.
+
+The kernel is `csrc/attention.cu` (CUDA C++ for sm_90a, plain C interface,
+loaded with ctypes). What bounds it on an H100 and what its design does
+about that is noted at the top of that source. Unlike the reference, k and
+v may carry fewer heads than q: folded row ``bh`` of q attends to row
+``bh // group`` of k and v, ``group = q.shape[0] // k.shape[0]``, which is
+the layout the reference's GQA repeat materialises. S need not be a
+multiple of any block: the kernel masks its tails.
+
+`flash_attention_bhsd_torch` is the plain torch version, the reference
+kernel's online-softmax recurrence over ``bq x bk`` blocks (what its
+interpret mode runs); `flash_attention_bhsd` takes it only for tensors on
+the CPU. For a CUDA tensor it launches the kernel, whose 64 x 64 tiles are
+fixed in its source, or raises. `launches` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from pathlib import Path
+
+import torch
+
+from ..build import CudaLibrary
+
+LIBRARY = CudaLibrary(
+    "attention", [Path(__file__).parent / "csrc" / "attention.cu"])
+
+NEG_INF = -1e30
+MAX_HEAD_DIM = 128
+
+# Codes of the C entry point's `dtype` argument.
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+launches = 0  # kernel launches by flash_attention_bhsd (never the plain path)
+
+
+def _bound_library() -> ctypes.CDLL:
+    lib = LIBRARY.load()
+    lib.fa_fwd_launch.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float]
+        + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    lib.fa_fwd_launch.restype = ctypes.c_int
+    lib.fa_error_string.argtypes = [ctypes.c_int]
+    lib.fa_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
+    """Validates the folded operands; returns the GQA group size."""
+    if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape:
+        raise ValueError(
+            f"q must be (BH, Sq, D) and k, v (BH/group, Sk, D), got "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if not q.dtype == k.dtype == v.dtype or q.dtype not in DTYPES:
+        raise ValueError(f"q, k, v must share one dtype of {list(DTYPES)}, "
+                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    if not q.device == k.device == v.device:
+        raise ValueError(f"q on {q.device}, k on {k.device}, v on {v.device}")
+    if q.shape[2] != k.shape[2] or q.shape[0] % k.shape[0]:
+        raise ValueError(
+            f"head dims {q.shape[2]} vs {k.shape[2]}, or {q.shape[0]} query "
+            f"rows not a multiple of {k.shape[0]} key rows")
+    return q.shape[0] // k.shape[0]
+
+
+def flash_attention_bhsd_torch(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, bq: int = 128, bk: int = 128,
+                               causal: bool = True) -> torch.Tensor:
+    """Plain torch version: q (BH, Sq, D), k/v (BH/group, Sk, D) -> (BH, Sq,
+    D) in q's dtype. The reference kernel's blocked recurrence; the last
+    block of each axis may be short."""
+    group = _check(q, k, v)
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    if group > 1:
+        k = k.repeat_interleave(group, dim=0)
+        v = v.repeat_interleave(group, dim=0)
+    scale = 1.0 / math.sqrt(d)
+    qf, kf, vf = (t.to(torch.float32) for t in (q, k, v))
+    out = torch.empty_like(q)
+    for q0 in range(0, sq, bq):
+        qb = qf[:, q0:q0 + bq]
+        nq = qb.shape[1]
+        iq = torch.arange(q0, q0 + nq, device=q.device)[:, None]
+        m = torch.full((bh, nq), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((bh, nq, d), dtype=torch.float32, device=q.device)
+        for k0 in range(0, sk, bk):
+            if causal and k0 > q0 + bq - 1:  # block above the diagonal
+                break
+            kb = kf[:, k0:k0 + bk]
+            s = (qb @ kb.transpose(1, 2)) * scale
+            if causal:
+                ik = torch.arange(k0, k0 + kb.shape[1], device=q.device)
+                s = torch.where(ik[None, :] <= iq, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + p @ vf[:, k0:k0 + bk]
+            m = m_new
+        out[:, q0:q0 + nq] = (acc / l.clamp_min(1e-30)[..., None]).to(q.dtype)
+    return out
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """`t` contiguous with a 16-byte aligned start (the kernel's vector
+    loads need it)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         bq: int = 128, bk: int = 128,
+                         causal: bool = True) -> torch.Tensor:
+    """Fused attention over folded (BH, S, D) arrays: the CUDA kernel for
+    tensors on the card, the plain torch version (blocked by bq x bk) for
+    tensors on the CPU."""
+    group = _check(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_bhsd_torch(q, k, v, bq, bk, causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash-attention kernel for device {q.device}")
+    bh, sq, d = q.shape
+    if d % 4 or not 4 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"the kernel takes head dims that are multiples of "
+                         f"4 up to {MAX_HEAD_DIM}, got {d}")
+    global launches
+    lib = _bound_library()
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.fa_fwd_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                               out.data_ptr(), bh, group, sq, k.shape[1], d,
+                               1.0 / math.sqrt(d), int(causal),
+                               DTYPES[q.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"flash-attention kernel launch failed: "
+            f"{lib.fa_error_string(rc).decode()} (cudaError {rc})")
+    launches += 1
+    return out

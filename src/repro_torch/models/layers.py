@@ -1,0 +1,289 @@
+"""Core layers: RMSNorm, RoPE, GQA attention (prefill/decode), MLP.
+
+Port of `repro/models/layers.py`. Params are plain dicts of tensors; each
+layer has a `*_defs()` (shapes, init scale, and the reference's logical
+sharding spec, kept as data) and a forward function.
+
+The prefill attention step (between `_qkv` and the output projection) runs
+the hand-written flash-attention kernel when q is on the card, and the
+reference's own code on the CPU: dense scores up to `CHUNK_THRESHOLD`, a
+query-chunked exact attention beyond it. Decode keeps the plain form on
+both devices: the kernel's causal mask is top-left aligned, which is not
+the mask of one query against a cache. The large products around attention
+(`_qkv`, `wo`, `mlp`) are plain matrix products, as in the reference.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.attention import flash_attention
+from .config import CONFIGS, PARALLEL, ModelConfig, not_ported
+
+CHUNK_THRESHOLD = 8192
+QUERY_CHUNK = 1024
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    if name not in DTYPES:
+        raise ValueError(f"unsupported dtype {name!r}; choose from "
+                         f"{sorted(DTYPES)}")
+    return DTYPES[name]
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamDef:
+    shape: Tuple[int, ...]
+    spec: Tuple[Optional[str], ...]          # logical sharding per dim (data)
+    scale: float = 1.0                       # stddev multiplier (0 => zeros)
+    dtype: str = "float32"
+    fan_in: Optional[int] = None             # contraction size (default dim 0)
+
+
+def init_param(generator: torch.Generator, d: ParamDef) -> torch.Tensor:
+    """N(0, (scale / sqrt(fan_in))^2) on the generator's device; zeros for
+    scale 0."""
+    dev = generator.device
+    if d.scale == 0.0:
+        return torch.zeros(d.shape, dtype=torch_dtype(d.dtype), device=dev)
+    fan_in = d.fan_in or d.shape[0]
+    std = d.scale / math.sqrt(max(fan_in, 1))
+    return (torch.randn(d.shape, generator=generator, dtype=torch.float32,
+                        device=dev) * std).to(torch_dtype(d.dtype))
+
+
+def init_tree(generator: torch.Generator, defs):
+    """A nested dict of ParamDef -> the same dict of tensors, drawn in the
+    reference's leaf order (sorted keys)."""
+    if isinstance(defs, ParamDef):
+        return init_param(generator, defs)
+    return {k: init_tree(generator, defs[k]) for k in sorted(defs)}
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm
+# ---------------------------------------------------------------------------
+
+def rmsnorm_defs(d_model: int):
+    return {"scale": ParamDef((d_model,), (None,), scale=0.0)}
+
+
+def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    dtype = x.dtype
+    x = x.to(torch.float32)
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * (1.0 + params["scale"].to(torch.float32))).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: broadcastable to (..., S). Rotate-half
+    layout, angles in f32."""
+    hd = x.shape[-1]
+    half = hd // 2
+    exps = torch.arange(half, dtype=torch.float32, device=x.device) / half
+    freqs = 1.0 / (theta ** exps)
+    ang = positions[..., None].to(torch.float32) * freqs     # (..., S, half)
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention (GQA; optional sliding window on the plain path)
+# ---------------------------------------------------------------------------
+
+def attention_defs(cfg: ModelConfig):
+    d, h, k = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+    hd = cfg.resolved_head_dim
+    defs = {
+        "wq": ParamDef((d, h, hd), ("fsdp", "tp", None)),
+        "wk": ParamDef((d, k, hd), ("fsdp", "tp", None)),
+        "wv": ParamDef((d, k, hd), ("fsdp", "tp", None)),
+        "wo": ParamDef((h, hd, d), ("tp", None, "fsdp"), fan_in=h * hd),
+    }
+    if cfg.qkv_bias:
+        defs["bq"] = ParamDef((h, hd), ("tp", None), scale=0.0)
+        defs["bk"] = ParamDef((k, hd), ("tp", None), scale=0.0)
+        defs["bv"] = ParamDef((k, hd), ("tp", None), scale=0.0)
+    return defs
+
+
+def _qkv(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(x.dtype))
+    k = torch.einsum("bsd,dhk->bshk", x, params["wk"].to(x.dtype))
+    v = torch.einsum("bsd,dhk->bshk", x, params["wv"].to(x.dtype))
+    if cfg.qkv_bias:
+        q = q + params["bq"].to(x.dtype)
+        k = k + params["bk"].to(x.dtype)
+        v = v + params["bv"].to(x.dtype)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor,
+               window: Optional[int]) -> torch.Tensor:
+    """(..., Sq, Sk) additive mask: causal + optional sliding window."""
+    ok = k_pos[..., None, :] <= q_pos[..., :, None]
+    if window is not None:
+        ok &= k_pos[..., None, :] > (q_pos[..., :, None] - window)
+    return torch.where(ok, 0.0, -torch.inf).to(torch.float32)
+
+
+def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+          bias: torch.Tensor, n_groups: int) -> torch.Tensor:
+    """q: (B,Sq,H,hd); k,v: (B,Sk,K,hd); bias (B?,Sq,Sk). GQA by repeating
+    the KV heads; scores in the input dtype, softmax in f32, probabilities
+    cast to v's dtype."""
+    hd = q.shape[-1]
+    if n_groups > 1:
+        k = k.repeat_interleave(n_groups, dim=2)
+        v = v.repeat_interleave(n_groups, dim=2)
+    scores = torch.einsum("bqhd,bshd->bhqs", q, k).to(torch.float32)
+    scores = scores / math.sqrt(hd) + bias[:, None]
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    return torch.einsum("bhqs,bshd->bqhd", probs, v)
+
+
+def prefill_attention_plain(cfg: ModelConfig, q: torch.Tensor,
+                            k: torch.Tensor, v: torch.Tensor,
+                            positions: torch.Tensor) -> torch.Tensor:
+    """The reference's attention step: dense up to CHUNK_THRESHOLD, then
+    exact attention over QUERY_CHUNK query blocks (never (S, S))."""
+    b, s = q.shape[:2]
+    n_groups = cfg.num_heads // cfg.num_kv_heads
+    if s <= CHUNK_THRESHOLD:
+        bias = _mask_bias(positions, positions, cfg.sliding_window)
+        return _sdpa(q, k, v, bias, n_groups)
+    s_pad = -(-s // QUERY_CHUNK) * QUERY_CHUNK
+    if s_pad != s:
+        q = F.pad(q, (0, 0, 0, 0, 0, s_pad - s))
+    # pad with the last position (a valid bias row); the output is sliced
+    pp = torch.cat([positions, positions[:, -1:].expand(b, s_pad - s)],
+                   dim=1)
+    outs = []
+    for c0 in range(0, s_pad, QUERY_CHUNK):
+        bias = _mask_bias(pp[:, c0:c0 + QUERY_CHUNK], positions,
+                          cfg.sliding_window)
+        outs.append(_sdpa(q[:, c0:c0 + QUERY_CHUNK], k, v, bias, n_groups))
+    return torch.cat(outs, dim=1)[:, :s]
+
+
+def prefill_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
+                      v: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """The prefill attention step: the flash-attention kernel on the card,
+    `prefill_attention_plain` on the CPU.
+
+    The kernel masks by index (key j visible to query i iff j <= i), so on
+    the card every row of `positions` must be 0..S-1, as `prefill` gives
+    them; checking that costs one host sync. Sliding-window attention is
+    not what the kernel masks and raises there.
+    """
+    if q.device.type != "cuda":
+        return prefill_attention_plain(cfg, q, k, v, positions)
+    if cfg.sliding_window is not None:
+        raise not_ported("sliding-window attention in the flash kernel",
+                         CONFIGS)
+    s = q.shape[1]
+    if not bool((positions == torch.arange(s, device=positions.device)).all()):
+        raise ValueError("the flash-attention kernel masks by index: "
+                         "positions must be 0..S-1 in every row")
+    return flash_attention(q, k, v, causal=True)
+
+
+def attention_with_kv(params, cfg: ModelConfig, x: torch.Tensor,
+                      positions: torch.Tensor, rules=None
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Causal GQA self-attention; returns (out, k, v) so prefill can cache."""
+    if rules is not None:
+        raise not_ported("rules=", PARALLEL)
+    q, k, v = _qkv(params, cfg, x, positions)
+    out = prefill_attention(cfg, q, k, v, positions)
+    out = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
+    return out, k, v
+
+
+# -- decode path ------------------------------------------------------------
+
+def attention_decode(params, cfg: ModelConfig, x: torch.Tensor,
+                     cache_k: torch.Tensor, cache_v: torch.Tensor,
+                     cur_len: int, rules=None):
+    """One-token decode. x: (B, 1, d); cache_*: (B, S_alloc, K, hd).
+
+    With sliding-window attention the cache is a ring buffer of the window
+    size: slot i holds the newest absolute position
+    p_i = cur_len - ((cur_len - i) mod S_alloc), exactly the visible set.
+
+    The new k, v are written into `cache_k`, `cache_v` in place (the
+    reference returns updated copies). Returns (out, cache_k, cache_v).
+    """
+    if rules is not None:
+        raise not_ported("rules=", PARALLEL)
+    b = x.shape[0]
+    cur = int(cur_len)
+    n_groups = cfg.num_heads // cfg.num_kv_heads
+    s_alloc = cache_k.shape[1]
+    positions = torch.full((b, 1), cur, dtype=torch.int32, device=x.device)
+    q, k, v = _qkv(params, cfg, x, positions)
+    ring = cfg.sliding_window is not None
+    slot = (cur % s_alloc) if ring else cur
+    if not 0 <= slot < s_alloc:
+        raise ValueError(f"decode position {cur} outside a cache of "
+                         f"{s_alloc} positions")
+    cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
+    cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
+    idx = torch.arange(s_alloc, dtype=torch.int32, device=x.device)
+    if ring:
+        k_pos = cur - torch.remainder(cur - idx, s_alloc)
+        valid = (k_pos >= 0) & (k_pos > cur - cfg.sliding_window)
+    else:
+        valid = idx <= cur
+    valid = valid.expand(b, s_alloc)
+    bias = torch.where(valid, 0.0, -torch.inf).to(torch.float32)[:, None, :]
+    out = _sdpa(q, cache_k.to(x.dtype), cache_v.to(x.dtype), bias, n_groups)
+    out = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
+    return out, cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+def mlp_defs(cfg: ModelConfig, d_ff: Optional[int] = None):
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    if cfg.mlp_type == "swiglu":
+        return {
+            "w_gate": ParamDef((d, f), ("fsdp", "tp")),
+            "w_up": ParamDef((d, f), ("fsdp", "tp")),
+            "w_down": ParamDef((f, d), ("tp", "fsdp")),
+        }
+    return {
+        "w_up": ParamDef((d, f), ("fsdp", "tp")),
+        "w_down": ParamDef((f, d), ("tp", "fsdp")),
+    }
+
+
+def mlp(params, cfg: ModelConfig, x: torch.Tensor, rules=None) -> torch.Tensor:
+    if rules is not None:
+        raise not_ported("rules=", PARALLEL)
+    if "w_gate" in params:
+        h = F.silu(x @ params["w_gate"].to(x.dtype))
+        h = h * (x @ params["w_up"].to(x.dtype))
+    else:
+        # jax.nn.gelu's default is the tanh approximation
+        h = F.gelu(x @ params["w_up"].to(x.dtype), approximate="tanh")
+    return h @ params["w_down"].to(x.dtype)

@@ -1,0 +1,67 @@
+"""Serving: batched prefill + single-token decode over a KV cache.
+
+Port of `repro/serving/engine.py` for the dense slice. Everything runs on
+the device the parameters live on (`init_params` / `params_from_reference`
+put them on the card unless asked for the CPU); there, every prefill
+attention layer runs the flash-attention kernel.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from ..models import transformer as T
+from ..models.config import FRONTENDS, PARALLEL, ModelConfig, not_ported
+
+PyTree = Any
+
+
+def make_prefill(cfg: ModelConfig, rules=None):
+    def prefill_fn(params, batch: Dict[str, torch.Tensor]):
+        return T.prefill(params, cfg, batch, rules)
+    return prefill_fn
+
+
+def make_decode_step(cfg: ModelConfig, rules=None):
+    def decode_fn(params, cache, tokens, cur_len):
+        return T.decode_step(params, cfg, cache, tokens, cur_len, rules)
+    return decode_fn
+
+
+def greedy_generate(cfg: ModelConfig, params, prompt: Dict[str, torch.Tensor],
+                    steps: int, s_max: int, rules=None) -> torch.Tensor:
+    """Prefill the prompt, then greedily decode `steps` tokens.
+
+    prompt["tokens"]: (B, S0) ids. Returns (B, steps + 1) int64 ids: the
+    argmax after the prompt and after each decoded token."""
+    if cfg.frontend is not None:
+        raise not_ported(f"greedy_generate for the {cfg.frontend.modality} "
+                         "frontend", FRONTENDS)
+    if rules is not None:
+        raise not_ported("rules=", PARALLEL)
+    tokens = prompt["tokens"]
+    b, s0 = tokens.shape
+    logits, cache = T.prefill(params, cfg, prompt)
+
+    # Re-home the prefill cache into a larger decode cache.
+    full = T.init_cache(cfg, b, s_max, device=logits.device)
+    for big_tree, small_tree in ((full.attn_k, cache.attn_k),
+                                 (full.attn_v, cache.attn_v)):
+        for key, small in small_tree.items():
+            big = big_tree[key]
+            if small.shape[2] == s0 and big.shape[2] == s_max:
+                big[:, :, :s0] = small
+            else:
+                big_tree[key] = small.to(big.dtype)
+    cache = full
+
+    out = []
+    cur = torch.argmax(logits, dim=-1)  # (B,)
+    for t in range(steps):
+        out.append(cur)
+        logits, cache = T.decode_step(params, cfg, cache, cur[:, None],
+                                      s0 + t)
+        cur = torch.argmax(logits, dim=-1)
+    out.append(cur)
+    return torch.stack(out, dim=-1)

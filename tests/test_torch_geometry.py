@@ -193,7 +193,10 @@ def test_entry_points_default_to_the_card():
 def test_port_imports_neither_jax_nor_repro():
     code = (
         "import sys, repro_torch, repro_torch.core, repro_torch.core.plan, "
-        "repro_torch.kernels.backproject, repro_torch.kernels.build\n"
+        "repro_torch.kernels.backproject, repro_torch.kernels.build, "
+        "repro_torch.kernels.attention, repro_torch.models.layers, "
+        "repro_torch.models.transformer, repro_torch.configs.qwen2_1_5b, "
+        "repro_torch.configs.yi_6b, repro_torch.serving\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print(bad)\n"

@@ -1,5 +1,5 @@
-"""Card-only tests of the port: the hand-written CUDA kernel against its
-plain torch version on the card, and the main path through it.
+"""Card-only tests of the port: the hand-written CUDA kernels against their
+plain torch versions on the card, and the main paths through them.
 
 Marked `gpu`; each test skips unless a CUDA device is present (decided
 inside the test, never at import). This file imports neither JAX nor the
@@ -7,16 +7,24 @@ JAX package, so it also runs on a machine without them:
 
     python -m pytest --noconftest -q -m gpu tests/test_torch_gpu.py
 """
+import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_smoke_config
 from repro_torch.core.filtering import make_filter
 from repro_torch.core.geometry import CBCTGeometry, projection_matrices
 from repro_torch.core.phantom import forward_project
 from repro_torch.core.plan import ReconstructionPlan
 from repro_torch.core.precision import CODECS
+from repro_torch.kernels.attention import attention_ref, flash_attention
+from repro_torch.kernels.attention import kernel as fak
 from repro_torch.kernels.backproject import kernel as bpk
 from repro_torch.kernels.backproject.ops import kernel_operands
+from repro_torch.kernels.build import CudaLibrary
+from repro_torch.models import layers
+from repro_torch.models.transformer import init_params, prefill
+from repro_torch.serving import greedy_generate
 
 pytestmark = pytest.mark.gpu
 
@@ -70,3 +78,130 @@ def test_wrapper_rejects_mixed_devices(cuda):
     qt = torch.zeros((3, 8, 6))
     with pytest.raises(ValueError, match="params13 on"):
         bpk.backproject_dual(params, qt, 4, 4, 4)
+
+
+# -- the flash-attention kernel ----------------------------------------------
+
+F32_TOL = 2e-5   # rtol = atol, the reference kernel's own f32 bound
+BF16_TOL = 0.02  # max abs, the reference kernel's bf16 bound
+
+
+def _qkv(bh, kvh, sq, sk, d, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    return tuple(
+        torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+        .to(device=device, dtype=dtype)
+        for shape in ((bh, sq, d), (kvh, sk, d), (kvh, sk, d)))
+
+
+# MHA at a tile multiple, GQA with a ragged S, MQA with D = 16 (padded to
+# 64 in the kernel), cross lengths, and the serving head dim.
+ATTN_SHAPES = [(4, 4, 128, 128, 64), (8, 2, 200, 200, 128),
+               (6, 1, 77, 77, 16), (4, 2, 96, 160, 32), (2, 2, 64, 64, 128)]
+
+
+@pytest.mark.parametrize("shape", ATTN_SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernel_matches_plain_version(cuda, shape, causal, dtype):
+    q, k, v = _qkv(*shape, dtype, cuda)
+    before = fak.launches
+    got = fak.flash_attention_bhsd(q, k, v, causal=causal)
+    assert fak.launches == before + 1
+    want = fak.flash_attention_bhsd_torch(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == dtype and got.shape == want.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=F32_TOL, atol=F32_TOL)
+    else:
+        assert float((got.float() - want.float()).abs().max()) < BF16_TOL
+
+
+def test_attention_gqa_matches_the_reference_oracle(cuda):
+    """The (B, S, H, D) wrapper reads KV head h // (H/K), as the repeat."""
+    rng = np.random.default_rng(1)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+               .to(cuda) for s in ((2, 130, 6, 32), (2, 130, 2, 32),
+                                   (2, 130, 2, 32)))
+    got = flash_attention(q, k, v, causal=True)
+    want = attention_ref(q, k, v, causal=True)
+    torch.testing.assert_close(got, want, rtol=F32_TOL, atol=F32_TOL)
+
+
+def test_attention_build_failure_raises(cuda, tmp_path, monkeypatch):
+    bad = tmp_path / "broken.cu"
+    bad.write_text("this is not CUDA C++\n")
+    monkeypatch.setattr(fak, "LIBRARY", CudaLibrary("broken", [bad]))
+    q, k, v = _qkv(2, 2, 64, 64, 32, torch.float32, cuda)
+    before = fak.launches
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        fak.flash_attention_bhsd(q, k, v)
+    assert fak.launches == before
+
+
+def test_attention_rejects_unsupported_head_dim(cuda):
+    q, k, v = _qkv(2, 2, 64, 64, 130, torch.float32, cuda)
+    with pytest.raises(ValueError, match="head dims"):
+        fak.flash_attention_bhsd(q, k, v)
+
+
+# -- the serving path --------------------------------------------------------
+
+def _to(tree, device):
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    return {k: _to(v, device) for k, v in tree.items()}
+
+
+def test_greedy_generate_on_the_card_runs_the_kernel(cuda):
+    """A 2-layer smoke model in f32: on the card every prefill layer
+    launches the kernel (a 37-token prompt, ragged for its 64-row tiles,
+    head dim 16), and the ids match the CPU's plain attention step."""
+    cfg = get_smoke_config("qwen2_1_5b").scaled(dtype="float32")
+    params = init_params(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (3, 37)))
+    want = greedy_generate(cfg, params, {"tokens": tokens}, steps=5,
+                           s_max=48)
+    before = fak.launches
+    got = greedy_generate(cfg, _to(params, cuda),
+                          {"tokens": tokens.to(cuda)}, steps=5, s_max=48)
+    torch.cuda.synchronize()
+    assert fak.launches == before + cfg.num_layers
+    assert got.device.type == "cuda"
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+
+
+def test_prefill_kernel_path_matches_the_plain_step_on_the_card(
+        cuda, monkeypatch):
+    """f32: the kernel path and the plain attention step differ only by
+    summation order (1e-5 of the largest |value|, for the logits and for
+    the second layer's cache, which sees the first layer's attention)."""
+    cfg = get_smoke_config("yi_6b").scaled(dtype="float32", head_dim=32)
+    params = init_params(cfg, seed=1, device=cuda)
+    tokens = torch.from_numpy(
+        np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 70))
+    ).to(cuda)
+    got, cache = prefill(params, cfg, {"tokens": tokens})
+    monkeypatch.setattr(layers, "prefill_attention",
+                        layers.prefill_attention_plain)
+    before = fak.launches
+    want, want_cache = prefill(params, cfg, {"tokens": tokens})
+    assert fak.launches == before
+    for g, w in ((got, want), (cache.attn_v["sub_0"],
+                               want_cache.attn_v["sub_0"])):
+        torch.testing.assert_close(g, w, rtol=0,
+                                   atol=1e-5 * float(w.abs().max()))
+
+
+def test_kernel_step_refuses_what_its_mask_cannot_express(cuda):
+    """On the card the prefill step masks by index: a sliding window or
+    positions other than 0..S-1 raise instead of computing another mask."""
+    cfg = get_smoke_config("qwen2_1_5b").scaled(dtype="float32")
+    q = torch.zeros((1, 8, cfg.num_heads, 16), device=cuda)
+    k = torch.zeros((1, 8, cfg.num_kv_heads, 16), device=cuda)
+    pos = torch.arange(8, device=cuda)[None]
+    with pytest.raises(NotImplementedError, match="item 18"):
+        layers.prefill_attention(cfg.scaled(sliding_window=4), q, k, k, pos)
+    with pytest.raises(ValueError, match="0..S-1"):
+        layers.prefill_attention(cfg, q, k, k, pos + 3)

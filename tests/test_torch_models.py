@@ -1,0 +1,282 @@
+"""Port parity for the LM substrate's configs and layers:
+`repro_torch.configs` and `repro_torch.models` against `repro`'s, on the
+CPU (the whole serving slice is held in test_torch_serving.py).
+
+Both packages get the same numpy inputs and the same weights: the
+reference draws them with jax.random and the port takes a copy. The
+reference functions run under jax.jit, which compiles each once instead of
+op by op. On the CPU the port's prefill attention step runs the reference's
+own code (`_sdpa`, or the query-chunked form past CHUNK_THRESHOLD), so in
+f32 the packages differ only by summation order: layers agree within
+1e-5 of the values' scale (`close`).
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as jconfigs
+from repro.models import config as jconfig
+from repro.models import layers as JL
+from repro.models import transformer as JT
+from repro_torch import configs as tconfigs
+from repro_torch.models import config as tconfig
+from repro_torch.models import layers as TL
+from repro_torch.models import transformer as TT
+
+torch.set_num_threads(1)
+
+ARCHS = ["qwen2_1_5b", "yi_6b"]
+LAYER_TOL = 1e-5
+
+
+def _rng(seed=0):
+    return np.random.default_rng(seed)
+
+
+def close(got, want, tol):
+    """max |got - want| <= tol * max(1, max |want|)."""
+    got = np.asarray(got, dtype=np.float32)
+    want = np.asarray(want, dtype=np.float32)
+    assert got.shape == want.shape
+    scale = max(1.0, float(np.abs(want).max()))
+    err = float(np.abs(got - want).max())
+    assert err <= tol * scale, (err, tol * scale)
+
+
+def as_np(t):
+    return t.detach().to(torch.float32).numpy()
+
+
+def cfgs(arch, dtype="float32", **over):
+    """The reference's and the port's smoke config, equally overridden."""
+    return (jconfigs.get_smoke_config(arch).scaled(dtype=dtype, **over),
+            tconfigs.get_smoke_config(arch).scaled(dtype=dtype, **over))
+
+
+def ref_params(jc, seed=0):
+    """The reference's init_params for `jc`, compiled once."""
+    return jax.jit(JT.init_params, static_argnums=0)(
+        jc, jax.random.PRNGKey(seed))
+
+
+def _flat_defs(defs, prefix=()):
+    if isinstance(defs, (JL.ParamDef, TL.ParamDef)):
+        return {prefix: (defs.shape, defs.spec, defs.scale, defs.dtype,
+                         defs.fan_in)}
+    out = {}
+    for k, v in defs.items():
+        out.update(_flat_defs(v, prefix + (k,)))
+    return out
+
+
+# -- configs -----------------------------------------------------------------
+
+@pytest.mark.parametrize("name", ARCHS + ["qwen2-1.5b", "yi-6b"])
+def test_configs_match_the_reference(name):
+    for get in ("get_config", "get_smoke_config"):
+        want = getattr(jconfigs, get)(name)
+        got = getattr(tconfigs, get)(name)
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+        assert got.repeats == want.repeats
+        assert got.resolved_head_dim == want.resolved_head_dim
+        assert tconfig.count_params(got) == jconfig.count_params(want)
+
+
+def test_count_params_every_family():
+    """count_params is pure arithmetic over any reference config."""
+    for name in jconfigs.list_archs():
+        want = jconfigs.get_config(name)
+        fields = dataclasses.asdict(want)
+        fields["pattern"] = tuple(tconfig.SubLayer(**s)
+                                  for s in fields["pattern"])
+        for key, cls in (("moe", tconfig.MoEConfig), ("ssm", tconfig.SSMConfig),
+                         ("frontend", tconfig.FrontendConfig)):
+            if fields[key] is not None:
+                fields[key] = cls(**fields[key])
+        got = tconfig.ModelConfig(**fields)
+        assert tconfig.count_params(got) == jconfig.count_params(want), name
+
+
+def test_registry_lists_ported_and_names_the_rest():
+    assert tconfigs.list_archs() == ARCHS
+    for name in set(jconfigs.list_archs()) - set(ARCHS):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
+            tconfigs.get_config(name)
+    with pytest.raises(ValueError, match="unknown architecture"):
+        tconfigs.get_config("gpt-17")
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_model_defs_match_the_reference(arch):
+    """Same keys, shapes, specs, init scales, dtypes and fan_in (the stacked
+    defs keep none, as in the reference)."""
+    jc, tc = cfgs(arch)
+    assert _flat_defs(TT.model_defs(tc)) == _flat_defs(JT.model_defs(jc))
+    jc, tc = (c.scaled(tie_embeddings=not c.tie_embeddings) for c in (jc, tc))
+    assert _flat_defs(TT.model_defs(tc)) == _flat_defs(JT.model_defs(jc))
+
+
+def test_init_params_follows_the_param_defs():
+    _, tc = cfgs("qwen2_1_5b")
+    params = TT.init_params(tc, seed=0, device="cpu")
+    again = TT.init_params(tc, seed=0, device="cpu")
+    other = TT.init_params(tc, seed=1, device="cpu")
+    defs = _flat_defs(TT.model_defs(tc))
+    flat = {}
+
+    def walk(tree, prefix=()):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, prefix + (k,))
+            else:
+                flat[prefix + (k,)] = v
+    walk(params)
+    assert set(flat) == set(defs)
+    assert TT.param_count(params) == tconfig.count_params(tc)
+    for path, (shape, _, scale, dtype, fan_in) in defs.items():
+        t = flat[path]
+        assert tuple(t.shape) == shape and t.dtype == torch.float32
+        if scale == 0.0:
+            assert not t.any()
+        else:
+            std = scale / np.sqrt(fan_in or shape[0])
+            assert abs(float(t.std()) / std - 1) < 0.2, path
+    assert torch.equal(params["embed"], again["embed"])
+    assert not torch.equal(params["embed"], other["embed"])
+
+
+# -- layers ------------------------------------------------------------------
+
+def test_rmsnorm_matches_the_reference():
+    x = _rng().standard_normal((2, 5, 64), dtype=np.float32) * 3
+    scale = _rng(1).standard_normal(64, dtype=np.float32) * 0.1
+    want = JL.rmsnorm({"scale": jnp.asarray(scale)}, jnp.asarray(x), 1e-6)
+    got = TL.rmsnorm({"scale": torch.from_numpy(scale)}, torch.from_numpy(x),
+                     1e-6)
+    close(as_np(got), want, LAYER_TOL)
+
+
+@pytest.mark.parametrize("theta", [10_000.0, 1_000_000.0])
+def test_rope_matches_the_reference(theta):
+    x = _rng().standard_normal((2, 9, 3, 16), dtype=np.float32)
+    pos = np.array([np.arange(9), np.arange(5, 14)], dtype=np.int32)
+    want = JL.rope(jnp.asarray(x), jnp.asarray(pos), theta)
+    got = TL.rope(torch.from_numpy(x), torch.from_numpy(pos), theta)
+    close(as_np(got), want, LAYER_TOL)
+
+
+def _attn_params(arch, seed=0):
+    """One attention layer's reference weights and the port's copy."""
+    jc, tc = cfgs(arch)
+    defs = JL.attention_defs(jc)
+    jp = jax.jit(lambda key: JL.init_tree(key, defs))(
+        jax.random.PRNGKey(seed))
+    tp = {k: torch.from_numpy(np.array(v)) for k, v in jp.items()}
+    return jc, jp, tc, tp
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("chunked", [False, True])
+def test_attention_with_kv_matches_the_reference(arch, chunked, monkeypatch):
+    """Dense scores, and the query-chunked form past a lowered threshold
+    (S = 10 over chunks of 4: the last chunk padded)."""
+    if chunked:
+        for mod in (JL, TL):
+            monkeypatch.setattr(mod, "CHUNK_THRESHOLD", 8)
+            monkeypatch.setattr(mod, "QUERY_CHUNK", 4)
+    jc, jp, tc, tp = _attn_params(arch)
+    x = _rng(2).standard_normal((2, 10, jc.d_model), dtype=np.float32)
+    pos = np.broadcast_to(np.arange(10, dtype=np.int32), (2, 10))
+    want = jax.jit(JL.attention_with_kv, static_argnums=1)(
+        jp, jc, jnp.asarray(x), jnp.asarray(pos))
+    got = TL.attention_with_kv(tp, tc, torch.from_numpy(x),
+                               torch.from_numpy(pos.copy()))
+    for g, w in zip(got, want):
+        close(as_np(g), w, LAYER_TOL)
+
+
+@pytest.mark.parametrize("window", [None, 6])
+def test_attention_decode_matches_the_reference(window):
+    """One token against a partly filled cache; with a window the cache is
+    a ring buffer (6 slots, position 9 goes to slot 3)."""
+    jc, jp, tc, tp = _attn_params("qwen2_1_5b")
+    jc, tc = (c.scaled(sliding_window=window) for c in (jc, tc))
+    s_alloc, cur = (12, 7) if window is None else (6, 9)
+    rng = _rng(4)
+    x = rng.standard_normal((2, 1, jc.d_model), dtype=np.float32)
+    shape = (2, s_alloc, jc.num_kv_heads, jc.resolved_head_dim)
+    ck = rng.standard_normal(shape, dtype=np.float32)
+    cv = rng.standard_normal(shape, dtype=np.float32)
+    want = jax.jit(JL.attention_decode, static_argnums=1)(
+        jp, jc, jnp.asarray(x), jnp.asarray(ck), jnp.asarray(cv),
+        jnp.int32(cur))
+    got = TL.attention_decode(tp, tc, torch.from_numpy(x),
+                              torch.from_numpy(ck.copy()),
+                              torch.from_numpy(cv.copy()), cur)
+    for g, w in zip(got, want):
+        close(as_np(g), w, LAYER_TOL)
+
+
+@pytest.mark.parametrize("mlp_type", ["swiglu", "gelu"])
+def test_mlp_matches_the_reference(mlp_type):
+    jc, tc = cfgs("yi_6b", mlp_type=mlp_type)
+    defs = JL.mlp_defs(jc)
+    jp = jax.jit(lambda key: JL.init_tree(key, defs))(jax.random.PRNGKey(3))
+    tp = {k: torch.from_numpy(np.array(v)) for k, v in jp.items()}
+    x = _rng(5).standard_normal((2, 7, jc.d_model), dtype=np.float32)
+    want = JL.mlp(jp, jc, jnp.asarray(x))
+    close(as_np(TL.mlp(tp, tc, torch.from_numpy(x))), want, LAYER_TOL)
+
+
+# -- weights, devices, and what the slice leaves out --------------------------
+
+def test_params_from_reference_checks_keys_and_shapes():
+    jc, tc = cfgs("qwen2_1_5b")
+    tree = jax.tree.map(np.asarray, ref_params(jc))
+    bad = dict(tree, embed=tree["embed"][:-1])
+    with pytest.raises(ValueError, match="embed: shape"):
+        TT.params_from_reference(bad, tc, device="cpu")
+    missing = {k: v for k, v in tree.items() if k != "final_norm"}
+    with pytest.raises(ValueError, match="keys"):
+        TT.params_from_reference(missing, tc, device="cpu")
+    bf16 = jax.tree.map(lambda a: np.asarray(jnp.asarray(a, jnp.bfloat16)),
+                        tree)
+    got = TT.params_from_reference(bf16, tc, device="cpu")
+    assert got["embed"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(as_np(got["embed"]),
+                                  bf16["embed"].astype(np.float32))
+
+
+def test_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default is satisfiable")
+    _, tc = cfgs("qwen2_1_5b")
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        TT.init_params(tc, seed=0)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        TT.init_cache(tc, 1, 8)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        TT.params_from_reference({}, tc)
+
+
+def test_what_the_slice_leaves_out_raises():
+    _, tc = cfgs("qwen2_1_5b")
+    moe = tc.scaled(pattern=(tconfig.SubLayer(ffn="moe"),),
+                    moe=tconfig.MoEConfig(num_experts=2, top_k=1,
+                                          d_ff_expert=8))
+    ssm = tc.scaled(pattern=(tconfig.SubLayer(kind="ssm"),),
+                    ssm=tconfig.SSMConfig())
+    vlm = tc.scaled(frontend=tconfig.FrontendConfig(modality="vision"))
+    for cfg in (moe, ssm, vlm):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
+            TT.model_defs(cfg)
+    tp = TT.init_params(tc, seed=0, device="cpu")
+    toks = torch.zeros((1, 4), dtype=torch.int64)
+    with pytest.raises(NotImplementedError, match="item 19"):
+        TT.prefill(tp, tc, {"tokens": toks}, rules=object())
+    with pytest.raises(NotImplementedError, match="item 14"):
+        TT.loss_fn(tp, tc, {"tokens": toks})
