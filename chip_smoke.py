@@ -10,7 +10,8 @@ Phases, in order; any failure exits non-zero:
 1. Device: the card's name and power limit (nvidia-smi), its torch name and
    the device count.
 2. Build: both hand-written kernels from the checkout's sources, one library
-   after the other; build seconds and the -Xptxas -v reports.
+   after the other; build seconds and the -Xptxas -v reports (registers,
+   static shared memory and spill bytes of each kernel).
 3. Back-projection kernel vs plain version: the kernel against its plain
    torch version on the same encoded stream, for all five codecs, at the
    full 512^3 width on the first 32 RabbitCT projections and at
@@ -22,10 +23,14 @@ Phases, in order; any failure exits non-zero:
    impl="kernel", precision=...).build()(proj) for fp32 and fp16 on
    projections from the port's forward_project. Per run: seconds, GUPS,
    peak device memory, kernel launches (> 0), interior RMSE vs the phantom
-   (< 0.17); and fp16 within Precision("fp16").rmse_tol() of fp32.
+   (< 0.17); and fp16 within Precision("fp16").rmse_tol() of fp32. The
+   share of (tile, projection) pairs whose footprint boxes exceeded the
+   kernel's staging buffer and were gathered from global memory.
 5. Back-projection kernel time at that path's shapes (CUDA events over 10
-   launches after a warm-up), beside the bound; the plain version's time,
-   and the kernel's beside it, on the 32-projection subset.
+   launches after a warm-up), beside the bound; the same kernel with a
+   staging budget of 0, so that every projection is gathered from global
+   memory (the design without staged taps); the plain version's time, and
+   the kernel's beside it, on the 32-projection subset.
 6. Attention kernel vs plain version at the serving shapes (4 requests x 12
    heads over 2 KV heads, S = 2048, D = 128, inputs from numpy): f32 causal
    and non-causal within rtol = atol = 2e-5 (the reference kernel's test
@@ -43,8 +48,8 @@ Phases, in order; any failure exits non-zero:
    after a warm-up) for bf16 and f32, beside the bound, the plain version's
    time and torch's scaled_dot_product_attention on the same tensors (the
    library yardstick; the port never calls it).
-9. The `kernels` JSON line, the card's name and power limit, and last
-   `{"ok": true, "device": {...}}`.
+9. The `kernels` JSON line (each kernel with the PR of its design), the
+   card's name and power limit, and last `{"ok": true, "device": {...}}`.
 
 The RabbitCT geometry is the public back-projection benchmark's size (496
 projections of 1248 x 960 pixels into 512^3; Rohkohl et al., Med. Phys.
@@ -83,6 +88,9 @@ PEAK_BF16_OPS_PER_S = 989e12  # H100 SXM bf16, dense tensor cores
 # not the function's.
 COLUMN_OPS = 21
 PAIR_OPS = 35
+# The change that made each kernel's design.
+DESIGN = {"bp_dual_kernel<float>": "PR 13", "bp_dual_kernel<__half>": "PR 13",
+          "fa_fwd_bf16_kernel": "PR 13", "fa_fwd_f32_kernel": "PR 12"}
 TIMED_LAUNCHES = 10
 PLAIN_RUNS = 3
 CODECS = ("fp32", "bf16", "fp16", "fp8_e4m3", "fp8_e5m2")
@@ -243,13 +251,16 @@ def reconstruction(dev) -> list:
         sync()
         dt = time.perf_counter() - t0
         launches[codec] = bpk.launches
+        direct = int(bpk.direct_pairs)
         peak = torch.cuda.max_memory_allocated()
         if tuple(vol.shape) != g.volume_shape() or not torch.isfinite(vol).all():
             fail(f"reconstruction {codec}: bad volume {tuple(vol.shape)}")
         rmse = interior_rmse(vol, phantom)
         print(f"[recon] {codec}: {dt:.4f} s, {gups(g, dt):.2f} GUPS, peak "
               f"{peak / 2**30:.2f} GiB, kernel launches {launches[codec]}, "
-              f"interior RMSE vs phantom {rmse:.4f} (bound {RMSE_BOUND})")
+              f"interior RMSE vs phantom {rmse:.4f} (bound {RMSE_BOUND}); "
+              f"direct-gather (tile, projection) pairs {direct} of "
+              f"{bpk.tile_pairs} ({direct / bpk.tile_pairs:.4%})")
         if launches[codec] < 1:
             fail(f"reconstruction {codec} did not launch the kernel")
         if not rmse < RMSE_BOUND:
@@ -282,9 +293,15 @@ def reconstruction(dev) -> list:
           f"({pairs / all_pairs:.2%}); {n_ops:.4e} operations, "
           f"{n_ops / (2 * all_pairs):.3f} per voxel update")
     for codec in MAIN_PATH_CODECS:
+        name = "bp_dual_kernel<%s>" % {"fp32": "float", "fp16": "__half"}[codec]
         params, qt = kernel_inputs(g, proj, codec)
         ms = event_ms(lambda: bpk.backproject_dual(params, qt, *shape),
                       TIMED_LAUNCHES)
+        sync()
+        direct_share = int(bpk.direct_pairs) / bpk.tile_pairs
+        unstaged_ms = event_ms(
+            lambda: bpk.backproject_dual(params, qt, *shape, stage_bytes=0),
+            TIMED_LAUNCHES)
         n_bytes = (params.numel() * 4 + qt.numel() * qt.element_size()
                    + g.n_x * g.n_y * g.n_z * 4)
         bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
@@ -301,13 +318,15 @@ def reconstruction(dev) -> list:
         del params, qt
         print(f"[bp-time] {codec}: kernel {ms:.3f} ms ({gups(g, ms / 1e3):.1f} "
               f"GUPS), bound {bound_ms:.3f} ms (bytes {bytes_ms:.3f} ms, "
-              f"operations {ops_ms:.3f} ms), {bound_ms / ms:.1%} of bound; "
-              f"on {SUBSET} projections: kernel {sub_ms:.3f} ms, plain "
-              f"{plain_ms:.1f} ms; library_ms null: no single PyTorch call "
-              "computes a weighted back-projection")
-        dtype_name = {"fp32": "float", "fp16": "__half"}[codec]
+              f"operations {ops_ms:.3f} ms), {bound_ms / ms:.1%} of bound, "
+              f"{direct_share:.4%} of (tile, projection) pairs "
+              f"gathered directly; staging budget 0 (every pair gathered "
+              f"directly) {unstaged_ms:.3f} ms; on {SUBSET} projections: "
+              f"kernel {sub_ms:.3f} ms, plain {plain_ms:.1f} ms; "
+              "library_ms null: no single PyTorch call computes a weighted "
+              "back-projection")
         entries.append({
-            "name": f"bp_dual_kernel<{dtype_name}>",
+            "name": name,
             "route": "cuda",
             "source": "src/repro_torch/kernels/backproject/csrc/backproject.cu",
             "replaces": "src/repro/kernels/backproject/kernel.py:72",
@@ -320,6 +339,7 @@ def reconstruction(dev) -> list:
             "bound_ms": bound_ms,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None,
+            "design": DESIGN[name],
         })
 
     return entries
@@ -574,9 +594,10 @@ def attention_timing(cfg, dev, launches: dict, max_abs: dict) -> list:
     # causal: query i meets keys 0..i, 2 D operations each for q.k and p.v
     flops = 4 * d * s * (s + 1) / 2 * BATCH * h
     entries = []
-    for dtype, name, peak in ((torch.bfloat16, "__nv_bfloat16",
+    for dtype, name, peak in ((torch.bfloat16, "fa_fwd_bf16_kernel",
                                PEAK_BF16_OPS_PER_S),
-                              (torch.float32, "float", PEAK_F32_OPS_PER_S)):
+                              (torch.float32, "fa_fwd_f32_kernel",
+                               PEAK_F32_OPS_PER_S)):
         q, k, v = attention_operands(cfg, s, dtype, dev, seed=SEED)
         ms = event_ms(lambda: fak.flash_attention_bhsd(q, k, v), ATTN_RUNS)
         plain_ms = event_ms(lambda: fak.flash_attention_bhsd_torch(q, k, v),
@@ -594,13 +615,13 @@ def attention_timing(cfg, dev, launches: dict, max_abs: dict) -> list:
         bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
         ops_ms = flops / peak * 1e3
         bound_ms = max(bytes_ms, ops_ms)
-        print(f"[attn-time] {dtype}: kernel {ms:.3f} ms "
+        print(f"[attn-time] {dtype} {name}: kernel {ms:.3f} ms "
               f"({flops / ms / 1e9:.2f} TFLOP/s), bound {bound_ms:.4f} ms "
               f"(operations {ops_ms:.4f} ms, bytes {bytes_ms:.4f} ms), "
               f"{bound_ms / ms:.2%} of bound; plain {plain_ms:.3f} ms; "
               f"scaled_dot_product_attention {lib_ms:.3f} ms")
         entries.append({
-            "name": f"fa_fwd_kernel<{name}>",
+            "name": name,
             "route": "cuda",
             "source": "src/repro_torch/kernels/attention/csrc/attention.cu",
             "replaces": "src/repro/kernels/attention/kernel.py:33",
@@ -611,6 +632,7 @@ def attention_timing(cfg, dev, launches: dict, max_abs: dict) -> list:
             "bound_ms": bound_ms,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": lib_ms,
+            "design": DESIGN[name],
         })
         del q, k, v, q4, k4, v4
     return entries

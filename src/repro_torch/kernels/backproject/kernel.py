@@ -12,10 +12,14 @@ and accumulation is f32.
 
 The kernel is `csrc/backproject.cu` (CUDA C++ for sm_90a, plain C
 interface, loaded with ctypes). What bounds it on an H100 and what its
-design does about that is noted at the top of that source: one thread per
-mirrored voxel pair loops over every projection with both accumulators in
-registers, so each output element is written once, with no atomics and a
-fixed (deterministic) summation order.
+design does about that is noted at the top of that source: a block owns a
+tile of columns x k (`tile()`), loops over every projection with its
+accumulators in registers (each output element written once, no atomics,
+a fixed and deterministic summation order), and gathers the taps from
+the footprint boxes of Q^T that it stages in shared memory.
+`footprint_boxes` is that rule in plain torch. A (tile, projection) whose
+boxes exceed the staging buffer is gathered from global memory inside the
+same kernel with the same arithmetic; `direct_pairs` counts them.
 
 `backproject_dual_torch` is the plain torch version of the same function
 with the kernel's arithmetic in the kernel's order; `backproject_dual`
@@ -25,7 +29,9 @@ kernel or raises. `launches` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
+import math
 from pathlib import Path
+from typing import Optional, Tuple
 
 import torch
 
@@ -44,16 +50,31 @@ WIRE_DTYPES = {
 }
 
 launches = 0  # kernel launches by backproject_dual (never by the plain path)
+# (tile, projection) pairs of the last launch whose boxes exceeded the
+# staging buffer and were gathered from global memory, as a 1-element
+# int64 tensor on the card (read it after a synchronize), and all pairs.
+direct_pairs: Optional[torch.Tensor] = None
+tile_pairs = 0
 
 
 def _bound_library() -> ctypes.CDLL:
     lib = LIBRARY.load()
     lib.bp_dual_launch.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2)
     lib.bp_dual_launch.restype = ctypes.c_int
     lib.bp_error_string.argtypes = [ctypes.c_int]
     lib.bp_error_string.restype = ctypes.c_char_p
+    lib.bp_tile.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.bp_tile.restype = None
     return lib
+
+
+def tile() -> Tuple[int, int, int]:
+    """The kernel's block: a tile of (i, j) columns x k values of the dual
+    slab, as the CUDA source defines it (builds the library)."""
+    out = (ctypes.c_int * 3)()
+    _bound_library().bp_tile(out)
+    return tuple(out)
 
 
 def _check(params13: torch.Tensor, qt: torch.Tensor,
@@ -130,30 +151,90 @@ def backproject_dual_torch(params13: torch.Tensor, qt: torch.Tensor,
     return torch.stack([acc_f, acc_b], dim=-2)
 
 
+def footprint_boxes(params13: torch.Tensor, nu: int, nv: int,
+                    lo: Tuple[int, int, int], hi: Tuple[int, int, int]
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The footprint rule: which Q^T pixels the gathers of a block of voxel
+    pairs can read, per projection.
+
+    The block is [lo, hi] (inclusive (i, j, k), k < nz/2). u and v are
+    ratios of affine functions of (i, j, k) whose denominator z keeps its
+    sign over the block, so their extremes lie at its 8 corners; a pair's
+    taps lie in [floor(x), floor(x) + 1] on each axis. With one pixel of
+    margin, clipped to the detector: rows [floor(u_min) - 1, floor(u_max) +
+    2], front columns likewise from v, mirror columns from (N_v - 1) - v.
+    The corner coordinates are the kernel's own f32 chain (the plain
+    version's arithmetic), so the kernel computes the same boxes.
+
+    Returns int64 (Np, 6): rows, front columns, mirror columns, each as an
+    inclusive [lo, hi] (lo > hi: empty); and bool (Np,): z > 0 at every
+    corner (where it is not, the rule does not hold).
+    """
+    p = params13.to(torch.float32)
+    corners = [(a, b, c) for a in (lo[0], hi[0]) for b in (lo[1], hi[1])
+               for c in (lo[2], hi[2])]
+    us, vs, zs = [], [], []
+    for i, j, k in corners:
+        x0 = p[:, 0] * float(i) + p[:, 1] * float(j) + p[:, 3]
+        y0 = p[:, 4] * float(i) + p[:, 5] * float(j) + p[:, 7]
+        z = p[:, 8] * float(i) + p[:, 9] * float(j) + p[:, 11]
+        f = 1.0 / z
+        us.append(x0 * f)
+        vs.append((y0 + p[:, 6] * float(k)) * f)
+        zs.append(z)
+    u, v, z = (torch.stack(t) for t in (us, vs, zs))
+    vmax = float(nv - 1)
+
+    def rng(xmin, xmax, n):
+        a = (torch.floor(xmin) - 1).clamp(0, n)
+        b = (torch.floor(xmax) + 2).clamp(-1, n - 1)
+        return a.to(torch.int64), b.to(torch.int64)
+
+    rows = rng(u.amin(0), u.amax(0), nu)
+    front = rng(v.amin(0), v.amax(0), nv)
+    mirror = rng(vmax - v.amax(0), vmax - v.amin(0), nv)
+    return (torch.stack([*rows, *front, *mirror], dim=1),
+            (z > 0).all(dim=0))
+
+
 def backproject_dual(params13: torch.Tensor, qt: torch.Tensor,
-                     nx: int, ny: int, nz: int) -> torch.Tensor:
+                     nx: int, ny: int, nz: int,
+                     stage_bytes: Optional[int] = None) -> torch.Tensor:
     """Dual-slab back-projection: the CUDA kernel for tensors on the card,
-    the plain torch version for tensors on the CPU."""
+    the plain torch version for tensors on the CPU.
+
+    `stage_bytes` is the kernel's shared-memory staging budget (default:
+    the CUDA source's); a (tile, projection) whose boxes exceed half of it
+    is gathered from global memory with the same arithmetic, and counted
+    in `direct_pairs`. With 0, every projection is gathered so."""
     _check(params13, qt, nx, ny, nz)
+    if stage_bytes is not None and stage_bytes < 0:
+        raise ValueError(f"stage_bytes must be >= 0, got {stage_bytes}")
     if qt.device.type == "cpu":
         return backproject_dual_torch(params13, qt, nx, ny, nz)
     if qt.device.type != "cuda":
         raise ValueError(f"no back-projection kernel for device {qt.device}")
-    global launches
+    global launches, direct_pairs, tile_pairs
     lib = _bound_library()
     params13 = params13.contiguous()
     qt = qt.contiguous()
     n_p, nu, nv = qt.shape
     out = torch.empty((nx, ny, 2, nz // 2), dtype=torch.float32,
                       device=qt.device)
+    count = torch.zeros(1, dtype=torch.int64, device=qt.device)
     with torch.cuda.device(qt.device):
         stream = torch.cuda.current_stream(qt.device).cuda_stream
         rc = lib.bp_dual_launch(params13.data_ptr(), qt.data_ptr(),
                                 out.data_ptr(), n_p, nu, nv, nx, ny, nz // 2,
-                                WIRE_DTYPES[qt.dtype], stream)
+                                WIRE_DTYPES[qt.dtype],
+                                -1 if stage_bytes is None else stage_bytes,
+                                count.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(
             f"back-projection kernel launch failed: "
             f"{lib.bp_error_string(rc).decode()} (cudaError {rc})")
     launches += 1
+    direct_pairs = count
+    tile_pairs = n_p * math.prod(-(-n // t) for n, t in
+                                 zip((nx, ny, nz // 2), tile()))
     return out

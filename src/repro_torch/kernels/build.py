@@ -103,4 +103,4 @@ class CudaLibrary:
         if not self.log_path.exists():
             return ""
         return "\n".join(line for line in self.log_path.read_text().splitlines()
-                         if "ptxas" in line)
+                         if "ptxas" in line or "spill" in line)

@@ -211,5 +211,110 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case):
         tker.backproject_dual(params, qt.to(torch.float64), *SHAPE)
     with pytest.raises(ValueError, match=r"\(Np, Nu, Nv\)"):
         tker.backproject_dual(params, qt[0], *SHAPE)
+    with pytest.raises(ValueError, match="stage_bytes must be >= 0"):
+        tker.backproject_dual(params, qt, *SHAPE, stage_bytes=-1)
     with pytest.raises(ValueError, match="no back-projection kernel"):
         tker.backproject_dual(params.to("meta"), qt.to("meta"), *SHAPE)
+
+
+# -- the kernel's footprint rule ---------------------------------------------
+
+def _shifted(pm, du, dv):
+    """The matrices with the detector moved by (du, dv) pixels."""
+    pm = pm.copy()
+    pm[:, 0, :] += du * pm[:, 2, :]
+    pm[:, 1, :] += dv * pm[:, 2, :]
+    return pm
+
+
+def _footprint_case(name):
+    g = jgeo.default_geometry(24 if name == "default_geometry(24)" else 16)
+    pm = np.asarray(jgeo.projection_matrices(g))
+    if name == "shifted detector":   # part of the volume misses it
+        pm = _shifted(pm, 0.6 * g.n_u, -0.2 * g.n_v)
+    return g, pm
+
+
+def _plain_coordinates(monkeypatch, params, nu, nv, shape):
+    """(u, v, v~) of every pair and projection, (Np, nx, ny, nz/2), as
+    backproject_dual_torch hands them to its gather."""
+    calls = []
+    gather = tker._bilinear_flat
+
+    def spy(qflat, nu_, nv_, rows, cols):
+        calls.append((rows.expand(cols.shape).clone(), cols.clone()))
+        return gather(qflat, nu_, nv_, rows, cols)
+
+    monkeypatch.setattr(tker, "_bilinear_flat", spy)
+    qt = torch.zeros((params.shape[0], nu, nv))
+    tker.backproject_dual_torch(params, qt, *shape)
+    return (torch.stack([c[0] for c in calls[0::2]]),
+            torch.stack([c[1] for c in calls[0::2]]),
+            torch.stack([c[1] for c in calls[1::2]]))
+
+
+def _taps_outside(u, v, rows, cols, nu, nv):
+    """Taps on the detector that the gathers at (u, v) read outside the
+    inclusive boxes rows, cols (Np, 2), counted."""
+    r0, c0 = torch.floor(u).long(), torch.floor(v).long()
+    lim = [b.reshape(-1, *([1] * (u.dim() - 1))) for b in
+           (rows[:, 0], rows[:, 1], cols[:, 0], cols[:, 1])]
+    bad = 0
+    for r in (r0, r0 + 1):
+        for c in (c0, c0 + 1):
+            on = (r >= 0) & (r < nu) & (c >= 0) & (c < nv)
+            inside = ((r >= lim[0]) & (r <= lim[1]) & (c >= lim[2])
+                      & (c <= lim[3]))
+            bad += int((on & ~inside).sum())
+    return bad
+
+
+@pytest.mark.parametrize("tile", [(8, 8, 64), (3, 5, 4)])
+@pytest.mark.parametrize("name", ["default_geometry(16)",
+                                  "default_geometry(24)", "shifted detector"])
+def test_footprint_boxes_hold_every_tap(monkeypatch, name, tile):
+    """Every tap the plain version reads for the pairs of a tile, front and
+    mirror, lies in the footprint boxes of that tile and projection."""
+    g, pm = _footprint_case(name)
+    params = torch.from_numpy(_params13(pm, None))
+    nzh = g.n_z // 2
+    u, vf, vm = _plain_coordinates(monkeypatch, params, g.n_u, g.n_v,
+                                   (g.n_x, g.n_y, g.n_z))
+    n_taps = n_empty = 0
+    for i0 in range(0, g.n_x, tile[0]):
+        for j0 in range(0, g.n_y, tile[1]):
+            for k0 in range(0, nzh, tile[2]):
+                hi = (min(i0 + tile[0], g.n_x) - 1,
+                      min(j0 + tile[1], g.n_y) - 1,
+                      min(k0 + tile[2], nzh) - 1)
+                boxes, ok = tker.footprint_boxes(params, g.n_u, g.n_v,
+                                                 (i0, j0, k0), hi)
+                assert ok.all()
+                sl = (slice(None), slice(i0, hi[0] + 1),
+                      slice(j0, hi[1] + 1), slice(k0, hi[2] + 1))
+                for v, cols in ((vf, boxes[:, 2:4]), (vm, boxes[:, 4:6])):
+                    assert _taps_outside(u[sl], v[sl], boxes[:, 0:2], cols,
+                                         g.n_u, g.n_v) == 0
+                n_taps += u[sl].numel()
+                n_empty += int((boxes[:, 0] > boxes[:, 1]).sum())
+    assert n_taps == g.n_proj * g.n_x * g.n_y * nzh
+    if name == "shifted detector":
+        assert n_empty > 0   # some tiles miss the detector there
+
+
+@pytest.mark.parametrize("axis", ["u", "v"])
+def test_footprint_box_is_empty_off_the_detector(axis):
+    """A tile whose columns all project past the detector's edge gets an
+    empty box: no rows (u), or no front and no mirror columns (v)."""
+    g = jgeo.default_geometry(16)
+    shift = (3.0 * g.n_u, 0.0) if axis == "u" else (0.0, 3.0 * g.n_v)
+    pm = _shifted(np.asarray(jgeo.projection_matrices(g)), *shift)
+    params = torch.from_numpy(_params13(pm, None))
+    boxes, ok = tker.footprint_boxes(params, g.n_u, g.n_v, (0, 0, 0),
+                                     (7, 7, 7))
+    assert ok.all()
+    if axis == "u":
+        assert bool((boxes[:, 0] > boxes[:, 1]).all())
+    else:
+        assert bool((boxes[:, 2] > boxes[:, 3]).all())
+        assert bool((boxes[:, 4] > boxes[:, 5]).all())

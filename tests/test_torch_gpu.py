@@ -59,6 +59,58 @@ def test_kernel_matches_plain_version(cuda, codec):
     assert rel <= REL
 
 
+def _tile_boxes(params):
+    """The footprint boxes of every kernel tile of G, (Np, 6) each."""
+    ti, tj, tk = bpk.tile()
+    nzh = G.n_z // 2
+    return [bpk.footprint_boxes(
+                params.cpu(), G.n_u, G.n_v, (i0, j0, k0),
+                (min(i0 + ti, G.n_x) - 1, min(j0 + tj, G.n_y) - 1,
+                 min(k0 + tk, nzh) - 1))[0]
+            for i0 in range(0, G.n_x, ti) for j0 in range(0, G.n_y, tj)
+            for k0 in range(0, nzh, tk)]
+
+
+def _edge_operands(cuda, codec):
+    """G's projections with the detector moved by a third of its width, so
+    that column tiles straddle its edge, encoded by `codec`."""
+    pm = projection_matrices(G).copy()
+    pm[:, 0, :] += G.n_u / 3 * pm[:, 2, :]
+    q = make_filter(G, device=cuda)(forward_project(G, device=cuda))
+    data, scales = CODECS[codec].encode(q)
+    return kernel_operands(pm, data, scales)
+
+
+@pytest.mark.parametrize("codec", ["fp32", "fp16", "fp8_e4m3"])
+def test_kernel_matches_plain_version_at_the_detector_edge(cuda, codec):
+    params, qt = _edge_operands(cuda, codec)
+    clipped = sum(  # nonempty row ranges cut at the detector's edge
+        int(((b[:, 0] <= b[:, 1]) & ((b[:, 0] == 0) | (b[:, 1] == G.n_u - 1)))
+            .sum()) for b in _tile_boxes(params))
+    assert clipped > 0
+    got = bpk.backproject_dual(params, qt, *SHAPE)
+    want = bpk.backproject_dual_torch(params, qt, *SHAPE)
+    torch.cuda.synchronize()
+    assert int(bpk.direct_pairs) == 0
+    assert float((got - want).abs().max() / want.abs().max()) <= REL
+
+
+@pytest.mark.parametrize("codec", ["fp32", "bf16", "fp8_e5m2"])
+def test_direct_gather_matches_plain_version(cuda, codec):
+    """A staging budget too small for any box sends every (tile,
+    projection) with a nonempty box to the direct gather from global
+    memory (an empty one has no tap to gather): the same sums."""
+    params, qt = _edge_operands(cuda, codec)
+    nonempty = sum(int(((b[:, 0] <= b[:, 1]) & ((b[:, 2] <= b[:, 3])
+                                                 | (b[:, 4] <= b[:, 5])))
+                       .sum()) for b in _tile_boxes(params))
+    got = bpk.backproject_dual(params, qt, *SHAPE, stage_bytes=64)
+    want = bpk.backproject_dual_torch(params, qt, *SHAPE)
+    torch.cuda.synchronize()
+    assert int(bpk.direct_pairs) == nonempty > 0
+    assert float((got - want).abs().max() / want.abs().max()) <= REL
+
+
 def test_main_path_runs_the_kernel_and_matches_the_cpu(cuda):
     proj = forward_project(G, device="cpu")
     before = bpk.launches
@@ -95,9 +147,12 @@ def _qkv(bh, kvh, sq, sk, d, dtype, device, seed=0):
 
 
 # MHA at a tile multiple, GQA with a ragged S, MQA with D = 16 (padded to
-# 64 in the kernel), cross lengths, and the serving head dim.
+# 64 in the kernel), cross lengths, the serving head dim, the serving shape
+# (48 query heads over 8), and S ragged around one and many 64-row tiles.
 ATTN_SHAPES = [(4, 4, 128, 128, 64), (8, 2, 200, 200, 128),
-               (6, 1, 77, 77, 16), (4, 2, 96, 160, 32), (2, 2, 64, 64, 128)]
+               (6, 1, 77, 77, 16), (4, 2, 96, 160, 32), (2, 2, 64, 64, 128),
+               (48, 8, 2048, 2048, 128), (6, 2, 65, 65, 128),
+               (6, 2, 2047, 2047, 128)]
 
 
 @pytest.mark.parametrize("shape", ATTN_SHAPES)
