@@ -9,16 +9,20 @@ Phases, in order; any failure exits non-zero:
 
 1. Device: the card's name and power limit (nvidia-smi), its torch name and
    the device count.
-2. Build: both hand-written kernels from the checkout's sources, one library
-   after the other; build seconds and the -Xptxas -v reports (registers,
-   static shared memory and spill bytes of each kernel).
+2. Build: both hand-written kernels from the checkout's sources, one nvcc
+   per library, both started together; build seconds and the -Xptxas -v
+   reports (registers, static shared memory and spill bytes of each
+   kernel).
 3. Back-projection kernel vs plain version: the kernel against its plain
    torch version on the same encoded stream, for all five codecs, at the
-   full 512^3 width on the first 32 RabbitCT projections and at
-   default_geometry(64). Max |kernel - plain| / max |plain| <= 1e-5: both
-   read identical wire bytes and scales; only nvcc's FMA contraction
-   separates them, and bilinear interpolation is continuous across pixel
-   edges, so a flipped floor() costs round-off only.
+   full 512^3 width on the first 32 RabbitCT projections, at
+   default_geometry(64), and at the 2 x 2 mesh's call shapes (phase 7):
+   each x-slab of 256 with P shifted as the mesh shifts it, and each of its
+   four y-chunks, on every 8th projection of each data rank's half.
+   Max |kernel - plain| / max |plain| <= 1e-5: both read identical wire
+   bytes and scales; only nvcc's FMA contraction separates them, and
+   bilinear interpolation is continuous across pixel edges, so a flipped
+   floor() costs round-off only.
 4. Reconstruction path: ReconstructionPlan(geometry=RabbitCT,
    impl="kernel", precision=...).build()(proj) for fp32 and fp16 on
    projections from the port's forward_project. Per run: seconds, GUPS,
@@ -31,12 +35,38 @@ Phases, in order; any failure exits non-zero:
    staging budget of 0, so that every projection is gathered from global
    memory (the design without staged taps); the plain version's time, and
    the kernel's beside it, on the 32-projection subset.
-6. Attention kernel vs plain version at the serving shapes (4 requests x 12
+6. Mesh 1 x 1 over NCCL: the mesh engine (`ReconstructionPlan(mesh=...)`,
+   core/plan.py) on a (pod, data, model) = (1, 1, 1) mesh over a world of
+   one, at RabbitCT, fp32 and fp16: fused/psum, pipelined (4 steps)/
+   scatter, chunked (2 steps x 4 y-chunks)/psum and /scatter_bf16. Seconds
+   and GUPS beside the mesh=None engine's in the same run, kernel
+   launches, the bytes each collective moved. psum and scatter outputs
+   bit-equal to mesh=None (gather and reduce are identities on one rank);
+   scatter_bf16 within 4 * 2^-8 of the max of chunked/psum (one bf16
+   rounding per rank).
+7. Mesh 2 x 2 on one card: first the references on one device, fp32:
+   the mesh=None engine (the kernel), and the plain version over all 496
+   projections, once for the whole volume and once slab by slab with P
+   shifted as the 2-slab mesh shifts it. The kernel's volume within 1e-5
+   of the plain whole volume; the plain shifted volume's distance from the
+   plain whole one is the witness (what folding the slab offset into P
+   costs in f32). Then four spawned ranks of this script on a (1, 2, 2)
+   mesh, through gloo with CUDA tensors (NCCL refuses two ranks on one
+   card; PERF.md), run fused/psum, pipelined (2 steps)/scatter and chunked
+   (2 x 4)/scatter_bf16; a collective that raises fails the run. Per case:
+   the kernel's call shape, launches and direct-gather share per rank;
+   `assemble_volume` of the outputs within 1e-5 of the max of the plain
+   shifted volume, and within the witness + 2e-5 of the mesh=None volume
+   (the triangle through the two plain volumes); 4 * 2^-8 for
+   scatter_bf16, both. The library is built before the ranks start.
+8. backproject_mxu against the factorized oracle at default_geometry(32)
+   on the card, within the reference's own bound (rtol 1e-4, atol 1e-6).
+9. Attention kernel vs plain version at the serving shapes (4 requests x 12
    heads over 2 KV heads, S = 2048, D = 128, inputs from numpy): f32 causal
    and non-causal within rtol = atol = 2e-5 (the reference kernel's test
    bound), bf16 causal within a max abs difference of 0.02 (its bf16
    bound), and a ragged S = 2000 in both dtypes.
-7. Serving path: greedy_generate on full-width Qwen2-1.5B (28 layers,
+10. Serving path: greedy_generate on full-width Qwen2-1.5B (28 layers,
    random weights from a seeded generator) for 4 requests x 2048-token
    prompts and 32 greedy steps, s_max = 2080. Prefill seconds, decode ms per
    step, tokens/s, peak device memory, attention-kernel launches (exactly
@@ -44,12 +74,13 @@ Phases, in order; any failure exits non-zero:
    kernel path against the plain attention step on the card (bf16 and f32
    prefill logits), and decode_step's logits at position 2048 against a
    prefill over the prompt plus that token (see `serving`).
-8. Attention kernel time at the serving shape (CUDA events over 20 launches
+11. Attention kernel time at the serving shape (CUDA events over 20 launches
    after a warm-up) for bf16 and f32, beside the bound, the plain version's
    time and torch's scaled_dot_product_attention on the same tensors (the
    library yardstick; the port never calls it).
-9. The `kernels` JSON line (each kernel with the PR of its design), the
-   card's name and power limit, and last `{"ok": true, "device": {...}}`.
+12. The `kernels` JSON line (each kernel with the PR of its design; the
+   back-projector's launches sum phases 4, 6 and 7's ranks), the card's
+   name and power limit, and last `{"ok": true, "device": {...}}`.
 
 The RabbitCT geometry is the public back-projection benchmark's size (496
 projections of 1248 x 960 pixels into 512^3; Rohkohl et al., Med. Phys.
@@ -59,11 +90,14 @@ checkout. It imports neither JAX nor the JAX package.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
+import datetime
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -108,6 +142,31 @@ ATTN_BF16_MAX_ABS = 0.02  # the reference kernel's bf16 test bound
 # 28 layers of random weights amplify that, but not by 10^4.
 F32_LOGITS_REL = 1e-3
 ATTN_RUNS = 20
+
+# Mesh phases: the (pod, data, model) engine of core/plan.py at RabbitCT.
+MESH_AXES = ("pod", "data", "model")
+# (schedule, its fields, reduce) on a world of one over NCCL, per codec;
+# chunked + psum is the yardstick of chunked + scatter_bf16.
+MESH_ONE_CASES = (("fused", {}, "psum"),
+                  ("pipelined", {"n_steps": 4}, "scatter"),
+                  ("chunked", {"n_steps": 2, "y_chunks": 4}, "psum"),
+                  ("chunked", {"n_steps": 2, "y_chunks": 4}, "scatter_bf16"))
+# Four ranks on the one card, fp32 codec, through gloo with CUDA tensors.
+MESH_FOUR_SHAPE = (1, 2, 2)
+MESH_FOUR_Y_CHUNKS = 4
+MESH_FOUR_CASES = (("fused", {}, "psum"),
+                   ("pipelined", {"n_steps": 2}, "scatter"),
+                   ("chunked", {"n_steps": 2, "y_chunks": MESH_FOUR_Y_CHUNKS},
+                    "scatter_bf16"))
+# 2 x 2 vs the plain version's reconstruction with P shifted as the mesh
+# shifts it: the kernel's round-off and the sums' order only.
+MESH_REL_TOL = 1e-5
+BF16_REDUCE_RTOL = 4 * 2.0 ** -8  # one bf16 rounding per rank (JAX suite)
+PG_TIMEOUT = datetime.timedelta(seconds=300)
+RANK_DEADLINE_S = 480   # a rank of the 2 x 2 phase, spawn to exit
+# backproject_mxu vs the factorized oracle: the reference's own test bound
+# (tests/test_kernels.py TestMXUVariant), at default_geometry(32).
+MXU_RTOL, MXU_ATOL = 1e-4, 1e-6
 
 
 def fail(msg: str) -> None:
@@ -181,15 +240,16 @@ def event_ms(fn, runs: int) -> float:
 
 def reconstruction(dev) -> list:
     """Phases 3-5 on the RabbitCT cell; returns the back-projection kernel's
-    entries of the `kernels` line."""
+    entries of the `kernels` line, the geometry and the projections."""
     import torch
 
+    from repro_torch.core.distributed import shift_pmats_i
     from repro_torch.core.filtering import make_filter
     from repro_torch.core.fdk import gups
     from repro_torch.core.geometry import (
         CBCTGeometry, default_geometry, projection_matrices)
     from repro_torch.core.phantom import forward_project, shepp_logan_volume
-    from repro_torch.core.plan import ReconstructionPlan
+    from repro_torch.core.plan import ReconstructionPlan, shift_pmats_j
     from repro_torch.core.precision import CODECS as CODEC_TABLE, Precision
     from repro_torch.kernels.attention import kernel as fak
     from repro_torch.kernels.backproject import kernel as bpk
@@ -207,35 +267,65 @@ def reconstruction(dev) -> list:
     if not torch.isfinite(proj).all():
         fail("forward_project gave non-finite projections")
 
-    def kernel_inputs(geom, raw, codec):
-        """The (params13, Q^T) the reconstruction path hands the kernel."""
-        filt = make_filter(geom, "ramlak", out_dtype=torch.float32,
+    def filtered(geom, raw):
+        return make_filter(geom, "ramlak", out_dtype=torch.float32,
                            device=dev)(raw)
+
+    def kernel_inputs(geom, raw, codec, pm=None, filt=None):
+        """The (params13, Q^T) the reconstruction path hands the kernel;
+        P defaults to the geometry's first raw.shape[0] matrices."""
+        if filt is None:
+            filt = filtered(geom, raw)
         data, scales = CODEC_TABLE[codec].encode(filt)
-        return kernel_operands(projection_matrices(geom)[:raw.shape[0]],
-                               data, scales)
+        if pm is None:
+            pm = projection_matrices(geom)[:raw.shape[0]]
+        return kernel_operands(pm, data, scales)
 
     # 3. Back-projection kernel vs plain version ---------------------------
     max_abs = {}
     g64 = default_geometry(64)
-    cases = [("RabbitCT[:32]", g, proj[:SUBSET]),
-             ("default_geometry(64)", g64, forward_project(g64, device=dev))]
-    for label, geom, raw in cases:
+    pm_all = torch.as_tensor(projection_matrices(g), device=dev)
+    cases = [("RabbitCT[:32]", g, filtered(g, proj[:SUBSET]),
+              pm_all[:SUBSET], (g.n_x, g.n_y, g.n_z)),
+             ("default_geometry(64)", g64,
+              filtered(g64, forward_project(g64, device=dev)),
+              projection_matrices(g64), (g64.n_x, g64.n_y, g64.n_z))]
+    # The 2 x 2 mesh's call shapes: each x-slab with P shifted by
+    # slab_pmats' shift_pmats_i, and each of its y-chunks shifted on by
+    # shift_pmats_j, on every 8th projection of each data rank's half.
+    r, half = MESH_FOUR_SHAPE[-1], g.n_proj // MESH_FOUR_SHAPE[1]
+    nxs, ycs = g.n_x // r, g.n_y // MESH_FOUR_Y_CHUNKS
+    for lo in range(0, g.n_proj, half):
+        sub = slice(lo, lo + half, 8)
+        filt = filtered(g, proj[sub])
+        for m in range(r):
+            pm = shift_pmats_i(pm_all[sub], float(m * nxs))
+            where = f"RabbitCT[{lo}:{lo + half}:8] x-slab {m}"
+            cases.append((where, g, filt, pm, (nxs, g.n_y, g.n_z)))
+            cases += [(f"{where} y-chunk {c}", g, filt,
+                       shift_pmats_j(pm, float(c * ycs)), (nxs, ycs, g.n_z))
+                      for c in range(MESH_FOUR_Y_CHUNKS)]
+    for label, geom, filt, pm, shape in cases:
+        rels, shares = [], []
         for codec in CODECS:
-            params, qt = kernel_inputs(geom, raw, codec)
-            shape = (geom.n_x, geom.n_y, geom.n_z)
+            params, qt = kernel_inputs(geom, None, codec, pm=pm, filt=filt)
             got = bpk.backproject_dual(params, qt, *shape)
+            shares.append(int(bpk.direct_pairs) / bpk.tile_pairs)
             want = bpk.backproject_dual_torch(params, qt, *shape)
             sync()
             err = float((got - want).abs().max())
             rel = err / float(want.abs().max())
-            print(f"[bp-check] {label} {codec}: max|kernel-plain| {err:.3e}, "
-                  f"relative {rel:.3e} (bound {REL_TOL:.0e})")
+            rels.append(f"{codec} {rel:.3e}")
             if not (rel <= REL_TOL):
                 fail(f"kernel disagrees with its plain version: {label} "
-                     f"{codec} relative {rel:.3e} > {REL_TOL:.0e}")
+                     f"{shape} {codec} relative {rel:.3e} > {REL_TOL:.0e}")
             max_abs[codec] = max(max_abs.get(codec, 0.0), err)
             del got, want, params, qt
+        print(f"[bp-check] {label} {shape}, {filt.shape[0]} projections: "
+              f"max|kernel-plain| / max|plain| {', '.join(rels)} (bound "
+              f"{REL_TOL:.0e}); direct-gather share "
+              f"{', '.join(f'{x:.4%}' for x in shares)}")
+    del cases, filt
 
     # 4. Reconstruction path ----------------------------------------------
     volumes, launches = {}, {}
@@ -342,7 +432,302 @@ def reconstruction(dev) -> list:
             "design": DESIGN[name],
         })
 
-    return entries
+    return entries, g, proj
+
+
+def mesh_one(dev, g, proj) -> dict:
+    """Phase 6: the mesh engine on a world of one over NCCL; returns the
+    kernel's launches per codec on the mesh path."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.distributed import assemble_volume
+    from repro_torch.core.fdk import gups
+    from repro_torch.core.plan import ReconstructionPlan
+    from repro_torch.kernels.backproject import kernel as bpk
+    from repro_torch.parallel.mesh import make_mesh
+
+    sync = torch.cuda.synchronize
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn(proj)
+        sync()
+        return out, time.perf_counter() - t0
+
+    launches = dict.fromkeys(MAIN_PATH_CODECS, 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/pg",
+                                rank=0, world_size=1, timeout=PG_TIMEOUT)
+        try:
+            mesh = make_mesh((1, 1, 1), MESH_AXES, device_type="cuda")
+            for codec in MAIN_PATH_CODECS:
+                psum = {}
+                for sched, kw, red in MESH_ONE_CASES:
+                    base = ReconstructionPlan(
+                        geometry=g, impl="kernel", precision=codec,
+                        schedule=sched, **kw).build()
+                    fn = ReconstructionPlan(
+                        geometry=g, mesh=mesh, impl="kernel",
+                        precision=codec, schedule=sched, reduce=red,
+                        **kw).build()
+                    base(proj)  # warm-ups
+                    fn(proj)
+                    sync()
+                    want, t_none = timed(base)
+                    before = dict(fn.collectives.bytes)
+                    bpk.launches = 0
+                    got, t_mesh = timed(fn)
+                    n_launch = bpk.launches
+                    moved = {k: v - before[k]
+                             for k, v in fn.collectives.bytes.items()}
+                    t_mesh = (t_mesh + timed(fn)[1]) / 2
+                    t_none = (t_none + timed(base)[1]) / 2
+                    launches[codec] += n_launch
+                    vol = assemble_volume(got, mesh, red).reshape(
+                        g.volume_shape())
+                    label = f"{codec} {sched} {kw} {red}"
+                    if red == "scatter_bf16":
+                        ref = psum[sched]
+                        rel = float((vol - ref).abs().max()
+                                    / ref.abs().max())
+                        check = (f"vs psum max abs / max {rel:.3e} (bound "
+                                 f"{BF16_REDUCE_RTOL:.3e})")
+                        ok = rel < BF16_REDUCE_RTOL
+                    else:
+                        ok = torch.equal(vol, want)
+                        check = ("bit-equal to mesh=None" if ok else
+                                 "NOT bit-equal to mesh=None: max abs "
+                                 f"{float((vol - want).abs().max()):.3e}")
+                        if red == "psum":
+                            psum[sched] = vol
+                    print(f"[mesh-1x1] {label}: mesh {t_mesh:.4f} s "
+                          f"({gups(g, t_mesh):.2f} GUPS), mesh=None "
+                          f"{t_none:.4f} s ({gups(g, t_none):.2f} GUPS); "
+                          f"kernel launches {n_launch}; bytes per call "
+                          f"{moved}; {check}")
+                    if n_launch < 1:
+                        fail(f"mesh 1x1 {label} did not launch the kernel")
+                    if not ok:
+                        fail(f"mesh 1x1 {label}: {check}")
+                    del base, fn, want, got, vol
+                del psum
+        finally:
+            dist.destroy_process_group()
+    return launches
+
+
+def spawn_ranks(world: int, work: str, deadline: float) -> list:
+    """Run `world` copies of this script as ranks of the 2 x 2 phase
+    (`--mesh-rank RANK WORLD WORK`); returns (exit code, output tail, report
+    or None) per rank. A rank past the deadline is killed."""
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mesh-rank", str(r),
+         str(world), work],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    results = []
+    end = time.perf_counter() + deadline
+    for r, p in enumerate(procs):
+        try:
+            out = p.communicate(timeout=max(1.0, end - time.perf_counter()))[0]
+        except subprocess.TimeoutExpired:
+            p.kill()
+            out = p.communicate()[0] + "\n[killed at the deadline]"
+        path = os.path.join(work, f"rank{r}.json")
+        report = None
+        if os.path.exists(path):
+            with open(path) as f:
+                report = json.load(f)
+        results.append((p.returncode, out[-4000:], report))
+    return results
+
+
+def mesh_rank(rank: int, world: int, work: str) -> None:
+    """A rank of the 2 x 2 phase: gloo over CUDA tensors on the one card.
+    Runs every case of MESH_FOUR_CASES; rank 0 holds each assembled volume
+    against the references in WORK/refs.pt. A collective that raises ends
+    the rank with its error."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, SRC)
+    from repro_torch.core.distributed import (
+        assemble_volume, local_projections)
+    from repro_torch.core.geometry import CBCTGeometry
+    from repro_torch.core.phantom import forward_project
+    from repro_torch.core.plan import ReconstructionPlan
+    from repro_torch.kernels.backproject import kernel as bpk
+    from repro_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{work}/pg",
+                            rank=rank, world_size=world, timeout=PG_TIMEOUT)
+    report = {"rank": rank, "cases": []}
+    try:
+        mesh = make_mesh(MESH_FOUR_SHAPE, MESH_AXES, device_type="cuda")
+        g = rabbitct_geometry(CBCTGeometry)
+        local = local_projections(forward_project(g, device="cuda"),
+                                  mesh).clone()
+        refs = (torch.load(os.path.join(work, "refs.pt"), map_location="cuda")
+                if rank == 0 else None)
+        torch.cuda.empty_cache()
+        report["local_shape"] = list(local.shape)
+        for sched, kw, red in MESH_FOUR_CASES:
+            plan = ReconstructionPlan(geometry=g, mesh=mesh, impl="kernel",
+                                      precision="fp32", schedule=sched,
+                                      reduce=red, **kw)
+            fn = plan.build()
+            case = {"bp_call_shape": list(plan.bp_call_shape())}
+            dist.barrier()
+            bpk.launches = 0
+            t0 = time.perf_counter()
+            part = fn(local)
+            torch.cuda.synchronize()
+            case["seconds"] = time.perf_counter() - t0
+            case["launches"] = bpk.launches
+            case["direct_share"] = int(bpk.direct_pairs) / bpk.tile_pairs
+            case["out_shape"] = list(part.shape)
+            case["bytes"] = dict(fn.collectives.bytes)
+            vol = assemble_volume(part, mesh, red).reshape(g.volume_shape())
+            if rank == 0:
+                case["rel"] = {k: float((vol - ref).abs().max()
+                                        / ref.abs().max())
+                               for k, ref in refs.items()}
+            report["cases"].append(case)
+            del fn, part, vol
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+            json.dump(report, f)
+
+
+def plain_reference(g, proj, r: int):
+    """The fp32 reconstruction on one device by the kernel's plain version,
+    computed slab by slab with P shifted by `shift_pmats_i` as an R-slab
+    mesh shifts it (R = 1: the whole volume, P unshifted)."""
+    import torch
+
+    from repro_torch.core.backprojection import from_dual_slab
+    from repro_torch.core.distributed import shift_pmats_i
+    from repro_torch.core.fdk import fdk_scale
+    from repro_torch.core.filtering import make_filter
+    from repro_torch.core.geometry import projection_matrices
+    from repro_torch.core.precision import CODECS as CODEC_TABLE
+    from repro_torch.kernels.backproject import kernel as bpk
+    from repro_torch.kernels.backproject.ops import kernel_operands
+
+    filt = make_filter(g, "ramlak", out_dtype=torch.float32,
+                       device=proj.device)
+    data, scales = CODEC_TABLE["fp32"].encode(filt(proj))
+    pm = torch.as_tensor(projection_matrices(g), device=proj.device)
+    nx = g.n_x // r
+    return torch.cat([
+        from_dual_slab(bpk.backproject_dual_torch(
+            *kernel_operands(shift_pmats_i(pm, float(m * nx)), data, scales),
+            nx, g.n_y, g.n_z))
+        for m in range(r)]) * fdk_scale(g)
+
+
+def rel_max(a, b) -> float:
+    """max |a - b| / max |b|."""
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def mesh_four(g, proj) -> int:
+    """Phase 7, the 2 x 2 phase: the references on one device, then four
+    ranks on the one card; returns the kernel launches of all ranks on the
+    mesh path."""
+    import torch
+
+    from repro_torch.core.plan import ReconstructionPlan
+
+    t0 = time.perf_counter()
+    none = ReconstructionPlan(geometry=g, impl="kernel",
+                              precision="fp32").build()(proj)
+    whole = plain_reference(g, proj, 1)
+    shifted = plain_reference(g, proj, MESH_FOUR_SHAPE[-1])
+    torch.cuda.synchronize()
+    kernel_rel, witness = rel_max(none, whole), rel_max(shifted, whole)
+    shift_bound = witness + 2 * MESH_REL_TOL
+    print(f"[mesh-2x2] references, fp32, {g.n_proj} projections, "
+          f"{time.perf_counter() - t0:.1f} s: mesh=None (kernel) vs plain "
+          f"whole volume {kernel_rel:.3e} of the max (bound "
+          f"{REL_TOL:.0e}); witness, plain with P shifted per slab vs plain "
+          f"whole volume {witness:.3e}")
+    if not kernel_rel <= REL_TOL:
+        fail(f"mesh=None engine off the plain version by {kernel_rel:.3e}")
+    with tempfile.TemporaryDirectory() as work:
+        torch.save({"mesh=None": none, "plain shifted": shifted},
+                   os.path.join(work, "refs.pt"))
+        del none, whole, shifted
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        results = spawn_ranks(4, work, RANK_DEADLINE_S)
+    for r, (rc, tail, rep) in enumerate(results):
+        if rc != 0 or rep is None or len(rep["cases"]) != len(
+                MESH_FOUR_CASES):
+            fail(f"mesh 2x2 rank {r} exited {rc}:\n{tail}")
+    print(f"[mesh-2x2] 4 ranks (pod, data, model) = {MESH_FOUR_SHAPE}, "
+          f"gloo over CUDA tensors, {time.perf_counter() - t0:.1f} s from "
+          f"spawn to exit; local projections "
+          f"{results[0][2]['local_shape']}")
+    launches = 0
+    for i, (sched, kw, red) in enumerate(MESH_FOUR_CASES):
+        cases = [rep["cases"][i] for _, _, rep in results]
+        label = f"fp32 {sched} {kw} {red}"
+        launches += sum(c["launches"] for c in cases)
+        rel = cases[0]["rel"]
+        bounds = ({"plain shifted": BF16_REDUCE_RTOL,
+                   "mesh=None": BF16_REDUCE_RTOL} if red == "scatter_bf16"
+                  else {"plain shifted": MESH_REL_TOL,
+                        "mesh=None": shift_bound})
+        checks = "; ".join(f"vs {k} {rel[k]:.3e} (bound {b:.3e})"
+                           for k, b in bounds.items())
+        seconds = [round(c["seconds"], 3) for c in cases]
+        shares = ", ".join(f"{c['direct_share']:.4%}" for c in cases)
+        print(f"[mesh-2x2] {label}: kernel call (nx, ny, n_p) "
+              f"{cases[0]['bp_call_shape']}, per-rank output "
+              f"{cases[0]['out_shape']}; seconds (first call) {seconds}; "
+              f"kernel launches per rank {[c['launches'] for c in cases]}; "
+              f"direct-gather share of each rank's last launch [{shares}]; "
+              f"rank 0 bytes {cases[0]['bytes']}; assembled volume, max "
+              f"abs / max: {checks}")
+        if min(c["launches"] for c in cases) < 1:
+            fail(f"mesh 2x2 {label}: a rank did not launch the kernel")
+        if not all(rel[k] <= b for k, b in bounds.items()):
+            fail(f"mesh 2x2 {label}: {checks}")
+    return launches
+
+
+def mxu_check(dev) -> None:
+    """Phase 8: backproject_mxu against the factorized oracle at
+    default_geometry(32) on the card."""
+    import torch
+
+    from repro_torch.core.backprojection import backproject_factorized
+    from repro_torch.core.filtering import make_filter
+    from repro_torch.core.geometry import default_geometry, projection_matrices
+    from repro_torch.core.phantom import forward_project
+    from repro_torch.kernels.backproject.ops import backproject_mxu
+
+    g = default_geometry(32)
+    q = make_filter(g, device=dev)(forward_project(g, device=dev))
+    pm = torch.as_tensor(projection_matrices(g), device=dev)
+    shape = (g.n_x, g.n_y, g.n_z)
+    got = backproject_mxu(pm, q, *shape)
+    want = backproject_factorized(pm, q, *shape)
+    torch.cuda.synchronize()
+    # assert_allclose's rule: |got - want| <= atol + rtol |want|
+    excess = float(((got - want).abs() - MXU_RTOL * want.abs()).max())
+    print(f"[mxu] backproject_mxu vs factorized at {shape}, {g.n_proj} "
+          f"projections: max abs {float((got - want).abs().max()):.3e}, "
+          f"max(|d| - rtol |want|) {excess:.3e} (rtol {MXU_RTOL:.0e}, atol "
+          f"{MXU_ATOL:.0e})")
+    if not excess <= MXU_ATOL:
+        fail(f"backproject_mxu off the factorized oracle: {excess:.3e}")
 
 
 def rel_rmse(got, want) -> float:
@@ -393,7 +778,7 @@ def attention_operands(cfg, s: int, dtype, dev, seed: int):
 
 
 def attention_checks(cfg, dev) -> dict:
-    """Phase 6; returns the max |kernel - plain| per dtype."""
+    """Phase 9; returns the max |kernel - plain| per dtype."""
     import torch
 
     from repro_torch.kernels.attention import kernel as fak
@@ -441,7 +826,7 @@ def plain_attention_step(layers):
 
 
 def serving(cfg, dev) -> dict:
-    """Phase 7; returns the attention kernel's launches per dtype on the
+    """Phase 10; returns the attention kernel's launches per dtype on the
     serving path (bf16: greedy_generate; f32: the f32 prefill)."""
     import torch
 
@@ -583,7 +968,7 @@ def logit_checks(cfg, params, tokens, logits_k, cache) -> int:
 
 
 def attention_timing(cfg, dev, launches: dict, max_abs: dict) -> list:
-    """Phase 8; returns the attention kernel's entries of the `kernels`
+    """Phase 11; returns the attention kernel's entries of the `kernels`
     line."""
     import torch
     import torch.nn.functional as F
@@ -665,19 +1050,37 @@ def main() -> int:
     print(f"[device] torch: {kind}, count {count}, torch {torch.__version__},"
           f" CUDA {torch.version.cuda}")
 
-    # 2. Build, one library after the other ---------------------------------
-    for lib in (bpk.LIBRARY, fak.LIBRARY):
-        t0 = time.perf_counter()
-        lib.build()
+    # 2. Build both libraries at once, one nvcc each -------------------------
+    t0 = time.perf_counter()
+    libs = (bpk.LIBRARY, fak.LIBRARY)
+    with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
+        for fut in [pool.submit(lib.build) for lib in libs]:
+            fut.result()
+    print(f"[build] both libraries in {time.perf_counter() - t0:.2f} s wall")
+    for lib in libs:
         print(f"[build] {lib.path.name}: nvcc {lib.build_seconds} s (None = "
-              f"already built); {time.perf_counter() - t0:.2f} s wall")
+              "already built)")
         print("[build] " + lib.ptxas_report().replace("\n", "\n[build] "))
 
     # 3-5. Reconstruction ----------------------------------------------------
-    entries = reconstruction(dev)
+    entries, g, proj = reconstruction(dev)
     torch.cuda.empty_cache()
 
-    # 6-8. Serving -----------------------------------------------------------
+    # 6-8. The mesh engine and backproject_mxu -------------------------------
+    mesh_launches = mesh_one(dev, g, proj)
+    torch.cuda.empty_cache()
+    four_launches = mesh_four(g, proj)
+    del proj
+    mxu_check(dev)
+    for entry, codec in zip(entries, MAIN_PATH_CODECS):
+        extra = mesh_launches[codec] + (four_launches if codec == "fp32"
+                                        else 0)
+        print(f"[kernels] {entry['name']} launches: {entry['launches']} "
+              f"(single-device path) + {mesh_launches[codec]} (mesh 1x1) "
+              f"+ {extra - mesh_launches[codec]} (mesh 2x2, all ranks)")
+        entry["launches"] += extra
+
+    # 9-11. Serving ----------------------------------------------------------
     cfg = get_config("qwen2_1_5b")
     max_abs = attention_checks(cfg, dev)
     launches = serving(cfg, dev)
@@ -690,7 +1093,7 @@ def main() -> int:
     if leaked:
         fail(f"the port imported {leaked}")
 
-    # 9. Result ------------------------------------------------------------
+    # 12. Result -----------------------------------------------------------
     print(json.dumps({"kernels": entries}))
     print(f"[device] {smi}")
     print(json.dumps({"ok": True, "device": {
@@ -699,4 +1102,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 5 and sys.argv[1] == "--mesh-rank":
+        mesh_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        sys.exit(0)
     sys.exit(main())

@@ -2,7 +2,7 @@
 
 Port of `repro/core/cache.py`. The reference can also mirror its counts
 into the process-wide metrics registry (`name=`); the port has no
-observability layer yet (ROADMAP Queue 1 item 10), so only the per-instance
+observability layer yet (ROADMAP Queue 1 item 11), so only the per-instance
 counters exist.
 
 Thread-safety: a single lock around the OrderedDict; `get_or_build` may

@@ -6,6 +6,7 @@ layer (core/plan.py) with `mesh=None, schedule="fused"`.
 from __future__ import annotations
 
 import time
+import warnings
 from typing import Callable, Literal
 
 import torch
@@ -15,6 +16,19 @@ from .geometry import CBCTGeometry
 from .precision import Precision
 
 BpImpl = Literal["reference", "factorized", "kernel"]
+
+# Legacy entry points warn once per process (per entry point).
+_DEPRECATION_FIRED: set = set()
+
+
+def warn_deprecated_once(name: str, alternative: str) -> None:
+    if name in _DEPRECATION_FIRED:
+        return
+    _DEPRECATION_FIRED.add(name)
+    warnings.warn(
+        f"{name} is deprecated; construct a ReconstructionPlan "
+        f"(core/plan.py) instead — equivalent: {alternative}",
+        DeprecationWarning, stacklevel=3)
 
 
 def fdk_scale(g: CBCTGeometry) -> float:

@@ -1,12 +1,22 @@
-"""Public wrapper around the back-projection kernel.
+"""Public wrappers around the back-projection kernel.
 
-Port of `repro/kernels/backproject/ops.py::backproject_pallas`: the same
-signature and result as the oracles in `core/backprojection.py`. It lays
-the projections out as Q^T, builds the (Np, 13) parameter rows with the
-codec scale in column 12, and restores the canonical volume from the
-dual-slab output. The CUDA kernel loops over every projection itself, so
-there is no projection-batch block and no padding; Hopper launch shapes are
-fixed in the kernel source until the tuner is ported.
+Port of `repro/kernels/backproject/ops.py`:
+
+  backproject_kernel : counterpart of `backproject_pallas`, the same
+                       signature and result as the oracles in
+                       `core/backprojection.py`. It lays the projections
+                       out as Q^T, builds the (Np, 13) parameter rows with
+                       the codec scale in column 12, and restores the
+                       canonical volume from the dual-slab output. The CUDA
+                       kernel loops over every projection itself, so there
+                       is no projection-batch block and no padding; Hopper
+                       launch shapes are fixed in the kernel source until
+                       the tuner is ported.
+  backproject_mxu    : the gather-free formulation — bilinear
+                       interpolation recast as two products with relu-hat
+                       weight matrices — in plain torch (the reference
+                       computes it outside any Pallas kernel too). Not an
+                       `impl` of the plan.
 """
 from __future__ import annotations
 
@@ -14,7 +24,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ...core.backprojection import from_dual_slab
+from ...core.backprojection import _stream_scales, from_dual_slab
 from .kernel import backproject_dual
 
 
@@ -48,3 +58,75 @@ def backproject_kernel(pmats: torch.Tensor, proj: torch.Tensor,
     """
     params, qt = kernel_operands(pmats, proj, scales)
     return from_dual_slab(backproject_dual(params, qt, nx, ny, nz))
+
+
+# backproject_mxu's f32 working set per projection above which it refuses
+# to run (its hat matrices grow as nx * ny * nz/2 * N_v).
+MXU_MAX_WORKING_SET = 4 * 2**30
+
+
+def mxu_working_set(nx: int, ny: int, nz: int, n_u: int, n_v: int) -> int:
+    """Bytes of backproject_mxu's per-projection f32 intermediates: the u
+    hat matrix and its product (nx, ny, N_u + N_v) and the two v hat
+    matrices (nx, ny, nz/2, N_v) each."""
+    return 4 * nx * ny * (n_u + n_v + 2 * (nz // 2) * n_v)
+
+
+def backproject_mxu(pmats: torch.Tensor, proj: torch.Tensor,
+                    nx: int, ny: int, nz: int,
+                    scales: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Gather-free back-projection: interpolation as relu-hat products.
+
+    For a voxel column (i,j):  val(k) = sum_{a,b} A[ij,a] * B[ij,k,b] * Q^T[a,b]
+    with A[ij,a] = hat(a - u_ij), B[ij,k,b] = hat(b - v_ijk) and
+    hat(t) = max(0, 1-|t|). Out-of-range coordinates get zero weight, so
+    nothing is masked. Two einsums per projection:
+        rows = A @ Q^T          (columns, N_v)    <- a matrix product
+        val  = sum_b B * rows   (columns, nz/2)   <- a batched reduction
+    Same signature and result as the oracles, (nx, ny, nz) float32. Raises
+    ValueError when `mxu_working_set` exceeds MXU_MAX_WORKING_SET (it is
+    518 GB at 512^3 from a 1248 x 960 detector) instead of running the
+    device out of memory.
+    """
+    if nz % 2 != 0:
+        raise ValueError("requires even N_z")
+    nzh = nz // 2
+    n_p, n_v, n_u = proj.shape
+    need = mxu_working_set(nx, ny, nz, n_u, n_v)
+    if need > MXU_MAX_WORKING_SET:
+        raise ValueError(
+            f"backproject_mxu needs {need / 2**30:.2f} GiB of f32 "
+            f"intermediates per projection for a ({nx}, {ny}, {nz}) volume "
+            f"from a {n_u} x {n_v} detector, above its "
+            f"{MXU_MAX_WORKING_SET / 2**30:.0f} GiB bound; use "
+            "backproject_kernel")
+    dev = proj.device
+    qt = proj.transpose(-1, -2).to(torch.float32)  # (Np, Nu, Nv)
+    pm = torch.as_tensor(pmats, device=dev).to(torch.float32)
+    sc = _stream_scales(proj, scales)
+    i = torch.arange(nx, dtype=torch.float32, device=dev)[:, None]
+    j = torch.arange(ny, dtype=torch.float32, device=dev)[None, :]
+    k = torch.arange(nzh, dtype=torch.float32, device=dev)
+    ua = torch.arange(n_u, dtype=torch.float32, device=dev)
+    va = torch.arange(n_v, dtype=torch.float32, device=dev)
+
+    def hat(t):
+        return torch.clamp(1.0 - t.abs(), min=0.0)
+
+    dual = torch.zeros((nx, ny, 2, nzh), dtype=torch.float32, device=dev)
+    for p, q, s in zip(pm, qt, sc):
+        x0 = p[0, 0] * i + p[0, 1] * j + p[0, 3]
+        y0 = p[1, 0] * i + p[1, 1] * j + p[1, 3]
+        z = p[2, 0] * i + p[2, 1] * j + p[2, 3]
+        f = 1.0 / z
+        u = x0 * f
+        w = f * f * s                   # codec decode folded into the weight
+        v = (y0[..., None] + p[1, 2] * k) * f[..., None]       # (nx, ny, nzh)
+        a = hat(ua - u[..., None])                             # (nx, ny, Nu)
+        rows = torch.einsum("xyu,uv->xyv", a, q)
+        b = hat(va - v[..., None])                             # (nx,ny,nzh,Nv)
+        bm = hat(va - ((n_v - 1.0) - v)[..., None])
+        front = w[..., None] * torch.einsum("xykv,xyv->xyk", b, rows)
+        back = w[..., None] * torch.einsum("xykv,xyv->xyk", bm, rows)
+        dual = dual + torch.stack([front, back], dim=-2)
+    return from_dual_slab(dual)

@@ -1,0 +1,116 @@
+"""One rank of the port's mesh engine for tests/test_torch_mesh.py.
+
+    PYTHONPATH=src python tests/_torch_mesh_rank.py RANK WORLD INIT_FILE WORK_DIR
+
+Joins a gloo process group of WORLD ranks through INIT_FILE, builds the
+(2, 2, 2) (pod, data, model) mesh, reconstructs WORK_DIR/proj.npy for every
+case of CASES below through `ReconstructionPlan(mesh=...)`, and assembles
+each rank's output into the global volume. Rank 0 writes the volumes to
+WORK_DIR/volumes.npz and what else the tests read to WORK_DIR/meta.json,
+among it whether every rank's `column_pmats` is the model-axis AllGather
+of its ranks' P, for each micro-batch.
+Imports only the port (never JAX), so it starts fast.
+"""
+import datetime
+import json
+import os
+import sys
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.core.distributed import (
+    assemble_volume, column_pmats, local_projections)
+from repro_torch.core.geometry import default_geometry, projection_matrices
+from repro_torch.core.plan import ReconstructionPlan
+from repro_torch.parallel.mesh import make_mesh
+
+MESH_SHAPE = (2, 2, 2)
+MESH_AXES = ("pod", "data", "model")
+N, N_PROJ = 16, 32
+SCHEDULES = {"fused": {}, "pipelined": {"n_steps": 2},
+             "chunked": {"n_steps": 2, "y_chunks": 4}}
+
+
+def cases():
+    """name -> plan fields of every reconstruction the tests check."""
+    out = {}
+    for impl in ("factorized", "kernel"):
+        for sched in SCHEDULES:
+            for red in ("psum", "scatter"):
+                out[f"{impl}/{sched}/{red}"] = dict(impl=impl, schedule=sched,
+                                                    reduce=red)
+    for sched in SCHEDULES:
+        out[f"factorized/{sched}/scatter_bf16"] = dict(
+            schedule=sched, reduce="scatter_bf16")
+    out["fp8_e4m3/fused/psum"] = dict(precision="fp8_e4m3")
+    out["fp8_e4m3/pipelined/scatter"] = dict(
+        precision="fp8_e4m3", schedule="pipelined", reduce="scatter")
+    out["bf16/chunked/psum"] = dict(precision="bf16", schedule="chunked")
+    return {name: dict(kw, **SCHEDULES[kw.get("schedule", "fused")])
+            for name, kw in out.items()}
+
+
+CASES = cases()
+
+
+def gathered_pmats_match(mesh, g, n_steps: int) -> bool:
+    """column_pmats against an AllGather over `model` of each micro-batch
+    of this rank's own P."""
+    pm = torch.as_tensor(projection_matrices(g))
+    mine = local_projections(pm, mesh)
+    nb = mine.shape[0] // n_steps
+    group = mesh.get_group("model")
+    want = column_pmats(pm, mesh, n_steps)
+    for s in range(n_steps):
+        out = torch.empty((dist.get_world_size(group) * nb,) + pm.shape[1:])
+        dist.all_gather_into_tensor(
+            out, mine[s * nb:(s + 1) * nb].contiguous(), group=group)
+        if not torch.equal(out, want[s]):
+            return False
+    return True
+
+
+def main(rank: int, world: int, init_file: str, work: str) -> None:
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = make_mesh(MESH_SHAPE, MESH_AXES, device_type="cpu")
+        g = default_geometry(N, n_proj=N_PROJ)
+        local = local_projections(np.load(os.path.join(work, "proj.npy")),
+                                  mesh)
+        volumes, shapes = {}, {}
+        for name, kw in CASES.items():
+            plan = ReconstructionPlan(geometry=g, mesh=mesh, device="cpu",
+                                      **kw)
+            out = plan.build()(local)
+            shapes[name] = list(out.shape)
+            volumes[name] = assemble_volume(out, mesh, plan.reduce).reshape(
+                g.volume_shape()).numpy()
+        errors = {}
+        for key, geom in (("np_ranks", default_geometry(N, n_proj=30)),
+                          ("nx_slabs", default_geometry(17, n_proj=N_PROJ))):
+            try:
+                ReconstructionPlan(geometry=geom, mesh=mesh,
+                                   device="cpu").validate()
+                errors[key] = ""
+            except ValueError as e:
+                errors[key] = str(e)
+        same = torch.tensor([float(all(
+            gathered_pmats_match(mesh, g, n) for n in (1, 2)))])
+        dist.all_reduce(same, op=dist.ReduceOp.MIN)
+        if rank == 0:
+            np.savez(os.path.join(work, "volumes.npz"), **{
+                k.replace("/", "__"): v for k, v in volumes.items()})
+            with open(os.path.join(work, "meta.json"), "w") as f:
+                json.dump({"shapes": shapes, "errors": errors,
+                           "column_pmats": bool(same.item())}, f)
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4])

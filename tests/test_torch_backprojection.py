@@ -21,12 +21,16 @@ from repro.core import filtering as jfilt
 from repro.core import geometry as jgeo
 from repro.core import phantom as jph
 from repro.core import precision as jprec
+from repro.kernels.backproject.ops import backproject_mxu as jmxu
 from repro.kernels.backproject.ops import backproject_pallas
 from repro.kernels.backproject.ref import backproject_dual_ref as jdual_ref
 from repro_torch.core import backprojection as tbp
 from repro_torch.kernels.backproject import kernel as tker
 from repro_torch.kernels.backproject.ops import (backproject_kernel,
-                                                 kernel_operands)
+                                                 backproject_mxu,
+                                                 kernel_operands,
+                                                 MXU_MAX_WORKING_SET,
+                                                 mxu_working_set)
 from repro_torch.kernels.backproject.ref import backproject_dual_ref
 
 # Tiny shapes gain nothing from intra-op threads, and the suite runs several
@@ -318,3 +322,62 @@ def test_footprint_box_is_empty_off_the_detector(axis):
     else:
         assert bool((boxes[:, 2] > boxes[:, 3]).all())
         assert bool((boxes[:, 4] > boxes[:, 5]).all())
+
+
+# -- backproject_mxu: the relu-hat formulation --------------------------------
+
+G16 = jgeo.default_geometry(16, n_proj=8)
+# The reference's own bound for its mxu variant (tests/test_kernels.py): the
+# einsums sum the taps in another order than the gathers.
+MXU_RTOL, MXU_ATOL = 1e-4, 1e-6
+
+
+@pytest.fixture(scope="module")
+def case16():
+    pm = jgeo.projection_matrices(G16)
+    q = jfilt.filter_projections(G16, jph.forward_project(G16))
+    return pm, {name: jprec.CODECS[name].encode(q) for name in CODECS}
+
+
+@pytest.mark.parametrize("name", CODECS)
+def test_mxu_matches_reference_mxu(case16, name):
+    """Port and JAX relu-hat back-projectors on the same wire bytes and
+    scales at 16^3, every codec."""
+    pm, enc = case16
+    data, scales = enc[name]
+    shape = (G16.n_x, G16.n_y, G16.n_z)
+    want = jmxu(jnp.asarray(pm), data, *shape, scales=scales)
+    got = backproject_mxu(
+        torch.from_numpy(pm), to_torch(data), *shape,
+        scales=None if scales is None else to_torch(scales))
+    assert got.dtype == torch.float32 and tuple(got.shape) == shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=MXU_RTOL, atol=MXU_ATOL)
+
+
+def test_mxu_matches_factorized_and_needs_no_masks(case16):
+    """The reference's TestMXUVariant on the port: the factorized oracle's
+    result, also for all-ones projections whose footprint leaves the
+    detector (out-of-range coordinates get zero weight)."""
+    pm, enc = case16
+    pm = torch.from_numpy(pm)
+    shape = (G16.n_x, G16.n_y, G16.n_z)
+    for q in (to_torch(enc["fp32"][0]),
+              torch.ones(G16.proj_shape(), dtype=torch.float32)):
+        np.testing.assert_allclose(
+            backproject_mxu(pm, q, *shape).numpy(),
+            tbp.backproject_factorized(pm, q, *shape).numpy(),
+            rtol=MXU_RTOL, atol=1e-5)
+
+
+def test_mxu_refuses_a_working_set_above_its_bound():
+    """At 512^3 from RabbitCT's 1248 x 960 detector the hat matrices would
+    need 518 GB per projection: a ValueError, before any allocation."""
+    need = mxu_working_set(512, 512, 512, 1248, 960)
+    assert need == 4 * 512 * 512 * (1248 + 960 + 512 * 960) > \
+        MXU_MAX_WORKING_SET >= mxu_working_set(32, 32, 32, 48, 48)
+    pm = torch.from_numpy(jgeo.projection_matrices(G)[:1])
+    with pytest.raises(ValueError, match="GiB bound"):
+        backproject_mxu(pm, torch.zeros((1, 960, 1248)), 512, 512, 512)
+    with pytest.raises(ValueError, match="even N_z"):
+        backproject_mxu(pm, torch.zeros((1, 14, 20)), 10, 8, 11)

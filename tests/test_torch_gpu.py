@@ -12,10 +12,11 @@ import pytest
 import torch
 
 from repro_torch.configs import get_smoke_config
+from repro_torch.core.distributed import shift_pmats_i
 from repro_torch.core.filtering import make_filter
 from repro_torch.core.geometry import CBCTGeometry, projection_matrices
 from repro_torch.core.phantom import forward_project
-from repro_torch.core.plan import ReconstructionPlan
+from repro_torch.core.plan import ReconstructionPlan, shift_pmats_j
 from repro_torch.core.precision import CODECS
 from repro_torch.kernels.attention import attention_ref, flash_attention
 from repro_torch.kernels.attention import kernel as fak
@@ -108,6 +109,30 @@ def test_direct_gather_matches_plain_version(cuda, codec):
     want = bpk.backproject_dual_torch(params, qt, *SHAPE)
     torch.cuda.synchronize()
     assert int(bpk.direct_pairs) == nonempty > 0
+    assert float((got - want).abs().max() / want.abs().max()) <= REL
+
+
+# The mesh engine's launch shapes: an x-slab (N_x/2 columns, P shifted to
+# the second slab) and a y-chunk of it (N_y/4 rows, P shifted to the third
+# chunk), as `slab_pmats` and `shift_pmats_j` hand them to the kernel.
+MESH_CALLS = {"slab": (G.n_x // 2, G.n_y, 0),
+              "y_chunk": (G.n_x // 2, G.n_y // 4, 2 * (G.n_y // 4))}
+
+
+@pytest.mark.parametrize("call", sorted(MESH_CALLS))
+@pytest.mark.parametrize("codec", sorted(CODECS))
+def test_kernel_matches_plain_version_on_mesh_shapes(cuda, codec, call):
+    nx, ny, j0 = MESH_CALLS[call]
+    pm = shift_pmats_j(
+        shift_pmats_i(torch.from_numpy(projection_matrices(G)), float(nx)),
+        float(j0))
+    q = make_filter(G, device=cuda)(forward_project(G, device=cuda))
+    data, scales = CODECS[codec].encode(q)
+    params, qt = kernel_operands(pm, data, scales)
+    got = bpk.backproject_dual(params, qt, nx, ny, G.n_z)
+    want = bpk.backproject_dual_torch(params, qt, nx, ny, G.n_z)
+    torch.cuda.synchronize()
+    assert got.shape == (nx, ny, 2, G.n_z // 2)
     assert float((got - want).abs().max() / want.abs().max()) <= REL
 
 
