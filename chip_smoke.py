@@ -16,7 +16,7 @@ Phases, in order; any failure exits non-zero:
 3. Back-projection kernel vs plain version: the kernel against its plain
    torch version on the same encoded stream, for all five codecs, at the
    full 512^3 width on the first 32 RabbitCT projections, at
-   default_geometry(64), and at the 2 x 2 mesh's call shapes (phase 7):
+   default_geometry(64), and at the 2 x 2 mesh's call shapes (phase 12):
    each x-slab of 256 with P shifted as the mesh shifts it, and each of its
    four y-chunks, on every 8th projection of each data rank's half.
    Max |kernel - plain| / max |plain| <= 1e-5: both read identical wire
@@ -35,7 +35,43 @@ Phases, in order; any failure exits non-zero:
    staging budget of 0, so that every projection is gathered from global
    memory (the design without staged taps); the plain version's time, and
    the kernel's beside it, on the 32-projection subset.
-6. Mesh 1 x 1 over NCCL: the mesh engine (`ReconstructionPlan(mesh=...)`,
+6. [kernel-delta] The kernel against its plain version at the streaming
+   session's call shape, the 512^3 volume from the last delta of 62
+   projections, five codecs (same bound), with the direct-gather share,
+   and its time there (CUDA events, fp32 and fp16); the delta filtered
+   alone against the same rows of the whole scan's filter; and the fold
+   witness: on the central 64 x-planes, 8 deltas folded acc + bp against
+   one pass over all 496 projections, by the kernel and by its plain
+   version (equal gaps: the session's distance from fused is the fold's
+   reassociation).
+7. [incremental] The streaming session, `plan.build_incremental(source=
+   ProjectionSource(...))` with n_steps = 8, fp32 and fp16: a scanner
+   thread appends the projections in 8 deltas of 62 to a
+   StreamingProjectionWriter store in a temporary directory, and the
+   session poll()s and folds them as they commit (fp32; the fp16 session
+   polls the committed store). Gates: finalize() within 1e-5 of the max of
+   the same plan's fused build(); interior RMSE < 0.17; fp16 within
+   Precision("fp16").rmse_tol() of fp32; finalize(partial=True) after 4
+   deltas (the scanner waits for it) runs and has 248 angles folded; 8
+   kernel launches per session. Then the reference benchmark's tail,
+   three times: 7 deltas folded, the 8th staged, update(staged,
+   finalize=True) timed; t_last_delta beside fused_seconds / 8, and
+   whether the JAX package's streaming claim (t_last_delta < batch_e2e /
+   n_steps) holds here (printed, not gated).
+8. [batched] build_batched(2) on the phantom's scan and a copy scaled by
+   1.5, fp32 and fp16: each lane bit-equal to build() of its scan (N_p =
+   496 is not a multiple of the filter's 32-projection batches); seconds
+   per batch beside 2 x seconds per scan.
+9. [io] ProjectionSource.write(..., codec="fp16") of the projections, then
+   build(source=, sink=)() (fp32 plan): the loaded projections bit-equal
+   to the codec's decode of its encode, the volume bit-equal to build() of
+   them, VolumeSink.read() bit-equal to the volume; stage.read and
+   stage.write seconds and GB/s of the bytes on disk.
+10. [trace] The tracer on around one fp32 build() call: the fenced
+   engine.reconstruct span at least the kernel's CUDA-event time, the
+   exported Chrome JSON loads, the engine cache's cache.core.engine_cache.*
+   counters are in the registry's snapshot.
+11. Mesh 1 x 1 over NCCL: the mesh engine (`ReconstructionPlan(mesh=...)`,
    core/plan.py) on a (pod, data, model) = (1, 1, 1) mesh over a world of
    one, at RabbitCT, fp32 and fp16: fused/psum, pipelined (4 steps)/
    scatter, chunked (2 steps x 4 y-chunks)/psum and /scatter_bf16. Seconds
@@ -43,8 +79,10 @@ Phases, in order; any failure exits non-zero:
    launches, the bytes each collective moved. psum and scatter outputs
    bit-equal to mesh=None (gather and reduce are identities on one rank);
    scatter_bf16 within 4 * 2^-8 of the max of chunked/psum (one bf16
-   rounding per rank).
-7. Mesh 2 x 2 on one card: first the references on one device, fp32:
+   rounding per rank). Then the incremental session (fp32, 8 deltas) under
+   psum, scatter and scatter_bf16: psum and scatter bit-equal to the
+   mesh=None session, scatter_bf16 within 4 * 2^-8 of psum's.
+12. Mesh 2 x 2 on one card: first the references on one device, fp32:
    the mesh=None engine (the kernel), and the plain version over all 496
    projections, once for the whole volume and once slab by slab with P
    shifted as the 2-slab mesh shifts it. The kernel's volume within 1e-5
@@ -59,14 +97,14 @@ Phases, in order; any failure exits non-zero:
    shifted volume, and within the witness + 2e-5 of the mesh=None volume
    (the triangle through the two plain volumes); 4 * 2^-8 for
    scatter_bf16, both. The library is built before the ranks start.
-8. backproject_mxu against the factorized oracle at default_geometry(32)
+13. backproject_mxu against the factorized oracle at default_geometry(32)
    on the card, within the reference's own bound (rtol 1e-4, atol 1e-6).
-9. Attention kernel vs plain version at the serving shapes (4 requests x 12
+14. Attention kernel vs plain version at the serving shapes (4 requests x 12
    heads over 2 KV heads, S = 2048, D = 128, inputs from numpy): f32 causal
    and non-causal within rtol = atol = 2e-5 (the reference kernel's test
    bound), bf16 causal within a max abs difference of 0.02 (its bf16
    bound), and a ragged S = 2000 in both dtypes.
-10. Serving path: greedy_generate on full-width Qwen2-1.5B (28 layers,
+15. Serving path: greedy_generate on full-width Qwen2-1.5B (28 layers,
    random weights from a seeded generator) for 4 requests x 2048-token
    prompts and 32 greedy steps, s_max = 2080. Prefill seconds, decode ms per
    step, tokens/s, peak device memory, attention-kernel launches (exactly
@@ -74,12 +112,13 @@ Phases, in order; any failure exits non-zero:
    kernel path against the plain attention step on the card (bf16 and f32
    prefill logits), and decode_step's logits at position 2048 against a
    prefill over the prompt plus that token (see `serving`).
-11. Attention kernel time at the serving shape (CUDA events over 20 launches
+16. Attention kernel time at the serving shape (CUDA events over 20 launches
    after a warm-up) for bf16 and f32, beside the bound, the plain version's
    time and torch's scaled_dot_product_attention on the same tensors (the
    library yardstick; the port never calls it).
-12. The `kernels` JSON line (each kernel with the PR of its design; the
-   back-projector's launches sum phases 4, 6 and 7's ranks), the card's
+17. The `kernels` JSON line (each kernel with the PR of its design; the
+   back-projector's launches sum every path that runs it: phases 4, 7-11
+   and 12's ranks, each counted from 0 just before the path), the card's
    name and power limit, and last `{"ok": true, "device": {...}}`.
 
 The RabbitCT geometry is the public back-projection benchmark's size (496
@@ -94,6 +133,7 @@ import concurrent.futures
 import contextlib
 import datetime
 import json
+import math
 import os
 import subprocess
 import sys
@@ -129,7 +169,13 @@ TIMED_LAUNCHES = 10
 PLAIN_RUNS = 3
 CODECS = ("fp32", "bf16", "fp16", "fp8_e4m3", "fp8_e5m2")
 MAIN_PATH_CODECS = ("fp32", "fp16")
+WITNESS_SLAB = 64       # central x-planes of [kernel-delta]'s fold witness
 SUBSET = 32             # RabbitCT projections in the kernel-vs-plain check
+# The streaming phases: RabbitCT in 8 deltas of 62 projections.
+N_STEPS = 8
+TAIL_RUNS = 3           # sessions whose last-delta fold is timed
+STREAM_DEADLINE_S = 300  # a streaming session, first poll to last fold
+MESH_SESSION_REDUCES = ("psum", "scatter", "scatter_bf16")
 
 # Serving: Qwen2-1.5B at full width, 4 requests x 2048-token prompts.
 SEED = 0
@@ -238,9 +284,10 @@ def event_ms(fn, runs: int) -> float:
     return start.elapsed_time(end) / runs
 
 
-def reconstruction(dev) -> list:
+def reconstruction(dev) -> tuple:
     """Phases 3-5 on the RabbitCT cell; returns the back-projection kernel's
-    entries of the `kernels` line, the geometry and the projections."""
+    entries of the `kernels` line, the geometry, the projections and the
+    phantom."""
     import torch
 
     from repro_torch.core.distributed import shift_pmats_i
@@ -432,11 +479,463 @@ def reconstruction(dev) -> list:
             "design": DESIGN[name],
         })
 
-    return entries, g, proj
+    return entries, g, proj, phantom
+
+
+def last_delta(g) -> tuple:
+    """The angle range of the last of the N_STEPS deltas: the one whose
+    fold is the time from the last projection to the volume."""
+    n_d = g.n_proj // N_STEPS
+    return g.n_proj - n_d, g.n_proj
+
+
+def delta_operands(g, proj, codec, lo, hi, pmats=None):
+    """The kernel's operands for angles [lo, hi) as the incremental session
+    hands them to it: the delta filtered and encoded alone, P of those
+    angles (from `pmats`, default the geometry's)."""
+    import torch
+
+    from repro_torch.core.filtering import make_filter
+    from repro_torch.core.geometry import projection_matrices
+    from repro_torch.core.precision import CODECS as CODEC_TABLE
+    from repro_torch.kernels.backproject.ops import kernel_operands
+
+    filt = make_filter(g, "ramlak", out_dtype=torch.float32,
+                       device=proj.device)(proj[lo:hi])
+    data, scales = CODEC_TABLE[codec].encode(filt)
+    if pmats is None:
+        pmats = projection_matrices(g)
+    return kernel_operands(pmats[lo:hi], data, scales)
+
+
+def kernel_delta(g, proj, entries) -> None:
+    """Phase [kernel-delta]: the kernel against its plain version at the
+    incremental session's call shape, (512, 512) columns from the last 62
+    projections, five codecs, and its time there (fp32, fp16). Folds the
+    comparison's error into each entry's max_abs_err and the time into its
+    ms_at_delta_n_proj."""
+    import torch
+
+    from repro_torch.core.filtering import make_filter
+    from repro_torch.kernels.backproject import kernel as bpk
+
+    lo, hi = last_delta(g)
+    shape = (g.n_x, g.n_y, g.n_z)
+    rels, shares = [], []
+    by_codec = dict(zip(MAIN_PATH_CODECS, entries))
+    for codec in CODECS:
+        params, qt = delta_operands(g, proj, codec, lo, hi)
+        got = bpk.backproject_dual(params, qt, *shape)
+        shares.append(int(bpk.direct_pairs) / bpk.tile_pairs)
+        want = bpk.backproject_dual_torch(params, qt, *shape)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        rel = err / float(want.abs().max())
+        rels.append(f"{codec} {rel:.3e}")
+        if not (rel <= REL_TOL):
+            fail(f"kernel disagrees with its plain version at the delta "
+                 f"shape {shape} x {hi - lo} projections, {codec}: "
+                 f"relative {rel:.3e} > {REL_TOL:.0e}")
+        if codec in by_codec:
+            entry = by_codec[codec]
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+            ms = event_ms(lambda: bpk.backproject_dual(params, qt, *shape),
+                          TIMED_LAUNCHES)
+            entry["delta_n_proj"] = hi - lo
+            entry["ms_at_delta_n_proj"] = ms
+            rels[-1] += f" (kernel {ms:.3f} ms)"
+        del got, want, params, qt
+    # What the session's per-delta filter costs: cuFFT on the delta's own
+    # batches (32 + 30 projections) against the whole scan's (the last
+    # batch there is 496 - 480 = 16 projections).
+    filt = make_filter(g, "ramlak", out_dtype=torch.float32,
+                       device=proj.device)
+    alone, whole = filt(proj[lo:hi]), filt(proj)[lo:hi]
+    filter_rel = rel_max(alone, whole)
+    print(f"[kernel-delta] RabbitCT[{lo}:{hi}] {shape}, {hi - lo} "
+          f"projections: max|kernel-plain| / max|plain| {', '.join(rels)} "
+          f"(bound {REL_TOL:.0e}); direct-gather share "
+          f"{', '.join(f'{x:.4%}' for x in shares)}; the delta filtered "
+          f"alone vs the same rows of the whole scan's filter: "
+          f"{filter_rel:.3e} of the max, bit-equal: "
+          f"{torch.equal(alone, whole)}")
+    del alone, whole
+    fold_witness(g, proj)
+
+
+def fold_witness(g, proj) -> None:
+    """Part of phase [kernel-delta]: what folding the deltas does to the
+    sums. On the central WITNESS_SLAB x-planes, over all the scan's
+    projections (fp32): the kernel's N_STEPS delta launches folded as
+    `acc + bp`, the session's fold, against its one launch over the scan
+    (fused), and the same fold of the plain version against its one pass.
+    Equal gaps say that the session's distance from fused is the fold's
+    reassociation; a kernel gap far above the plain one would be a fault
+    of the kernel at the delta shape."""
+    import torch
+
+    from repro_torch.core.distributed import shift_pmats_i
+    from repro_torch.core.geometry import projection_matrices
+    from repro_torch.kernels.backproject import kernel as bpk
+
+    n_d = g.n_proj // N_STEPS
+    i0 = (g.n_x - WITNESS_SLAB) // 2
+    pm = shift_pmats_i(torch.as_tensor(projection_matrices(g),
+                                       device=proj.device), float(i0))
+    shape = (WITNESS_SLAB, g.n_y, g.n_z)
+    whole, gaps = {}, {}
+    for name, bp in (("kernel", bpk.backproject_dual),
+                     ("plain", bpk.backproject_dual_torch)):
+        whole[name] = bp(*delta_operands(g, proj, "fp32", 0, g.n_proj, pm),
+                         *shape)
+        fold = torch.zeros_like(whole[name])
+        for k in range(N_STEPS):
+            fold = fold + bp(*delta_operands(g, proj, "fp32", k * n_d,
+                                             (k + 1) * n_d, pm), *shape)
+        torch.cuda.synchronize()
+        gaps[name] = rel_max(fold, whole[name])
+        del fold
+    ratio = gaps["kernel"] / gaps["plain"] if gaps["plain"] else math.inf
+    print(f"[kernel-delta] fold witness, x-planes [{i0}, {i0 + WITNESS_SLAB})"
+          f" of all {g.n_proj} projections, fp32: {N_STEPS} deltas folded "
+          f"acc + bp vs one pass, of the max: kernel {gaps['kernel']:.3e}, "
+          f"plain {gaps['plain']:.3e} (ratio {ratio:.2f}); kernel vs plain "
+          f"over the "
+          f"whole scan {rel_max(whole['kernel'], whole['plain']):.3e}")
+
+
+def poll_until(sess, done, deadline: float, what: str) -> None:
+    """poll() the session until done(sess), failing past the deadline."""
+    end = time.perf_counter() + deadline
+    while not done(sess):
+        if sess.poll() == 0:
+            if time.perf_counter() > end:
+                fail(f"{what}: {sess.n_folded} angles folded at the "
+                     f"{deadline:.0f} s deadline")
+            time.sleep(0.005)
+
+
+def incremental(g, proj, phantom) -> dict:
+    """Phase [incremental]: the streaming session at RabbitCT, n_steps = 8,
+    fed by a scanner thread through a StreamingProjectionWriter store;
+    then the time from the last projection to the volume. Returns the
+    kernel's launches per codec."""
+    import threading
+
+    from repro_torch.core.precision import Precision
+    from repro_torch.io.streams import StreamingProjectionWriter
+
+    n_d = g.n_proj // N_STEPS
+    launches, vols = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "stream")
+        host = proj.cpu().numpy()       # what the scanner writes
+        writer = StreamingProjectionWriter(path, host.shape)
+        peeked, stop, errors = threading.Event(), threading.Event(), []
+
+        def scanner():
+            """Appends the 8 deltas; after the 4th it waits for the
+            session's mid-scan peek. Stops early when told to."""
+            try:
+                for k in range(N_STEPS):
+                    if k == N_STEPS // 2:
+                        peeked.wait(timeout=STREAM_DEADLINE_S)
+                    if stop.is_set():
+                        return
+                    writer.append(host[k * n_d:(k + 1) * n_d], k * n_d)
+            except BaseException as e:   # reported on the main thread
+                errors.append(e)
+
+        thread = threading.Thread(target=scanner, daemon=True)
+        try:
+            streaming_sessions(g, proj, phantom, path, thread, peeked,
+                               launches, vols)
+        finally:
+            # never leave the temporary directory under a running writer
+            stop.set()
+            peeked.set()
+            if thread.ident is not None:
+                thread.join(timeout=120)
+        if errors or thread.is_alive():
+            fail(f"the scanner thread failed: {errors}")
+        del host
+    d16 = float(((vols["fp16"] - vols["fp32"]) ** 2).mean().sqrt()
+                / vols["fp32"].abs().max())
+    tol = Precision("fp16").rmse_tol()
+    print(f"[incremental] fp16 vs fp32 relative RMSE {d16:.3e} (bound "
+          f"{tol:.3e})")
+    if not d16 < tol:
+        fail(f"incremental fp16 off fp32 by {d16:.3e} > {tol:.3e}")
+    return launches
+
+
+def streaming_sessions(g, proj, phantom, path, thread, peeked, launches,
+                       vols) -> None:
+    """The [incremental] sessions of both codecs and their tails; `thread`
+    is the scanner, started here, that fills the store at `path`."""
+    import torch
+
+    from repro_torch.core.plan import ReconstructionPlan
+    from repro_torch.io.streams import ProjectionSource
+    from repro_torch.kernels.backproject import kernel as bpk
+
+    sync = torch.cuda.synchronize
+    n_d = g.n_proj // N_STEPS
+    half = g.n_proj // 2
+    for codec in MAIN_PATH_CODECS:
+        fused = ReconstructionPlan(geometry=g, impl="kernel",
+                                   precision=codec).build()
+        ref = fused(proj)
+        plan = ReconstructionPlan(geometry=g, impl="kernel",
+                                  precision=codec, schedule="incremental",
+                                  n_steps=N_STEPS)
+        sess = plan.build_incremental(source=ProjectionSource(path))
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        bpk.launches = 0
+        t0 = time.perf_counter()
+        peek = ""
+        if codec == MAIN_PATH_CODECS[0]:
+            thread.start()
+            poll_until(sess, lambda s: s.n_folded >= half,
+                       STREAM_DEADLINE_S, "incremental, first half")
+            part = sess.finalize(partial=True)
+            sync()
+            folded = sess.n_folded
+            peeked.set()
+            peek = (f"; finalize(partial=True) after {folded} angles, "
+                    f"finite: {bool(torch.isfinite(part).all())}")
+            if folded != half or not torch.isfinite(part).all():
+                fail(f"incremental peek: {folded} angles folded (want "
+                     f"{half}), finite {bool(torch.isfinite(part).all())}")
+            del part
+        poll_until(sess, lambda s: s.is_complete, STREAM_DEADLINE_S,
+                   f"incremental {codec}")
+        vol = sess.finalize()
+        sync()
+        dt = time.perf_counter() - t0
+        n_launch = bpk.launches
+        peak = torch.cuda.max_memory_allocated()
+        rel = rel_max(vol, ref)
+        rmse = interior_rmse(vol, phantom)
+        print(f"[incremental] {codec}: {N_STEPS} deltas of {n_d} "
+              f"polled from a {'growing' if peek else 'committed'} "
+              f"store and folded in {dt:.3f} s; kernel launches "
+              f"{n_launch}; peak {peak / 2**30:.2f} GiB; finalize() vs "
+              f"fused build() {rel:.3e} of the max (bound "
+              f"{REL_TOL:.0e}); interior RMSE {rmse:.4f} (bound "
+              f"{RMSE_BOUND}){peek}")
+        if n_launch != N_STEPS:
+            fail(f"incremental {codec}: {n_launch} kernel launches, "
+                 f"not {N_STEPS}")
+        if not rel <= REL_TOL:
+            fail(f"incremental {codec} off the fused engine: {rel:.3e}")
+        if not rmse < RMSE_BOUND:
+            fail(f"incremental {codec}: RMSE {rmse:.4f}")
+        vols[codec] = vol
+
+        # The reference benchmark's tail: 7 deltas folded, the 8th
+        # staged (its filter and gather ride along with acquisition),
+        # then update(staged, finalize=True) timed.
+        tails, fused_s = [], []
+        bpk.launches = 0
+        for _ in range(TAIL_RUNS):
+            s = plan.build_incremental()
+            for k in range(N_STEPS - 1):
+                s.update(proj[k * n_d:(k + 1) * n_d],
+                         (k * n_d, (k + 1) * n_d))
+            staged = s.stage(proj[-n_d:], last_delta(g))
+            sync()
+            t0 = time.perf_counter()
+            out = s.update(staged, finalize=True)
+            sync()
+            tails.append(time.perf_counter() - t0)
+            del s, staged
+        n_tail = bpk.launches
+        for _ in range(TAIL_RUNS):
+            t0 = time.perf_counter()
+            fused(proj)
+            sync()
+            fused_s.append(time.perf_counter() - t0)
+        t_last, budget = min(tails), min(fused_s) / N_STEPS
+        tail_rel = rel_max(out, ref)
+        print(f"[incremental] {codec} tail: t_last_delta {t_last:.4f} s "
+              f"(best of {TAIL_RUNS}: "
+              f"{', '.join(f'{t:.4f}' for t in tails)}) beside "
+              f"fused_seconds / {N_STEPS} = {budget:.4f} s (fused "
+              f"{min(fused_s):.4f} s); the JAX package's streaming "
+              f"claim t_last_delta < batch_e2e / n_steps "
+              f"{'holds' if t_last < budget else 'does not hold'} on "
+              f"this card; volume vs fused {tail_rel:.3e} of the max; "
+              f"kernel launches {n_tail} ({TAIL_RUNS} sessions)")
+        if not tail_rel <= REL_TOL:
+            fail(f"incremental {codec} tail off the fused engine: "
+                 f"{tail_rel:.3e}")
+        launches[codec] = n_launch + n_tail
+        del sess, vol, ref, out
+
+
+def batched(g, proj) -> dict:
+    """Phase [batched]: build_batched(2) on the phantom's scan and a copy
+    scaled by 1.5; each lane bit-equal to build() of its scan. Returns the
+    kernel's launches per codec."""
+    import torch
+
+    from repro_torch.core.plan import ReconstructionPlan
+    from repro_torch.kernels.backproject import kernel as bpk
+
+    sync = torch.cuda.synchronize
+    scans = torch.stack([proj, proj * 1.5])
+    launches = {}
+    for codec in MAIN_PATH_CODECS:
+        plan = ReconstructionPlan(geometry=g, impl="kernel", precision=codec)
+        one, both = plan.build(), plan.build_batched(2)
+        both(scans)     # warm-up
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        bpk.launches = 0
+        t0 = time.perf_counter()
+        out = both(scans)
+        sync()
+        t_batch = time.perf_counter() - t0
+        launches[codec] = bpk.launches
+        peak = torch.cuda.max_memory_allocated()
+        t_scans, same = 0.0, []
+        for b in range(2):
+            t0 = time.perf_counter()
+            lane = one(scans[b])
+            sync()
+            t_scans += time.perf_counter() - t0
+            same.append(torch.equal(out[b], lane))
+            del lane
+        print(f"[batched] {codec}: build_batched(2) {t_batch:.4f} s per "
+              f"batch beside 2 x build() {t_scans:.4f} s; kernel launches "
+              f"{launches[codec]}; peak {peak / 2**30:.2f} GiB; lanes "
+              f"bit-equal to build(): {same}")
+        if launches[codec] != 2:
+            fail(f"batched {codec}: {launches[codec]} kernel launches")
+        if not all(same):
+            fail(f"batched {codec}: a lane is not bit-equal to build()")
+        del out
+    return launches
+
+
+def store_bytes(path: str) -> int:
+    """Bytes of every shard file under a store (its sidecar included)."""
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files
+               if f.endswith(".bin"))
+
+
+def io_phase(dev, g, proj) -> int:
+    """Phase [io]: an fp16-encoded projection store, then build(source=,
+    sink=)() and the volume read back. Returns the kernel's launches
+    (fp32 plan)."""
+    import torch
+
+    from repro_torch.core.plan import ReconstructionPlan
+    from repro_torch.core.precision import CODECS as CODEC_TABLE
+    from repro_torch.io.streams import ProjectionSource, VolumeSink
+    from repro_torch.kernels.backproject import kernel as bpk
+    from repro_torch.obs.trace import Tracer, set_tracer
+
+    sync = torch.cuda.synchronize
+    plan = ReconstructionPlan(geometry=g, impl="kernel", precision="fp32")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        src = ProjectionSource.write(os.path.join(tmp, "proj"), proj,
+                                     codec="fp16")
+        t_put = time.perf_counter() - t0
+        in_bytes = store_bytes(src.path)
+        codec = CODEC_TABLE["fp16"]
+        want_proj = codec.decode(*codec.encode(proj))
+        loaded = src.load(device=dev)
+        sync()
+        same_proj = torch.equal(loaded, want_proj)
+        del want_proj
+        sink = VolumeSink(os.path.join(tmp, "vol"))
+        fn = plan.build(source=src, sink=sink)
+        tracer = Tracer(enabled=True)
+        prev = set_tracer(tracer)
+        bpk.launches = 0
+        try:
+            vol = fn()
+            sync()
+        finally:
+            set_tracer(prev)
+        n_launch = bpk.launches
+        want = plan.build()(loaded)
+        same_vol = torch.equal(vol, want)
+        back = sink.read()
+        same_back = torch.equal(back, vol.cpu())
+        out_bytes = sink.nbytes()
+        totals = tracer.stage_totals()
+        t_read, t_write = totals["stage.read"], totals["stage.write"]
+    print(f"[io] ProjectionSource.write(codec='fp16') {in_bytes} bytes on "
+          f"disk in {t_put:.3f} s; build(source=, sink=)(): stage.read "
+          f"{t_read:.3f} s ({in_bytes / t_read / 1e9:.3f} GB/s), "
+          f"stage.write {t_write:.3f} s ({out_bytes} bytes, "
+          f"{out_bytes / t_write / 1e9:.3f} GB/s); kernel launches "
+          f"{n_launch}; loaded projections bit-equal to the codec's "
+          f"decode(encode()): {same_proj}; volume bit-equal to build() of "
+          f"them: {same_vol}; VolumeSink.read() bit-equal to the volume: "
+          f"{same_back}")
+    if n_launch != 1:
+        fail(f"io: {n_launch} kernel launches")
+    if not (same_proj and same_vol and same_back):
+        fail("io: a round trip is not bit-equal")
+    return n_launch
+
+
+def trace_phase(g, proj) -> int:
+    """Phase [trace]: the tracer on around one build() call. Returns the
+    kernel's launches (fp32)."""
+    import torch
+
+    from repro_torch.core.plan import ReconstructionPlan
+    from repro_torch.kernels.backproject import kernel as bpk
+    from repro_torch.obs import default_registry
+    from repro_torch.obs.trace import Tracer, set_tracer
+
+    fn = ReconstructionPlan(geometry=g, impl="kernel",
+                            precision="fp32").build()
+    params, qt = delta_operands(g, proj, "fp32", 0, g.n_proj)
+    shape = (g.n_x, g.n_y, g.n_z)
+    kernel_ms = event_ms(lambda: bpk.backproject_dual(params, qt, *shape), 3)
+    del params, qt
+    fn(proj)
+    torch.cuda.synchronize()
+    tracer = Tracer(enabled=True)
+    prev = set_tracer(tracer)
+    bpk.launches = 0
+    try:
+        fn(proj)
+    finally:
+        set_tracer(prev)
+    n_launch = bpk.launches
+    (span,) = tracer.spans("engine.reconstruct")
+    span_ms, dispatch_ms = span["dur"] / 1e3, span["args"]["dispatch_us"] / 1e3
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(tracer.save(os.path.join(tmp, "trace.json"))) as f:
+            events = json.load(f)["traceEvents"]
+    snap = default_registry().snapshot()
+    counters = {c: snap.get(f"cache.core.engine_cache.{c}")
+                for c in ("hits", "misses", "evictions", "unhashable")}
+    print(f"[trace] engine.reconstruct span {span_ms:.3f} ms (dispatch "
+          f"{dispatch_ms:.3f} ms, args {span['args']}) vs the kernel's CUDA-"
+          f"event time {kernel_ms:.3f} ms; kernel launches {n_launch}; "
+          f"exported Chrome JSON loads, {len(events)} events; registry "
+          f"cache.core.engine_cache.* {counters}")
+    if not span_ms >= kernel_ms:
+        fail(f"the fenced span ({span_ms:.3f} ms) is shorter than the "
+             f"kernel ({kernel_ms:.3f} ms)")
+    if n_launch != 1 or None in counters.values():
+        fail(f"trace: launches {n_launch}, counters {counters}")
+    return n_launch
 
 
 def mesh_one(dev, g, proj) -> dict:
-    """Phase 6: the mesh engine on a world of one over NCCL; returns the
+    """Phase 11: the mesh engine on a world of one over NCCL; returns the
     kernel's launches per codec on the mesh path."""
     import torch
     import torch.distributed as dist
@@ -512,8 +1011,68 @@ def mesh_one(dev, g, proj) -> dict:
                         fail(f"mesh 1x1 {label}: {check}")
                     del base, fn, want, got, vol
                 del psum
+            launches["fp32"] += mesh_sessions(g, proj, mesh)
         finally:
             dist.destroy_process_group()
+    return launches
+
+
+def fold_session(plan, proj, n_steps: int, mesh=None):
+    """Fold every delta of `proj` in order into a new session of `plan`
+    (on a mesh, this rank's share of each) and finalize."""
+    from repro_torch.core.distributed import local_projections
+
+    sess = plan.build_incremental()
+    n_d = proj.shape[0] // n_steps
+    for lo in range(0, proj.shape[0], n_d):
+        delta = proj[lo:lo + n_d]
+        sess.update(delta if mesh is None else local_projections(delta, mesh),
+                    (lo, lo + n_d))
+    return sess.finalize()
+
+
+def mesh_sessions(g, proj, mesh) -> int:
+    """The [mesh-1x1] incremental sessions (fp32, 8 deltas) under each
+    reduce, against the mesh=None session; returns the kernel launches."""
+    import torch
+
+    from repro_torch.core.distributed import assemble_volume
+    from repro_torch.core.plan import ReconstructionPlan
+    from repro_torch.kernels.backproject import kernel as bpk
+
+    kw = dict(geometry=g, impl="kernel", precision="fp32",
+              schedule="incremental", n_steps=N_STEPS)
+    none = fold_session(ReconstructionPlan(**kw), proj, N_STEPS)
+    launches, vols = 0, {}
+    for red in MESH_SESSION_REDUCES:
+        bpk.launches = 0
+        t0 = time.perf_counter()
+        part = fold_session(ReconstructionPlan(mesh=mesh, reduce=red, **kw),
+                            proj, N_STEPS, mesh)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n_launch = bpk.launches
+        launches += n_launch
+        vol = assemble_volume(part, mesh, red).reshape(g.volume_shape())
+        if red == "scatter_bf16":
+            rel = rel_max(vol, vols["psum"])
+            ok = rel < BF16_REDUCE_RTOL
+            check = (f"vs the psum session {rel:.3e} of the max (bound "
+                     f"{BF16_REDUCE_RTOL:.3e})")
+        else:
+            ok = torch.equal(vol, none)
+            check = ("bit-equal to the mesh=None session" if ok else
+                     "NOT bit-equal to the mesh=None session: max abs "
+                     f"{float((vol - none).abs().max()):.3e}")
+        vols[red] = vol
+        print(f"[mesh-1x1] incremental fp32 {red}: {N_STEPS} deltas "
+              f"folded and finalized in {dt:.4f} s; kernel launches "
+              f"{n_launch}; {check}")
+        if n_launch != N_STEPS:
+            fail(f"mesh 1x1 incremental {red}: {n_launch} kernel launches")
+        if not ok:
+            fail(f"mesh 1x1 incremental {red}: {check}")
+        del part
     return launches
 
 
@@ -637,7 +1196,7 @@ def rel_max(a, b) -> float:
 
 
 def mesh_four(g, proj) -> int:
-    """Phase 7, the 2 x 2 phase: the references on one device, then four
+    """Phase 12, the 2 x 2 phase: the references on one device, then four
     ranks on the one card; returns the kernel launches of all ranks on the
     mesh path."""
     import torch
@@ -703,7 +1262,7 @@ def mesh_four(g, proj) -> int:
 
 
 def mxu_check(dev) -> None:
-    """Phase 8: backproject_mxu against the factorized oracle at
+    """Phase 13: backproject_mxu against the factorized oracle at
     default_geometry(32) on the card."""
     import torch
 
@@ -778,7 +1337,7 @@ def attention_operands(cfg, s: int, dtype, dev, seed: int):
 
 
 def attention_checks(cfg, dev) -> dict:
-    """Phase 9; returns the max |kernel - plain| per dtype."""
+    """Phase 14; returns the max |kernel - plain| per dtype."""
     import torch
 
     from repro_torch.kernels.attention import kernel as fak
@@ -826,7 +1385,7 @@ def plain_attention_step(layers):
 
 
 def serving(cfg, dev) -> dict:
-    """Phase 10; returns the attention kernel's launches per dtype on the
+    """Phase 15; returns the attention kernel's launches per dtype on the
     serving path (bf16: greedy_generate; f32: the f32 prefill)."""
     import torch
 
@@ -968,7 +1527,7 @@ def logit_checks(cfg, params, tokens, logits_k, cache) -> int:
 
 
 def attention_timing(cfg, dev, launches: dict, max_abs: dict) -> list:
-    """Phase 11; returns the attention kernel's entries of the `kernels`
+    """Phase 16; returns the attention kernel's entries of the `kernels`
     line."""
     import torch
     import torch.nn.functional as F
@@ -1063,24 +1622,36 @@ def main() -> int:
         print("[build] " + lib.ptxas_report().replace("\n", "\n[build] "))
 
     # 3-5. Reconstruction ----------------------------------------------------
-    entries, g, proj = reconstruction(dev)
+    entries, g, proj, phantom = reconstruction(dev)
     torch.cuda.empty_cache()
 
-    # 6-8. The mesh engine and backproject_mxu -------------------------------
-    mesh_launches = mesh_one(dev, g, proj)
+    # 6-10. The streaming, batched and I/O paths, the tracer ------------------
+    kernel_delta(g, proj, entries)
+    # launches per path, for each codec of MAIN_PATH_CODECS
+    paths = {"single-device": {c: e["launches"]
+                               for c, e in zip(MAIN_PATH_CODECS, entries)}}
+    paths["incremental"] = incremental(g, proj, phantom)
+    del phantom
     torch.cuda.empty_cache()
-    four_launches = mesh_four(g, proj)
+    paths["batched"] = batched(g, proj)
+    torch.cuda.empty_cache()
+    paths["io"] = {"fp32": io_phase(dev, g, proj), "fp16": 0}
+    paths["trace"] = {"fp32": trace_phase(g, proj), "fp16": 0}
+    torch.cuda.empty_cache()
+
+    # 11-13. The mesh engine and backproject_mxu -----------------------------
+    paths["mesh 1x1"] = mesh_one(dev, g, proj)
+    torch.cuda.empty_cache()
+    paths["mesh 2x2, all ranks"] = {"fp32": mesh_four(g, proj), "fp16": 0}
     del proj
     mxu_check(dev)
     for entry, codec in zip(entries, MAIN_PATH_CODECS):
-        extra = mesh_launches[codec] + (four_launches if codec == "fp32"
-                                        else 0)
-        print(f"[kernels] {entry['name']} launches: {entry['launches']} "
-              f"(single-device path) + {mesh_launches[codec]} (mesh 1x1) "
-              f"+ {extra - mesh_launches[codec]} (mesh 2x2, all ranks)")
-        entry["launches"] += extra
+        entry["launches"] = sum(p[codec] for p in paths.values())
+        print(f"[kernels] {entry['name']} launches: {entry['launches']} = "
+              + " + ".join(f"{p[codec]} ({name})"
+                           for name, p in paths.items()))
 
-    # 9-11. Serving ----------------------------------------------------------
+    # 14-16. Serving --------------------------------------------------------
     cfg = get_config("qwen2_1_5b")
     max_abs = attention_checks(cfg, dev)
     launches = serving(cfg, dev)
@@ -1093,7 +1664,7 @@ def main() -> int:
     if leaked:
         fail(f"the port imported {leaked}")
 
-    # 12. Result -----------------------------------------------------------
+    # 17. Result -----------------------------------------------------------
     print(json.dumps({"kernels": entries}))
     print(f"[device] {smi}")
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,8 @@
 """Counting, bounded LRU cache — the plan's engine cache.
 
-Port of `repro/core/cache.py`. The reference can also mirror its counts
-into the process-wide metrics registry (`name=`); the port has no
-observability layer yet (ROADMAP Queue 1 item 11), so only the per-instance
-counters exist.
+Port of `repro/core/cache.py`, the registry mirror included: a cache with
+a `name` also counts into the process-wide metrics registry
+(`obs/metrics.py`) as ``cache.<name>.{hits,misses,evictions,unhashable}``.
 
 Thread-safety: a single lock around the OrderedDict; `get_or_build` may
 build the same value twice under a race but never corrupts the map.
@@ -12,7 +11,9 @@ from __future__ import annotations
 
 import threading
 from collections import OrderedDict
-from typing import Any, Callable
+from typing import Any, Callable, Optional
+
+from ..obs import metrics as _metrics
 
 _MISSING = object()
 
@@ -22,16 +23,33 @@ class CountingLRU:
 
     capacity <= 0 disables storage entirely (every get is a miss, every put
     a no-op).
+
+    `name` additionally mirrors every count into the process-global metrics
+    registry as ``cache.<name>.{hits,misses,evictions,unhashable}``. The
+    int attributes stay the per-INSTANCE truth (and what `stats()`
+    reports); registry counters are cumulative for the process and are
+    never reset by `clear()`. Unnamed caches stay registry-silent.
     """
 
-    def __init__(self, capacity: int = 64):
+    def __init__(self, capacity: int = 64, name: Optional[str] = None):
         self.capacity = int(capacity)
+        self.name = name
         self._data: OrderedDict = OrderedDict()
         self._lock = threading.Lock()
         self.hits = 0
         self.misses = 0
         self.evictions = 0
         self.unhashable = 0
+        self._mirror = None if name is None else {
+            c: _metrics.counter(f"cache.{name}.{c}")
+            for c in ("hits", "misses", "evictions", "unhashable")}
+
+    def _count(self, which: str) -> None:
+        """Increment an attribute counter (+ its registry mirror). Caller
+        holds the instance lock; the registry counter has its own."""
+        setattr(self, which, getattr(self, which) + 1)
+        if self._mirror is not None:
+            self._mirror[which].inc()
 
     def get(self, key: Any, default: Any = None) -> Any:
         """Counted lookup; unhashable keys count and return `default`."""
@@ -39,14 +57,14 @@ class CountingLRU:
             with self._lock:
                 val = self._data.get(key, _MISSING)
                 if val is _MISSING:
-                    self.misses += 1
+                    self._count("misses")
                     return default
                 self._data.move_to_end(key)
-                self.hits += 1
+                self._count("hits")
                 return val
         except TypeError:
             with self._lock:
-                self.unhashable += 1
+                self._count("unhashable")
             return default
 
     def put(self, key: Any, value: Any) -> None:
@@ -61,10 +79,10 @@ class CountingLRU:
                 self._data[key] = value
                 while len(self._data) > self.capacity:
                     self._data.popitem(last=False)
-                    self.evictions += 1
+                    self._count("evictions")
         except TypeError:
             with self._lock:
-                self.unhashable += 1
+                self._count("unhashable")
 
     def get_or_build(self, key: Any, build: Callable[[], Any]) -> Any:
         """Counted get, building (and caching) on miss. Unhashable keys
@@ -73,7 +91,7 @@ class CountingLRU:
             hash(key)
         except TypeError:
             with self._lock:
-                self.unhashable += 1
+                self._count("unhashable")
             return build()
         val = self.get(key, _MISSING)
         if val is not _MISSING:

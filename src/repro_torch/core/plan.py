@@ -31,22 +31,37 @@ the process group with. The plan's `device` (default "cuda") says where
 everything runs; asking for the card on a host without one raises and
 names ``device="cpu"``.
 
-Not in this slice (each raises NotImplementedError naming its ROADMAP.md
-item): `build_batched`, `build_incremental`, `build_traced`,
-`source=`/`sink=`, `schedule="incremental"` and `plan_from_spec("auto")`.
-The reference's `blocks`/`vmem_budget` fields return with the Hopper
-launch-shape tuner.
+The plan also builds the engines around that rank function, as the
+reference does:
+
+    build(source=, sink=)   load -> engine -> store, through a
+                            ProjectionSource / VolumeSink (io/streams.py)
+    build_batched(B)        B same-geometry scans, lane b bit-equal to
+                            build()(proj[b])
+    build_incremental()     an IncrementalSession (schedule="incremental")
+                            folding projection deltas as the scanner
+                            writes them: the paper's instant CT
+
+Every engine call, fold and stage runs in a span of the process tracer
+(obs/trace.py), fenced on the card when the tracer is enabled.
+
+Not ported yet (each raises NotImplementedError naming its ROADMAP.md
+item): `build_traced` and the traced session, `plan_from_spec("auto")`,
+and the reference's `blocks`/`vmem_budget` fields, which return with the
+Hopper launch-shape tuner.
 """
 from __future__ import annotations
 
 import dataclasses
 import difflib
-from typing import Callable, Literal, Optional, Tuple
+from typing import Callable, Literal, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 from torch.distributed.device_mesh import DeviceMesh
 
 from ..device import resolve_device
+from ..obs.trace import get_tracer, wait_for
 from ..parallel.mesh import (
     AXIS_DATA, AXIS_MODEL, AXIS_POD, axis_size, dp_axes,
 )
@@ -67,16 +82,16 @@ _REDUCES = ("psum",) + SCATTER_REDUCES
 _IMPLS = ("reference", "factorized", "kernel")
 _PRECISIONS = ("fp32", "bf16", "fp16", "fp8_e4m3", "fp8_e5m2")
 
-# ROADMAP.md Queue 1 items that bring back what this slice leaves out.
+# ROADMAP.md Queue 1 items that bring back what the port leaves out.
 _TUNER = "ROADMAP.md Queue 1 item 7 (Hopper launch-shape tuner, tune.py)"
-_ENGINES = ("ROADMAP.md Queue 1 item 10 (batched, incremental and traced "
-            "engines)")
-_IO_PLANNER = ("ROADMAP.md Queue 1 item 11 (I/O, planner, observability, "
-               "service)")
+_TRACED_PLANNER = ("ROADMAP.md Queue 1 item 22 (traced engines, "
+                   "obs.attribution, perf model and planner)")
 
-# build() results keyed by the (hashable) plan and, on a mesh, the mesh's
-# process groups (a new group behind an equal mesh is a new engine).
-_ENGINE_CACHE = CountingLRU(capacity=64)
+# build()/build_batched() results keyed by the (hashable) plan (plus the
+# batch size for batched engines) and, on a mesh, the mesh's process
+# groups (a new group behind an equal mesh is a new engine). Its counts
+# also go to the metrics registry as cache.core.engine_cache.*.
+_ENGINE_CACHE = CountingLRU(capacity=64, name="core.engine_cache")
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -86,6 +101,24 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 def clear_engine_cache() -> None:
     _ENGINE_CACHE.clear()
+
+
+def _traced_call(fn: Callable, name: str, attrs: dict) -> Callable:
+    """Wrap an engine callable in a fenced span when the process tracer is
+    on. The disabled path is ONE attribute load + branch per call; `attrs`
+    are fixed at build time. The span's `dispatch_us` arg is the host time
+    until the launches returned, its duration dispatch + device compute
+    (`Span.fence`)."""
+    def call(*args, **kwargs):
+        tracer = get_tracer()
+        if not tracer.enabled:
+            return fn(*args, **kwargs)
+        with tracer.span(name, **attrs) as sp:
+            out = fn(*args, **kwargs)
+            sp.fence(out)
+        return out
+    call.__wrapped__ = fn
+    return call
 
 
 def engine_cache_stats() -> dict:
@@ -120,11 +153,14 @@ class _Stages:
     gather_batch: Callable   # (pm_col, raw_b, async_op) -> wait() -> columns
     slab_pmats: Callable     # pm_col -> P shifted to this rank's x-slab
     reduce_slab: Callable    # full-slab row-reduce epilogue
+    scatter_compensated: Callable  # (part, carry) -> (reduced, new carry)
     backproject: Callable    # resolved impl
     nx_slab: int
     scale: float             # fdk_scale(geometry)
     coll: Optional[Collectives]
     dp: Tuple[str, ...]      # row-reduce axes present on the mesh
+    data_axis: Optional[str]
+    pod_axis: Optional[str]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -363,10 +399,27 @@ class ReconstructionPlan:
                 slab = coll.all_reduce(slab, a)
             return slab
 
+        # --- stage: "scatter_bf16" reduce-scatter with error feedback ------
+        # Re-inject the residual this rank dropped when it rounded the
+        # previous partial of the SAME region (the chunked schedule's last
+        # round of a chunk, the session's previous delta), so rounding
+        # error does not accumulate over the rounds: only the final
+        # round's rounding survives (one per rank).
+        data_axis = AXIS_DATA if AXIS_DATA in dp else None
+
+        def scatter_compensated(part, carry):
+            part = part + carry
+            half = part.to(torch.bfloat16)
+            red = coll.reduce_scatter_y(half, data_axis).to(torch.float32)
+            return red, part - half.to(torch.float32)
+
         return _Stages(gather_batch=gather_batch, slab_pmats=slab_pmats,
                        reduce_slab=reduce_slab,
+                       scatter_compensated=scatter_compensated,
                        backproject=_get_backprojector(self.impl),
-                       nx_slab=nx_slab, scale=fdk_scale(g), coll=coll, dp=dp)
+                       nx_slab=nx_slab, scale=fdk_scale(g), coll=coll, dp=dp,
+                       data_axis=data_axis,
+                       pod_axis=AXIS_POD if AXIS_POD in dp else None)
 
     def _build_rank_fn(self, st: _Stages) -> Callable:
         """Compose the stage primitives into rank_fn(pm_steps, proj_local):
@@ -420,8 +473,7 @@ class ReconstructionPlan:
         scatter = self.reduce in SCATTER_REDUCES
         compensated = self.reduce == "scatter_bf16"
         yc_local = yc // self._data_size if scatter else yc
-        data_axis = AXIS_DATA if AXIS_DATA in st.dp else None
-        pod_axis = AXIS_POD if AXIS_POD in st.dp else None
+        data_axis, pod_axis = st.data_axis, st.pod_axis
 
         def chunked(pm_steps, proj_local):
             dev = proj_local.device
@@ -437,16 +489,8 @@ class ReconstructionPlan:
                                        q_col, nx_slab, yc, g.n_z,
                                        scales=sc_col)
                     if compensated:
-                        # error feedback: re-inject the residual this rank
-                        # dropped when it rounded the SAME chunk last
-                        # round, so rounding error does not accumulate
-                        # over the n_steps micro-batches — only the final
-                        # round's rounding survives (one per rank).
-                        part = part + err[:, ci]
-                        half = part.to(torch.bfloat16)
-                        err[:, ci] = part - half.to(torch.float32)
-                        red = coll.reduce_scatter_y(half, data_axis).to(
-                            torch.float32)
+                        red, err[:, ci] = st.scatter_compensated(part,
+                                                                 err[:, ci])
                     elif scatter:
                         red = coll.reduce_scatter_y(part, data_axis)
                     elif data_axis is not None:
@@ -462,6 +506,50 @@ class ReconstructionPlan:
             return acc * scale
         return chunked
 
+    def _cache_key(self):
+        return (self if self.mesh is None
+                else (self, tuple(self.mesh.get_all_groups())))
+
+    def _span_attrs(self) -> dict:
+        """Fixed span args of this plan's engines (trace labels), JSON-plain
+        for the Perfetto export."""
+        grid = self.grid
+        return {
+            "schedule": self.schedule,
+            "impl": self.impl,
+            "reduce": self.reduce,
+            "precision": self.resolved_precision().storage,
+            "grid": f"{grid.r}x{grid.c}",
+            "n_steps": self.n_steps,
+        }
+
+    def output_spec(self) -> Optional[list]:
+        """The mesh axes each dimension of this rank's output is cut over,
+        in the JSON form the reference's shard store records for the same
+        layout (its output PartitionSpec), or None without a mesh: x over
+        `model`; y over `data` under a scatter reduce; the chunk interior
+        of the 4-D chunked + scatter store over `data`."""
+        if self.mesh is None:
+            return None
+        if self.reduce in SCATTER_REDUCES:
+            if self.schedule == "chunked":
+                return [AXIS_MODEL, None, AXIS_DATA, None]
+            return [AXIS_MODEL, AXIS_DATA]
+        return [AXIS_MODEL]
+
+    def _engine_inputs(self):
+        """(device, P per micro-batch of this rank's column group, the
+        per-scan input shape, its description for errors)."""
+        g = self.geometry
+        dev = resolve_device(self.device)
+        pm = torch.as_tensor(projection_matrices(g), device=dev)
+        if self.mesh is None:
+            return (dev, pm.reshape((self.n_steps, -1) + pm.shape[1:]),
+                    g.proj_shape(), "(N_p, N_v, N_u)")
+        return (dev, column_pmats(pm, self.mesh, self.n_steps),
+                (g.n_proj // self.grid.n_ranks,) + g.proj_shape()[1:],
+                "this rank's (N_p/(R*C), N_v, N_u)")
+
     def build(self, source=None, sink=None) -> Callable:
         """Validated reconstruction on the plan's device.
 
@@ -476,30 +564,29 @@ class ReconstructionPlan:
         are placed on the plan's device. The engine's `collectives`
         attribute (None without a mesh) counts the bytes each collective
         moved. Results are cached per plan (and mesh process groups).
+
+        `source`/`sink` (io/streams.py) close the pipeline at the
+        filesystem like the paper's ranks do: with a `ProjectionSource`
+        the returned callable may be invoked with no argument — each rank
+        reads only its own projection rows (span ``stage.read``); with a
+        `VolumeSink` each rank's output is stored shard per file before
+        it is returned (span ``stage.write``).
         """
         if self.schedule == "incremental":
-            raise _not_ported("schedule='incremental'", _ENGINES)
+            raise ValueError(
+                "schedule='incremental' is stateful (projections arrive as "
+                "deltas); use plan.build_incremental() to obtain a "
+                "streaming session instead of build()")
         if source is not None or sink is not None:
-            raise _not_ported("build(source=, sink=)", _IO_PLANNER)
-        key = (self if self.mesh is None
-               else (self, tuple(self.mesh.get_all_groups())))
+            return self._build_with_io(source, sink)
+        key = self._cache_key()
         cached = _ENGINE_CACHE.get(key)
         if cached is not None:
             return cached
         self.validate()
-        g = self.geometry
-        dev = resolve_device(self.device)
         st = self._make_stages()
         rank_fn = self._build_rank_fn(st)
-        pm = torch.as_tensor(projection_matrices(g), device=dev)
-        shape = g.proj_shape()
-        what = "(N_p, N_v, N_u)"
-        if self.mesh is None:
-            pm_steps = pm.reshape((self.n_steps, -1) + pm.shape[1:])
-        else:
-            pm_steps = column_pmats(pm, self.mesh, self.n_steps)
-            shape = (g.n_proj // self.grid.n_ranks,) + shape[1:]
-            what = "this rank's (N_p/(R*C), N_v, N_u)"
+        dev, pm_steps, shape, what = self._engine_inputs()
 
         def reconstruct_fn(projections) -> torch.Tensor:
             proj = torch.as_tensor(projections, device=dev)
@@ -509,18 +596,426 @@ class ReconstructionPlan:
                     f"got {tuple(proj.shape)}")
             return rank_fn(pm_steps, proj)
 
+        reconstruct_fn = _traced_call(reconstruct_fn, "engine.reconstruct",
+                                      self._span_attrs())
         reconstruct_fn.collectives = st.coll
         _ENGINE_CACHE.put(key, reconstruct_fn)
         return reconstruct_fn
 
-    def build_batched(self, batch_size: int):
-        raise _not_ported("build_batched", _ENGINES)
+    def _build_with_io(self, source, sink) -> Callable:
+        """The engine with its filesystem endpoints attached: read this
+        rank's projections from `source` when none are passed, store its
+        output to `sink`. The engine underneath comes from the per-plan
+        cache."""
+        engine = self.build()
+        # chunked+scatter emits the engine's 4-D y-chunk-major layout;
+        # record it in the sink's manifest so VolumeSink.read() restores
+        # the canonical volume.
+        layout = None
+        if self.schedule == "chunked" and self.reduce in SCATTER_REDUCES:
+            layout = {"kind": "y_chunk_major", "y_chunks": self.y_chunks}
+        spec = self.output_spec()
 
-    def build_incremental(self, source=None, sink=None):
-        raise _not_ported("build_incremental", _ENGINES)
+        def reconstruct_io(projections=None) -> torch.Tensor:
+            tracer = get_tracer()
+            if projections is None:
+                if source is None:
+                    raise TypeError(
+                        "this plan was built without a ProjectionSource; "
+                        "pass the projections array")
+                with tracer.span("stage.read") as sp:
+                    projections = sp.fence(
+                        source.load(self.mesh, device=self.device))
+            volume = engine(projections)
+            if sink is not None:
+                wait_for(volume)
+                with tracer.span("stage.write"):
+                    sink.write(volume, layout=layout, mesh=self.mesh,
+                               spec=spec)
+            return volume
+
+        reconstruct_io.collectives = engine.collectives
+        return reconstruct_io
+
+    def build_batched(self, batch_size: int) -> Callable:
+        """Batched engine: reconstruct `batch_size` same-geometry scans in
+        one call — the service layer's geometry-bucketed serving path.
+
+        Input : (B, N_p, N_v, N_u) projections, B == batch_size (on a mesh
+                (B, N_p/(R*C), N_v, N_u): this rank's rows of every scan).
+        Output: (B,) + build()'s output shape, f32.
+
+        Exactness contract: lane b of the output is BIT-IDENTICAL to
+        `self.build()(projections[b])`, so a junk or NaN lane cannot
+        perturb the real ones. Each lane runs build()'s schedule body in
+        turn, so the filter's FFT batches see the same projections and
+        batch counts as build()'s (cuFFT may pick another algorithm for
+        another count, and a batch must not straddle two scans), and only
+        one lane's intermediates are live at a time.
+
+        Engines are cached per (plan, batch_size) in build()'s LRU.
+        """
+        if self.schedule == "incremental":
+            raise ValueError(
+                "schedule='incremental' is stateful; the batched serving "
+                "path needs a batch schedule (fused/pipelined/chunked)")
+        bsz = int(batch_size)
+        if bsz < 1:
+            raise ValueError(f"batch_size={batch_size} must be >= 1")
+        key = (self._cache_key(), "batched", bsz)
+        cached = _ENGINE_CACHE.get(key)
+        if cached is not None:
+            return cached
+        self.validate()
+        st = self._make_stages()
+        rank_fn = self._build_rank_fn(st)
+        dev, pm_steps, shape, what = self._engine_inputs()
+        shape = (bsz,) + shape
+
+        def batched_fn(projections) -> torch.Tensor:
+            proj = torch.as_tensor(projections, device=dev)
+            if tuple(proj.shape) != shape:
+                raise ValueError(
+                    f"projections must be (B, ) + {what} = {shape}, "
+                    f"got {tuple(proj.shape)}")
+            out = None
+            for b in range(bsz):
+                lane = rank_fn(pm_steps, proj[b])
+                if out is None:
+                    out = torch.empty((bsz,) + tuple(lane.shape),
+                                      dtype=lane.dtype, device=lane.device)
+                out[b] = lane
+                del lane
+            return out
+
+        attrs = self._span_attrs()
+        attrs["batch"] = bsz
+        batched_fn = _traced_call(batched_fn, "engine.batched", attrs)
+        batched_fn.collectives = st.coll
+        _ENGINE_CACHE.put(key, batched_fn)
+        return batched_fn
+
+    def build_incremental(self, source=None, sink=None
+                          ) -> "IncrementalSession":
+        """Streaming reconstruction (the paper's *instant* CT): a stateful
+        session that folds projection deltas into this rank's slab
+        accumulator as the scanner writes them, so time-from-last-
+        projection is one delta's fold plus the reduce epilogue — not the
+        full pipeline.
+
+            plan = ReconstructionPlan(geometry=g, impl="kernel",
+                                      schedule="incremental", n_steps=8)
+            sess = plan.build_incremental(source=ProjectionSource(dir_in),
+                                          sink=VolumeSink(dir_out))
+            while not sess.is_complete:
+                sess.poll()          # discover + fold newly landed deltas
+            volume = sess.finalize() # reduce epilogue + FDK scale only
+
+        `n_steps` is the *nominal* delta count; at run time any contiguous,
+        disjoint angle slices whose length divides over the rank grid may
+        be folded, in any order. See `IncrementalSession`.
+        """
+        if self.schedule != "incremental":
+            raise ValueError(
+                f"build_incremental() needs schedule='incremental', got "
+                f"{self.schedule!r} — batch schedules go through build()")
+        return IncrementalSession(self, source=source, sink=sink)
 
     def build_traced(self, source=None, sink=None):
-        raise _not_ported("build_traced", _ENGINES)
+        raise _not_ported("build_traced", _TRACED_PLANNER)
+
+
+class StagedDelta(NamedTuple):
+    """One angle subset after the ARRIVAL-side stages — filtered, encoded
+    and column-AllGathered, awaiting only its fold. Produced by
+    `IncrementalSession.stage`, consumed by `IncrementalSession.update`."""
+
+    lo: int
+    hi: int
+    pm_col: torch.Tensor            # the column group's P of the delta
+    q_col: torch.Tensor             # filtered + encoded columns (wire format)
+    sc_col: Optional[torch.Tensor]  # per-projection scales (scaled codecs)
+
+
+class IncrementalSession:
+    """Stateful streaming reconstruction — `plan.build_incremental()`.
+
+    State machine::
+
+        OPEN --update(delta, angles)--> OPEN    fold one angle subset
+        OPEN --poll()-----------------> OPEN    discover + fold source deltas
+        OPEN --finalize(partial=True)-> OPEN    peek: reduce a COPY of state
+        OPEN --finalize()-------------> OPEN    full volume (all angles seen)
+
+    `finalize` is pure — the resident accumulator is never consumed, so the
+    session can keep folding after a peek. Each `update` filters, encodes
+    and column-AllGathers ONE contiguous angle slice and folds it into
+    this rank's slab accumulator; `finalize` runs only the row-reduce
+    epilogue and the FDK scale.
+
+    Resident state (per rank): the f32 slab accumulator — (N_x/R, N_y,
+    N_z) under reduce="psum" (row-reduce deferred to finalize), or already
+    scattered, (N_x/R, N_y/C_data, N_z), under the scatter reduces (each
+    update reduce-scatters its partial, so the state stays bounded). For
+    "scatter_bf16" an f32 error-feedback carry of the full-width slab
+    rides along: the rounding residual each update drops is re-injected
+    into the next update's partial, so only the final update's rounding
+    survives per rank.
+
+    On a mesh, every rank calls each method, `update` with its own share
+    of the delta: the rows `local_projections(delta, mesh)` gives it
+    (`ProjectionSource.iter_deltas(mesh)` reads exactly those).
+
+    Exactness contract: with impl="reference"/"factorized" the fold
+    threads the accumulator INTO the back-projection (`init=`), continuing
+    the per-voxel addition sequence — so folding deltas in order is
+    bit-identical to the fused engine (psum, same rank count), and folding
+    any permutation is bit-identical to the fused engine fed that same
+    permuted projection stream. impl="kernel" folds `acc + bp(delta)` (the
+    kernel owns its accumulator) and matches to f32 reassociation
+    tolerance.
+    """
+
+    def __init__(self, plan: ReconstructionPlan, source=None, sink=None):
+        plan.validate()
+        self.plan = plan
+        self._source = source
+        self._sink = sink
+        st = self._stages = plan._make_stages()
+        self._scatter = plan.reduce in SCATTER_REDUCES
+        self._compensated = plan.reduce == "scatter_bf16"
+        # reference/factorized thread the accumulator INTO the loop
+        # (`init=`) for the bit-exact fold; the kernel owns its
+        # accumulator, so it folds `acc + bp(delta)`.
+        self._threads_init = plan.impl in ("reference", "factorized")
+        g = plan.geometry
+        dev = resolve_device(plan.device)
+        self._covered = np.zeros(g.n_proj, dtype=bool)
+        self._pmats = torch.as_tensor(projection_matrices(g), device=dev)
+        ny = g.n_y // plan._data_size if self._scatter else g.n_y
+        self._acc = torch.zeros((st.nx_slab, ny, g.n_z), dtype=torch.float32,
+                                device=dev)
+        self._carry = (torch.zeros((st.nx_slab, g.n_y, g.n_z),
+                                   dtype=torch.float32, device=dev)
+                       if self._compensated else None)
+
+    # -- bookkeeping --------------------------------------------------------
+
+    @property
+    def n_folded(self) -> int:
+        """Angles folded so far."""
+        return int(self._covered.sum())
+
+    @property
+    def is_complete(self) -> bool:
+        return bool(self._covered.all())
+
+    def pending_ranges(self) -> list:
+        """Contiguous [lo, hi) angle ranges not folded yet."""
+        missing = ~self._covered
+        (idx,) = np.nonzero(np.diff(missing.astype(np.int8), prepend=0,
+                                    append=0))
+        return [(int(idx[i]), int(idx[i + 1]))
+                for i in range(0, len(idx), 2)]
+
+    def _check_slice(self, angle_slice) -> Tuple[int, int]:
+        if isinstance(angle_slice, slice):
+            if angle_slice.step not in (None, 1):
+                raise ValueError("angle_slice must be contiguous (step 1)")
+            lo, hi = angle_slice.start or 0, angle_slice.stop
+        else:
+            lo, hi = angle_slice
+        n_proj = self.plan.geometry.n_proj
+        if hi is None:
+            hi = n_proj
+        lo, hi = int(lo), int(hi)
+        if not (0 <= lo < hi <= n_proj):
+            raise ValueError(
+                f"angle_slice [{lo}, {hi}) out of range for N_p={n_proj}")
+        if self._covered[lo:hi].any():
+            raise ValueError(
+                f"angle_slice [{lo}, {hi}) overlaps angles already folded "
+                "into this session — double-folding corrupts the volume")
+        n_ranks = self.plan.grid.n_ranks
+        if (hi - lo) % n_ranks:
+            raise ValueError(
+                f"delta of {hi - lo} angles must divide over the "
+                f"{n_ranks} ranks of the grid")
+        return lo, hi
+
+    def _check_delta_shape(self, delta, lo: int, hi: int) -> None:
+        g = self.plan.geometry
+        n = (hi - lo) // self.plan.grid.n_ranks
+        if tuple(delta.shape) != (n, g.n_v, g.n_u):
+            share = "" if self.plan.mesh is None else "this rank's share of "
+            raise ValueError(
+                f"projection_delta shape {tuple(delta.shape)} does not "
+                f"match {share}angles [{lo}, {hi}) x detector "
+                f"({g.n_v}, {g.n_u})")
+
+    # -- the fold (one delta) -----------------------------------------------
+
+    def _columns(self, delta, lo: int, hi: int):
+        """Filter + encode + column AllGather of this rank's share of the
+        raw delta for angles [lo, hi): (pm_col, q_col, sc_col)."""
+        mesh = self.plan.mesh
+        pm = self._pmats[lo:hi]
+        pm_col = pm if mesh is None else column_pmats(pm, mesh, 1)[0]
+        raw = torch.as_tensor(delta, device=self._pmats.device)
+        return self._stages.gather_batch(pm_col, raw)()
+
+    def _fold(self, pm_col, q_col, sc_col) -> None:
+        st, g = self._stages, self.plan.geometry
+        pm_s = st.slab_pmats(pm_col)
+        if not self._scatter:
+            if self._threads_init:
+                self._acc = st.backproject(pm_s, q_col, st.nx_slab, g.n_y,
+                                           g.n_z, scales=sc_col,
+                                           init=self._acc)
+            else:
+                self._acc = self._acc + st.backproject(
+                    pm_s, q_col, st.nx_slab, g.n_y, g.n_z, scales=sc_col)
+            return
+        part = st.backproject(pm_s, q_col, st.nx_slab, g.n_y, g.n_z,
+                              scales=sc_col)
+        if self._compensated:
+            # error feedback along the time axis: the carry is the residual
+            # of the PREVIOUS delta's rounding
+            red, self._carry = st.scatter_compensated(part, self._carry)
+        else:
+            red = st.coll.reduce_scatter_y(part, st.data_axis)
+        self._acc = self._acc + red
+
+    def _epilogue(self) -> torch.Tensor:
+        """Row-reduce epilogue + FDK scale of a COPY of the accumulator:
+        psum over the data-parallel axes (under psum), the cross-pod
+        finish (under the scatter reduces, which reduced over `data` per
+        update)."""
+        st = self._stages
+        slab = self._acc
+        if st.coll is None:
+            axes = ()
+        elif self._scatter:
+            axes = (st.pod_axis,) if st.pod_axis is not None else ()
+        else:
+            axes = st.dp
+        if axes:
+            slab = slab.clone()
+        for a in axes:
+            slab = st.coll.all_reduce(slab, a)
+        return slab * st.scale
+
+    def _store(self, volume) -> None:
+        wait_for(volume)
+        with get_tracer().span("stage.write"):
+            self._sink.write(volume, mesh=self.plan.mesh,
+                             spec=self.plan.output_spec())
+
+    def stage(self, projection_delta, angle_slice) -> StagedDelta:
+        """Run the ARRIVAL-side half of an update — filter + encode + column
+        AllGather — without folding. Pure (no session state changes).
+
+        Filtering is per-projection independent, so a streaming rank
+        stages frames while the burst is still landing: by the time the
+        burst's last frame commits, only the fold (back-projection +
+        reduce) is left — `update(staged, finalize=True)` is then the
+        entire time-from-last-projection tail."""
+        lo, hi = self._check_slice(angle_slice)
+        self._check_delta_shape(projection_delta, lo, hi)
+        with get_tracer().span("session.stage", lo=lo, hi=hi) as sp:
+            pm_col, q_col, sc_col = sp.fence(
+                self._columns(projection_delta, lo, hi))
+        return StagedDelta(lo, hi, pm_col, q_col, sc_col)
+
+    def update(self, projection_delta, angle_slice=None,
+               finalize: bool = False):
+        """Fold one contiguous angle subset: filter + encode + column
+        AllGather + slab back-projection (+ per-delta scatter reduce).
+
+        projection_delta : this rank's share of the raw projections of the
+                           global angle range `angle_slice` = slice/
+                           (lo, hi) — all (hi - lo, N_v, N_u) of them
+                           without a mesh; hi - lo must divide over the
+                           rank grid — or a `StagedDelta` from `stage()`
+                           (no angle_slice; only the fold runs).
+        finalize         : True also runs the reduce epilogue + FDK scale
+                           and returns the volume (the time-from-last-delta
+                           path). State is still folded, and a
+                           full-coverage finalize stores to the session's
+                           VolumeSink exactly like finalize().
+
+        Returns the session (chaining) — or the volume when finalize=True.
+        """
+        staged = isinstance(projection_delta, StagedDelta)
+        if staged:
+            if angle_slice is not None:
+                raise TypeError(
+                    "a StagedDelta carries its own angle range; do not "
+                    "pass angle_slice")
+            s = projection_delta
+            lo, hi = self._check_slice((s.lo, s.hi))
+        else:
+            if angle_slice is None:
+                raise TypeError("angle_slice is required for a raw delta")
+            lo, hi = self._check_slice(angle_slice)
+            self._check_delta_shape(projection_delta, lo, hi)
+        volume = None
+        with get_tracer().span("session.fold", lo=lo, hi=hi, staged=staged,
+                               final=finalize) as sp:
+            cols = ((s.pm_col, s.q_col, s.sc_col) if staged
+                    else self._columns(projection_delta, lo, hi))
+            self._fold(*cols)
+            if finalize:
+                volume = self._epilogue()
+            sp.fence(volume if finalize else self._acc)
+        self._covered[lo:hi] = True
+        if not finalize:
+            return self
+        if self._sink is not None and self.is_complete:
+            self._store(volume)
+        return volume
+
+    # -- source coupling ----------------------------------------------------
+
+    def poll(self) -> int:
+        """Discover newly landed deltas on the ProjectionSource and fold
+        them. Returns the number of deltas folded (0 = nothing new)."""
+        if self._source is None:
+            raise TypeError(
+                "session was built without a ProjectionSource; feed deltas "
+                "via update(delta, angle_slice) instead")
+        n = 0
+        with get_tracer().span("session.poll") as sp:
+            for lo, hi, delta in self._source.iter_deltas(
+                    self.plan.mesh, device=self.plan.device):
+                self.update(delta, (lo, hi))
+                n += 1
+            sp.set(n_deltas=n)
+        return n
+
+    # -- epilogue -----------------------------------------------------------
+
+    def finalize(self, partial: bool = False) -> torch.Tensor:
+        """Row-reduce epilogue + FDK scale — the ONLY work left after the
+        last delta folds. Pure: the session keeps accepting updates.
+
+        partial=True returns the reconstruction from the angles folded so
+        far (a mid-scan peek). The default demands full coverage. A full
+        finalize stores the volume to the session's VolumeSink, if one
+        was given. Returns this rank's part of the volume, in build()'s
+        output layout.
+        """
+        if not partial and not self.is_complete:
+            raise ValueError(
+                f"only {self.n_folded}/{self.plan.geometry.n_proj} angles "
+                f"folded; missing ranges {self.pending_ranges()} — fold "
+                "them (update/poll) or pass partial=True for a mid-scan "
+                "peek")
+        with get_tracer().span("session.finalize", partial=partial) as sp:
+            volume = sp.fence(self._epilogue())
+        if self._sink is not None and not partial:
+            self._store(volume)
+        return volume
 
 
 # ---------------------------------------------------------------------------
@@ -641,7 +1136,8 @@ def plan_from_spec(geometry: CBCTGeometry, spec: str = "",
     for item in filter(None, (s.strip() for s in spec.split(","))):
         if "=" not in item:
             if item == "auto":
-                raise _not_ported("plan_from_spec('auto')", _IO_PLANNER)
+                raise _not_ported("plan_from_spec('auto')",
+                                  _TRACED_PLANNER)
             raise ValueError(
                 f"plan spec token {item!r} is not key=value and not 'auto'; "
                 f"valid keys: {', '.join(_SPEC_KEYS)}{_spec_hint(item)}")

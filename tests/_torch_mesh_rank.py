@@ -5,10 +5,14 @@
 Joins a gloo process group of WORLD ranks through INIT_FILE, builds the
 (2, 2, 2) (pod, data, model) mesh, reconstructs WORK_DIR/proj.npy for every
 case of CASES below through `ReconstructionPlan(mesh=...)`, and assembles
-each rank's output into the global volume. Rank 0 writes the volumes to
-WORK_DIR/volumes.npz and what else the tests read to WORK_DIR/meta.json,
-among it whether every rank's `column_pmats` is the model-axis AllGather
-of its ranks' P, for each micro-batch.
+each rank's output into the global volume. Then, for each reduce of
+SESSIONS, an incremental session polls the streaming store WORK_DIR/stream
+(written by the test), folds its deltas and stores the volume to
+WORK_DIR/sink_<reduce>. Rank 0 writes the volumes to WORK_DIR/volumes.npz
+and what else the tests read to WORK_DIR/meta.json, among it whether every
+rank's `column_pmats` is the model-axis AllGather of its ranks' P, for
+each micro-batch, and whether every rank's `ProjectionSource.load(mesh)`
+is its `local_projections`.
 Imports only the port (never JAX), so it starts fast.
 """
 import datetime
@@ -24,6 +28,7 @@ from repro_torch.core.distributed import (
     assemble_volume, column_pmats, local_projections)
 from repro_torch.core.geometry import default_geometry, projection_matrices
 from repro_torch.core.plan import ReconstructionPlan
+from repro_torch.io.streams import ProjectionSource, VolumeSink
 from repro_torch.parallel.mesh import make_mesh
 
 MESH_SHAPE = (2, 2, 2)
@@ -53,6 +58,7 @@ def cases():
 
 
 CASES = cases()
+SESSIONS = ("psum", "scatter", "scatter_bf16")
 
 
 def gathered_pmats_match(mesh, g, n_steps: int) -> bool:
@@ -80,8 +86,8 @@ def main(rank: int, world: int, init_file: str, work: str) -> None:
     try:
         mesh = make_mesh(MESH_SHAPE, MESH_AXES, device_type="cpu")
         g = default_geometry(N, n_proj=N_PROJ)
-        local = local_projections(np.load(os.path.join(work, "proj.npy")),
-                                  mesh)
+        local = torch.as_tensor(local_projections(
+            np.load(os.path.join(work, "proj.npy")), mesh))
         volumes, shapes = {}, {}
         for name, kw in CASES.items():
             plan = ReconstructionPlan(geometry=g, mesh=mesh, device="cpu",
@@ -99,15 +105,30 @@ def main(rank: int, world: int, init_file: str, work: str) -> None:
                 errors[key] = ""
             except ValueError as e:
                 errors[key] = str(e)
-        same = torch.tensor([float(all(
-            gathered_pmats_match(mesh, g, n) for n in (1, 2)))])
+        polls = {}
+        for red in SESSIONS:
+            plan = ReconstructionPlan(geometry=g, mesh=mesh, device="cpu",
+                                      schedule="incremental", n_steps=4,
+                                      reduce=red)
+            sess = plan.build_incremental(
+                source=ProjectionSource(os.path.join(work, "stream")),
+                sink=VolumeSink(os.path.join(work, f"sink_{red}")))
+            polls[red] = sess.poll()
+            volumes[f"incremental/{red}"] = assemble_volume(
+                sess.finalize(), mesh, red).reshape(g.volume_shape()).numpy()
+        src = ProjectionSource(os.path.join(work, "stream"))
+        same = torch.tensor([float(
+            all(gathered_pmats_match(mesh, g, n) for n in (1, 2))),
+            float(torch.equal(src.load(mesh, device="cpu"), local))])
         dist.all_reduce(same, op=dist.ReduceOp.MIN)
         if rank == 0:
             np.savez(os.path.join(work, "volumes.npz"), **{
                 k.replace("/", "__"): v for k, v in volumes.items()})
             with open(os.path.join(work, "meta.json"), "w") as f:
                 json.dump({"shapes": shapes, "errors": errors,
-                           "column_pmats": bool(same.item())}, f)
+                           "column_pmats": bool(same[0]),
+                           "load_is_local": bool(same[1]),
+                           "polls": polls}, f)
     finally:
         dist.destroy_process_group()
 

@@ -6,7 +6,10 @@ the JAX functions over a sweep, error messages included. On a (1, 1, 1)
 gloo mesh over a world of one, the gather and the reduce are identities,
 so every schedule under psum and scatter is bit-equal to `mesh=None`, and
 scatter_bf16 is one bf16 rounding away; the chunked error-feedback test is
-tests/test_plan.py's. Multi-rank parity is tests/test_torch_mesh.py.
+tests/test_plan.py's. The streaming session, the I/O engine (each rank's
+rows read, its part stored under the reference's spec) and the batched
+engine on the same mesh are bit-equal to `mesh=None` too. Multi-rank
+parity is tests/test_torch_mesh.py.
 """
 import dataclasses
 import datetime
@@ -22,6 +25,7 @@ from repro.core import distributed as jdist
 from repro.core import geometry as jgeo
 from repro.core import phantom as jph
 from repro.core import plan as jplan
+from repro_torch import io as tio
 from repro_torch.core import distributed as tdist
 from repro_torch.core import fdk as tfdk
 from repro_torch.core import pipeline as tpipe
@@ -228,6 +232,90 @@ def test_single_device_mesh_runs_the_engine(mesh, proj):
     assert plan.describe()["grid"] == (1, 1)
     want = tplan.ReconstructionPlan(geometry=G, device="cpu").build()(proj)
     assert torch.equal(run(plan, proj), want)
+
+
+# -- streaming, I/O and batched engines on the (1, 1, 1) mesh ----------------
+
+@pytest.mark.parametrize("codec", [None, "fp8_e4m3"])
+def test_mesh_load_is_local_projections(mesh, proj, tmp_path, codec):
+    """ProjectionSource.load(mesh) and load_slice(lo, hi, mesh) give this
+    rank exactly the rows local_projections gives it, decoded."""
+    src = tio.ProjectionSource.write(str(tmp_path / "p"), proj,
+                                     chunks=(4, 1, 1), codec=codec)
+    whole = src.load(device="cpu")
+    assert torch.equal(src.load(mesh, device="cpu"),
+                       tdist.local_projections(whole, mesh))
+    assert torch.equal(src.load_slice(8, 16, mesh, device="cpu"),
+                       tdist.local_projections(whole[8:16], mesh))
+
+
+def fold_session(plan, proj, n_deltas=4):
+    sess = plan.build_incremental()
+    step = G.n_proj // n_deltas
+    for lo in range(0, G.n_proj, step):
+        delta = proj[lo:lo + step]
+        if plan.mesh is not None:
+            delta = tdist.local_projections(delta, plan.mesh)
+        sess.update(delta, (lo, lo + step))
+    return sess.finalize()
+
+
+@pytest.mark.parametrize("impl,reduce", [("kernel", "psum"),
+                                         ("kernel", "scatter"),
+                                         ("factorized", "psum")])
+def test_mesh_session_is_bit_equal_to_no_mesh(mesh, proj, impl, reduce):
+    kw = dict(geometry=G, impl=impl, schedule="incremental", n_steps=4,
+              device="cpu")
+    want = fold_session(tplan.ReconstructionPlan(**kw), proj)
+    plan = tplan.ReconstructionPlan(mesh=mesh, reduce=reduce, **kw)
+    got = tdist.assemble_volume(fold_session(plan, proj), mesh, reduce)
+    assert torch.equal(got, want)
+
+
+def test_mesh_session_scatter_bf16_within_one_rounding(mesh, proj):
+    kw = dict(geometry=G, mesh=mesh, schedule="incremental", n_steps=4,
+              device="cpu")
+    f32 = fold_session(tplan.ReconstructionPlan(**kw), proj)
+    out = tdist.assemble_volume(fold_session(tplan.ReconstructionPlan(
+        reduce="scatter_bf16", **kw), proj), mesh, "scatter_bf16")
+    rel = float((out - f32).abs().max() / f32.abs().max())
+    assert 0 < rel < BF16_REDUCE_RTOL, f"{rel:.3e}"
+
+
+@pytest.mark.parametrize("schedule,reduce,spec,layout", [
+    ("fused", "psum", ["model"], None),
+    ("fused", "scatter", ["model", "data"], None),
+    ("chunked", "scatter", ["model", None, "data", None],
+     {"kind": "y_chunk_major", "y_chunks": 4})])
+def test_mesh_build_with_source_and_sink(mesh, proj, tmp_path, schedule,
+                                         reduce, spec, layout):
+    """build(source=, sink=) on the mesh: the rank reads its rows, stores
+    its part under the spec the JAX writer records for that layout, and
+    the sink reads back the canonical volume."""
+    plan = tplan.ReconstructionPlan(geometry=G, mesh=mesh, schedule=schedule,
+                                    reduce=reduce, device="cpu",
+                                    **SCHEDULES[schedule])
+    assert plan.output_spec() == spec
+    src = tio.ProjectionSource.write(str(tmp_path / "p"), proj)
+    sink = tio.VolumeSink(str(tmp_path / "v"))
+    local = plan.build(source=src, sink=sink)()
+    assert tio.stored_spec(sink.path) == spec and sink.layout() == layout
+    want = tplan.ReconstructionPlan(geometry=G, schedule=schedule,
+                                    device="cpu",
+                                    **SCHEDULES[schedule]).build()(proj)
+    assert torch.equal(sink.read(), want)
+    assert torch.equal(tdist.assemble_volume(local, mesh, reduce).reshape(
+        G.volume_shape()), want)
+
+
+def test_mesh_batched_lanes_bit_equal(mesh, proj):
+    plan = tplan.ReconstructionPlan(geometry=G, mesh=mesh, reduce="scatter",
+                                    device="cpu")
+    local = tdist.local_projections(proj, mesh)
+    out = plan.build_batched(2)(np.stack([local, 2 * local]))
+    fn = plan.build()
+    assert torch.equal(out[0], fn(local)) and torch.equal(out[1],
+                                                          fn(2 * local))
 
 
 def test_mesh_helpers(mesh):

@@ -7,6 +7,8 @@ JAX package, so it also runs on a machine without them:
 
     python -m pytest --noconftest -q -m gpu tests/test_torch_gpu.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -18,6 +20,9 @@ from repro_torch.core.geometry import CBCTGeometry, projection_matrices
 from repro_torch.core.phantom import forward_project
 from repro_torch.core.plan import ReconstructionPlan, shift_pmats_j
 from repro_torch.core.precision import CODECS
+from repro_torch.io import load_array, read_manifest, save_array
+from repro_torch.io.streams import (
+    AsyncWriteback, ProjectionSource, VolumeSink)
 from repro_torch.kernels.attention import attention_ref, flash_attention
 from repro_torch.kernels.attention import kernel as fak
 from repro_torch.kernels.backproject import kernel as bpk
@@ -148,6 +153,91 @@ def test_main_path_runs_the_kernel_and_matches_the_cpu(cuda):
     # cuFFT and the CPU FFT differ at f32 round-off before the kernel
     rel = float((vol.cpu() - ref).abs().max() / ref.abs().max())
     assert rel <= REL
+
+
+# -- the streaming, batched and I/O paths -------------------------------------
+
+# G with 16 projections: 4 deltas of 4; and with RabbitCT's 496, which the
+# filter's 32-projection batches do not divide.
+G16 = dataclasses.replace(G, n_proj=16)
+G496 = dataclasses.replace(G, n_proj=496)
+
+
+@pytest.mark.parametrize("codec", sorted(CODECS))
+def test_kernel_matches_plain_version_at_the_delta_shape(cuda, codec):
+    """The incremental session's call: the whole volume from one delta
+    (the last 4 of 16 projections), filtered and encoded alone."""
+    proj = forward_project(G16, device=cuda)[12:]
+    data, scales = CODECS[codec].encode(make_filter(G16, device=cuda)(proj))
+    params, qt = kernel_operands(projection_matrices(G16)[12:], data, scales)
+    got = bpk.backproject_dual(params, qt, *SHAPE)
+    want = bpk.backproject_dual_torch(params, qt, *SHAPE)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max() / want.abs().max()) <= REL
+
+
+def test_session_of_four_deltas_matches_build(cuda):
+    proj = forward_project(G16, device=cuda)
+    ref = ReconstructionPlan(geometry=G16, impl="kernel").build()(proj)
+    sess = ReconstructionPlan(geometry=G16, impl="kernel",
+                              schedule="incremental",
+                              n_steps=4).build_incremental()
+    before = bpk.launches
+    for lo in range(0, 16, 4):
+        sess.update(proj[lo:lo + 4], (lo, lo + 4))
+    vol = sess.finalize()
+    torch.cuda.synchronize()
+    assert bpk.launches == before + 4 and vol.device.type == "cuda"
+    assert float((vol - ref).abs().max() / ref.abs().max()) <= REL
+
+
+@pytest.mark.parametrize("codec,kw", [
+    ("fp32", {}), ("fp16", {}),
+    ("fp16", {"schedule": "pipelined", "n_steps": 8})])
+def test_batched_lanes_bit_equal_at_496_projections(cuda, codec, kw):
+    """cuFFT sees each lane in build()'s batches (the whole scan, or each
+    micro-batch of 62): lanes bit-equal to build()."""
+    proj = forward_project(G496, device=cuda)
+    plan = ReconstructionPlan(geometry=G496, impl="kernel", precision=codec,
+                              **kw)
+    out = plan.build_batched(2)(torch.stack([proj, proj * 1.5]))
+    one = plan.build()
+    assert torch.equal(out[0], one(proj))
+    assert torch.equal(out[1], one(proj * 1.5))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float8_e4m3fn,
+                                   torch.float8_e5m2])
+def test_shard_store_round_trip_of_cuda_tensors(cuda, tmp_path, dtype):
+    t = (torch.randn((6, 5, 4), device=cuda) * 4).to(dtype)
+    save_array(str(tmp_path / "s"), t, chunks=(2, 1, 1))
+    out = load_array(str(tmp_path / "s"))
+    assert out.dtype == dtype and out.device.type == "cpu"
+    assert torch.equal(out.view(torch.uint8), t.cpu().view(torch.uint8))
+    assert read_manifest(str(tmp_path / "s"))["dtype"] == str(dtype).split(
+        ".")[-1]
+
+
+def test_encoded_source_and_write_behind_on_the_card(cuda, tmp_path):
+    """An fp8 store written from projections on the card loads back onto
+    the card as the codec's decode(encode()); a volume handed to the
+    write-behind executor may be overwritten as soon as submit returns."""
+    proj = forward_project(G16, device=cuda)
+    src = ProjectionSource.write(str(tmp_path / "p"), proj, codec="fp8_e4m3")
+    codec = CODECS["fp8_e4m3"]
+    got = src.load(device=cuda)
+    assert got.device.type == "cuda"
+    assert torch.equal(got, codec.decode(*codec.encode(proj)))
+    vol = torch.full((32, 32, 32), 3.0, device=cuda)
+    wb = AsyncWriteback()
+    try:
+        sink = VolumeSink(str(tmp_path / "v"))
+        wb.submit(sink, vol)
+        vol.fill_(-1.0)
+        wb.drain()
+    finally:
+        wb.close()
+    assert torch.equal(sink.read(), torch.full((32, 32, 32), 3.0))
 
 
 def test_wrapper_rejects_mixed_devices(cuda):

@@ -5,8 +5,12 @@ for {fused, pipelined, chunked} x {psum, scatter} x {factorized, kernel}
 streams; each output, gathered by `assemble_volume`, is held against the
 JAX package's single-device reconstruction of the same numpy projections,
 computed here, at the bounds of tests/test_plan.py's 2 x 2 x 2 run. The
-ranks are spawned once for the module; every process group has a 60 s
-timeout and every rank a deadline.
+ranks also run the incremental session (psum, scatter, scatter_bf16) by
+polling a streaming store the test writes, held against the JAX package's
+single-device session on the same deltas, and store its volume to a sink
+every rank writes its own shard of. The ranks are spawned once for the
+module; every process group has a 60 s timeout and every rank a
+deadline.
 """
 import json
 import os
@@ -23,6 +27,7 @@ from repro.core.plan import ReconstructionPlan as JaxPlan
 from repro.core.precision import Precision
 from repro_torch.core.geometry import default_geometry
 from repro_torch.core.plan import ReconstructionPlan
+from repro_torch.io.streams import StreamingProjectionWriter, VolumeSink
 
 torch.set_num_threads(1)
 
@@ -58,6 +63,9 @@ def mesh_run(tmp_path_factory):
     work = tmp_path_factory.mktemp("mesh222")
     g, proj = projections()
     np.save(work / "proj.npy", proj)
+    writer = StreamingProjectionWriter(str(work / "stream"), proj.shape)
+    for lo in range(0, g.n_proj, 8):
+        writer.append(proj[lo:lo + 8], lo)
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC),
                OMP_NUM_THREADS="1")
     procs = [subprocess.Popen(
@@ -78,6 +86,7 @@ def mesh_run(tmp_path_factory):
         assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{log[-3000:]}"
     vols = dict(np.load(work / "volumes.npz"))
     meta = json.loads((work / "meta.json").read_text())
+    meta["work"] = str(work)
     return g, proj, {k.replace("__", "/"): v for k, v in vols.items()}, meta
 
 
@@ -166,3 +175,43 @@ def test_column_pmats_are_the_gathered_order(mesh_run):
     ("nx_slabs", "N_x=17 must divide into R=2 volume slabs")])
 def test_validate_messages_on_mesh(mesh_run, key, msg):
     assert msg in mesh_run[3]["errors"][key]
+
+
+@pytest.fixture(scope="module")
+def jax_session(mesh_run):
+    """The JAX package's single-device session over the same 8-projection
+    deltas."""
+    g, proj, _, _ = mesh_run
+    sess = JaxPlan(geometry=g, schedule="incremental",
+                   n_steps=4).build_incremental()
+    for lo in range(0, g.n_proj, 8):
+        sess.update(proj[lo:lo + 8], (lo, lo + 8))
+    return np.asarray(sess.finalize())
+
+
+@pytest.mark.parametrize("reduce", ["psum", "scatter", "scatter_bf16"])
+def test_incremental_session_on_mesh(mesh_run, jax_session, reduce):
+    """Each rank polls its share of every delta, folds it, and stores its
+    part of the volume: the assembled volume is within the bounds above
+    of the JAX session, and the sink holds it, under the spec the JAX
+    writer records for that layout."""
+    _, _, vols, meta = mesh_run
+    out = vols[f"incremental/{reduce}"]
+    assert meta["polls"][reduce] == 4
+    scale = float(np.max(np.abs(jax_session)))
+    err = float(np.max(np.abs(out - jax_session)))
+    if reduce == "scatter_bf16":
+        assert err / scale < BF16_REDUCE_RTOL, f"{err / scale:.3e}"
+    else:
+        assert err < MAX_ABS, f"{reduce}: {err:.3e}"
+    sink = VolumeSink(os.path.join(meta["work"], f"sink_{reduce}"))
+    np.testing.assert_array_equal(sink.read().numpy(), out)
+    spec = ["model"] if reduce == "psum" else ["model", "data"]
+    assert json.loads(open(os.path.join(
+        sink.path, "MANIFEST.json")).read())["spec"] == spec
+
+
+def test_mesh_load_is_local_projections(mesh_run):
+    """Every rank's ProjectionSource.load(mesh) is its local_projections of
+    the whole array."""
+    assert mesh_run[3]["load_is_local"]
