@@ -22,15 +22,15 @@
 //
 // Both kernels share the FlashAttention-2 structure. The Pallas grid walks
 // the key blocks as a sequential grid axis and carries m, l and the
-// accumulator in VMEM scratch; here one block owns one (batch*head,
-// 64-query tile) and loops over the 64-key tiles itself, with m, l and the
-// accumulator in registers, so nothing carries between blocks. A causal
-// block stops at the last key tile that touches its diagonal (the TPU
-// kernel's `pl.when` skips the tiles above it), only that tile and a
-// ragged last tile are masked, and the query tiles are scheduled heaviest
-// first. Tails where S is not a multiple of 64 are zero-filled in shared
-// memory and masked, and D up to 128 (a multiple of 4) is zero-padded to
-// 64 or 128.
+// accumulator in VMEM scratch; here one block owns one (batch*head, query
+// tile) and loops over the 64-key tiles itself, with m, l and the
+// accumulator in registers, so nothing carries between blocks. Each warp
+// owns 16 query rows. A causal block stops at the last key tile that
+// touches its diagonal (the TPU kernel's `pl.when` skips the tiles above
+// it), only that tile and a ragged last tile are masked, and the query
+// tiles are scheduled heaviest first. Tails where S is not a multiple of
+// 64 are zero-filled in shared memory and masked, and D up to 128 (a
+// multiple of 4) is zero-padded to 64 or 128.
 //
 // bf16, `fa_fwd_bf16_kernel`: tensor cores. Four warps per block, each
 // owning 16 query rows whose Q fragments stay in registers for the whole
@@ -38,7 +38,7 @@
 // a two-stage ring of XOR-swizzled shared tiles, so tile t + 1 loads while
 // tile t is multiplied and ldmatrix (.trans for V) reads them free of bank
 // conflicts. Both products are mma.sync m16n8k16 bf16 x bf16 -> f32:
-// S = Q K^T (products of bf16 inputs, exact in f32, as in the f32 kernel)
+// S = Q K^T (products of bf16 inputs, exact in f32)
 // and O += P V. The online softmax runs on the S accumulator fragments,
 // with the row max and row sum reduced over the four lanes that share a
 // row. P enters P V straight from the accumulator registers (the m16n8
@@ -55,12 +55,28 @@
 // multiple of 8 are copied in 8-byte pieces (the rows are then only 8-byte
 // aligned).
 //
-// f32, `fa_fwd_f32_kernel`: scalar FMAs, since the tensor cores take f32
-// only as TF32, which cannot meet the f32 bound (rtol = atol = 2e-5).
-// 256 threads; K (transposed) and V tiles staged through shared memory,
-// the 64 x 64 score tile from a 4 x 4 register tile per thread, the
-// probabilities through shared memory to P V, where each thread owns 4
-// rows and D/16 output columns. Its peak is the 67 TFLOP/s f32 rate.
+// f32, `fa_fwd_f32_kernel`: tensor cores in 3xTF32. The tensor cores take
+// f32 only as TF32 (10 mantissa bits): one TF32 product errs by about
+// 2^-11 relative, ~3.5e-3 in a score at D = 128, far above the f32 bound
+// (rtol = atol = 2e-5). So every operand x is split into hi = tf32(x) and
+// lo = x - hi (see split_tf32), and each product is hi hi + hi lo + lo hi
+// (mma.sync m16n8k8 tf32 x tf32 -> f32, three per product, ~2^-21
+// relative). At the serving shape that is 3 x 5.16e10 operations: 0.313 ms
+// at the 494.7 TFLOP/s dense TF32 rate, which only wgmma reaches, against
+// 0.770 ms for the function on the 67 TFLOP/s f32 cores. Eight warps per
+// block, 128 query rows; the Q tile stays in shared memory and K and V
+// tiles (64 keys x D, f32) come through a two-stage cp.async ring, padded
+// (ldmatrix cannot transpose 32-bit elements, so no swizzle) so that every
+// fragment load is free of bank conflicts. Each warp splits the fragments
+// it loads in registers: hi and lo of K and V, once per tile in shared
+// memory, do not fit beside Q and the ring. A warp skips causal tiles
+// wholly above its own rows. The tensor cores' f32 accumulation rounds
+// coarser than an f32 add (longer chains in it measured less accurate), so
+// no long sum runs through it: each score is summed from zero over 32 head
+// dims at a time and the partial sums added in f32, and each tile's P V is
+// summed from zero and added to O in f32. P is used from the S
+// accumulator with the key index permuted (see the P V step).
+// Dynamic shared memory: 202 KB for D > 64, 106 KB for D <= 64.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 (IEEE division and
 // expf: no fast-math).
@@ -72,7 +88,7 @@
 
 namespace {
 
-constexpr int kBQ = 64;        // queries per block
+constexpr int kBQ = 64;        // queries per bf16 block
 constexpr int kBK = 64;        // keys per tile
 constexpr float kNegInf = -1e30f;
 
@@ -369,189 +385,293 @@ fa_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// ---- f32: scalar FMAs -------------------------------------------------------
+// ---- f32: 3xTF32 tensor cores --------------------------------------------
 
-constexpr int kThreads = 256;  // 16 x 16: tx across keys/columns, ty rows
+constexpr int kBQ32 = 128;        // queries per f32 block
+constexpr int kF32Threads = 256;  // 8 warps x 16 query rows
+constexpr int kSC = 4;            // 8-dim blocks in each partial sum of S
 
-__device__ __forceinline__ void load4(const float* p, float x[4]) {
-  const float4 t = *reinterpret_cast<const float4*>(p);
-  x[0] = t.x;
-  x[1] = t.y;
-  x[2] = t.z;
-  x[3] = t.w;
+// Row strides (floats) of the f32 tiles. Q and K fragments are read as
+// float2 at (row g, column 2t) of an 8 x 8 block: a stride of 8 mod 32
+// words puts each half-warp's 16 pairs on 32 different banks. V fragments
+// are read as scalars at (row 2t, column g): a stride of 4 mod 32 puts the
+// warp's 32 words on 32 different banks.
+template <int DP>
+struct F32Tile {
+  static constexpr int kQKStride = DP + 8;
+  static constexpr int kVStride = DP + 4;
+  static constexpr int kQ = kBQ32 * kQKStride;  // floats of the Q tile
+  static constexpr int kK = kBK * kQKStride;    // of one K stage
+  static constexpr int kV = kBK * kVStride;     // of one V stage
+  static constexpr int kSmemBytes = (kQ + 2 * kK + 2 * kV) * sizeof(float);
+};
+
+// x = hi + lo, hi = x rounded to TF32 (10 mantissa bits, to nearest, ties
+// away from zero, as cvt.rna.tf32.f32 rounds: add half a TF32 ulp to the
+// bits, clear the 13 below it) and lo = x - hi, exact in f32 with
+// |lo| <= 2^-11 |x|. lo goes to the tensor cores as it is: they read a
+// TF32 operand's top 19 bits (clearing the other 13 of lo leaves the
+// kernel's output bit-equal), so lo is truncated to 2^-10 of itself.
+// hi hi + hi lo + lo hi then carries a product to about 2^-21 relative,
+// where one TF32 product errs by 2^-11. Three instructions an operand,
+// fewer than cvt.rna.tf32.f32 takes.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
-// Rows [row0, row0 + 64) of a (rows, d) array into dst[DP][64] (transposed),
-// zero outside the array and for columns >= d.
-template <int DP>
-__device__ __forceinline__ void load_tile_t(float* __restrict__ dst,
-                                            const float* __restrict__ src,
-                                            int row0, int rows, int d) {
-  const int r = threadIdx.x % 64;
-  const int row = row0 + r;
-  for (int c = threadIdx.x / 64; c < DP / 4; c += kThreads / 64) {
-    const int col = c * 4;
-    float x[4] = {0.f, 0.f, 0.f, 0.f};
-    if (row < rows && col < d) {
-      load4(src + static_cast<int64_t>(row) * d + col, x);
-    }
+// c += a (16 x 8, row) * b (8 x 8, col), TF32 inputs, f32 accumulator.
+__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += (a_hi + a_lo)(b_hi + b_lo) less the a_lo b_lo term, small terms
+// first.
+__device__ __forceinline__ void mma_3xtf32(float c[4], const uint32_t ah[4],
+                                           const uint32_t al[4], uint32_t bh0,
+                                           uint32_t bh1, uint32_t bl0,
+                                           uint32_t bl1) {
+  mma_tf32(c, al, bh0, bh1);
+  mma_tf32(c, ah, bl0, bl1);
+  mma_tf32(c, ah, bh0, bh1);
+}
+
+// Rows [row0, row0 + N) of a (rows, d) f32 array into `dst` (row stride
+// `stride` floats) by 16-byte cp.async, zero outside the array and for
+// columns >= d (d % 4 == 0, so every row is 16-byte aligned). A thread
+// keeps one 16-byte column chunk and steps down the rows.
+template <int DP, int N>
+__device__ __forceinline__ void load_rows_async(float* dst, int stride,
+                                                const float* __restrict__ src,
+                                                int row0, int rows, int d) {
+  constexpr int kChunks = DP / 4;
+  constexpr int kRowStep = kF32Threads / kChunks;
+  static_assert(kF32Threads % kChunks == 0 && N % kRowStep == 0,
+                "a pass covers whole rows");
+  const int c = threadIdx.x % kChunks;
+  const int r = threadIdx.x / kChunks;
+  const bool col_ok = c * 4 < d;
+  const float* s = src + static_cast<int64_t>(row0 + r) * d + c * 4;
+  const uint32_t a = smem_addr(dst + r * stride + c * 4);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dst[(col + e) * 64 + r] = x[e];
-  }
-}
-
-// Rows [row0, row0 + 64) of a (rows, d) array into dst[64][DP], zero
-// outside the array and for columns >= d.
-template <int DP>
-__device__ __forceinline__ void load_tile(float* __restrict__ dst,
-                                          const float* __restrict__ src,
-                                          int row0, int rows, int d) {
-  for (int idx = threadIdx.x; idx < 64 * (DP / 4); idx += kThreads) {
-    const int r = idx / (DP / 4);
-    const int col = (idx % (DP / 4)) * 4;
-    const int row = row0 + r;
-    float x[4] = {0.f, 0.f, 0.f, 0.f};
-    if (row < rows && col < d) {
-      load4(src + static_cast<int64_t>(row) * d + col, x);
-    }
-    *reinterpret_cast<float4*>(dst + r * DP + col) =
-        make_float4(x[0], x[1], x[2], x[3]);
+  for (int i = 0; i < N / kRowStep; ++i) {
+    const bool ok = col_ok && row0 + r + i * kRowStep < rows;
+    cp_async(a + i * kRowStep * stride * sizeof(float),
+             ok ? s + static_cast<int64_t>(i) * kRowStep * d : src, 16, ok);
   }
 }
 
 template <int DP>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kF32Threads, 1)
 fa_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ o, int sq,
                   int sk, int d, int group, float scale, int causal) {
-  constexpr int kGroups = DP / 64;  // float4 column groups per thread
-  extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);  // [DP][kBQ]
-  float* ks = qs + DP * kBQ;                     // [DP][kBK]
-  float* vs = ks + DP * kBK;                     // [kBK][DP]
-  float* ps = vs + kBK * DP;                     // [kBK][kBQ]
+  using L = F32Tile<DP>;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* qs = reinterpret_cast<float*>(smem_raw);  // [128][DP + 8]
+  float* ks = qs + L::kQ;                          // [2][64][DP + 8]
+  float* vs = ks + 2 * L::kK;                      // [2][64][DP + 4]
 
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  const int n_qt = (sq + kBQ - 1) / kBQ;
-  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.y)) * kBQ;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int n_qt = (sq + kBQ32 - 1) / kBQ32;
+  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.y)) * kBQ32;
+  const int r0 = q0 + warp * 16;  // the warp's first query row
   const int64_t bh = blockIdx.x;
   const float* qb = q + bh * sq * d;
   const float* kb = k + (bh / group) * sk * d;
   const float* vb = v + (bh / group) * sk * d;
   float* ob = o + bh * sq * d;
 
-  load_tile_t<DP>(qs, qb, q0, sq, d);
-
-  float acc[4][4 * kGroups];
-  float m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < 4 * kGroups; ++c) acc[i][c] = 0.f;
-  }
-
   int n_kt = (sk + kBK - 1) / kBK;
-  if (causal) n_kt = min(n_kt, (q0 + kBQ - 1) / kBK + 1);
+  if (causal) n_kt = min(n_kt, (q0 + kBQ32 - 1) / kBK + 1);
+
+  load_rows_async<DP, kBQ32>(qs, L::kQKStride, qb, q0, sq, d);
+  load_rows_async<DP, kBK>(ks, L::kQKStride, kb, 0, sk, d);
+  load_rows_async<DP, kBK>(vs, L::kVStride, vb, 0, sk, d);
+  cp_async_commit();
+
+  float acc[DP / 8][4];
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m_lo = kNegInf, m_hi = kNegInf;  // rows g and g + 8
+  float l_lo = 0.f, l_hi = 0.f;          // this lane's share of the row sums
+  const int iq_lo = r0 + g;
+  const int iq_hi = iq_lo + 8;
+  // The warp's Q rows g and g + 8, at column 2t of each 8-column block.
+  const float* qw = qs + (warp * 16 + g) * L::kQKStride + 2 * t;
+
   for (int kt = 0; kt < n_kt; ++kt) {
+    const int st = kt & 1;
+    if (kt + 1 < n_kt) {  // the next tile loads while this one is multiplied
+      load_rows_async<DP, kBK>(ks + (st ^ 1) * L::kK, L::kQKStride, kb,
+                               (kt + 1) * kBK, sk, d);
+      load_rows_async<DP, kBK>(vs + (st ^ 1) * L::kV, L::kVStride, vb,
+                               (kt + 1) * kBK, sk, d);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
     const int k0 = kt * kBK;
-    __syncthreads();  // the previous tile's ks, vs, ps are consumed
-    load_tile_t<DP>(ks, kb, k0, sk, d);
-    load_tile<DP>(vs, vb, k0, sk, d);
-    __syncthreads();
+    // Warp-uniform: causal tiles wholly above the warp's rows are skipped.
+    if (!causal || k0 <= r0 + 15) {
+      const float* kst = ks + st * L::kK;
+      const float* vst = vs + st * L::kV;
 
-    float s[4][4];
+      // S = Q K^T, 16 rows x 64 keys per warp. The 8-deep sum of each
+      // m16n8k8 product runs over head dims 2t and 2t + 1 of every
+      // 8-column block where the PTX layout names t and t + 4: the same
+      // permutation in A and B, so each lane reads both as one float2.
+      // Each kSC x 8 head dims are summed from zero in the tensor cores and
+      // the partial sums added in f32.
+      float s[8][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int kc = 0; kc < DP / 8; kc += kSC) {
+        float part[8][4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int dd = 0; dd < DP; ++dd) {
-      const float4 a = *reinterpret_cast<const float4*>(qs + dd * kBQ + ty * 4);
-      const float4 b = *reinterpret_cast<const float4*>(ks + dd * kBK + tx * 4);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
+        for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+          for (int e = 0; e < 4; ++e) part[j][e] = 0.f;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
-    }
-
-    // Online softmax, row by row; a row's 64 keys live in 16 lanes.
+        for (int kk = kc; kk < kc + kSC; ++kk) {
+          const float2 qa = *reinterpret_cast<const float2*>(qw + 8 * kk);
+          const float2 qc = *reinterpret_cast<const float2*>(
+              qw + 8 * L::kQKStride + 8 * kk);
+          uint32_t ah[4], al[4];
+          split_tf32(qa.x, ah[0], al[0]);
+          split_tf32(qc.x, ah[1], al[1]);
+          split_tf32(qa.y, ah[2], al[2]);
+          split_tf32(qc.y, ah[3], al[3]);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int iq = q0 + ty * 4 + i;
-      float mx = kNegInf;
+          for (int nt = 0; nt < 8; ++nt) {
+            const float2 kf = *reinterpret_cast<const float2*>(
+                kst + (8 * nt + g) * L::kQKStride + 8 * kk + 2 * t);
+            uint32_t bh0, bl0, bh1, bl1;
+            split_tf32(kf.x, bh0, bl0);
+            split_tf32(kf.y, bh1, bl1);
+            mma_3xtf32(part[nt], ah, al, bh0, bh1, bl0, bl1);
+          }
+        }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int ik = k0 + tx * 4 + j;
-        const bool ok = ik < sk && (!causal || ik <= iq);
-        s[i][j] = ok ? s[i][j] * scale : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) {
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      }
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = expf(s[i][j] - m_new);
-        rs += s[i][j];
-      }
-      l[i] = l[i] * alpha + rs;  // this thread's 4 keys; summed at the end
-#pragma unroll
-      for (int c = 0; c < 4 * kGroups; ++c) acc[i][c] *= alpha;
-      m[i] = m_new;
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      *reinterpret_cast<float4*>(ps + (tx * 4 + j) * kBQ + ty * 4) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < kBK; ++kk) {
-      const float4 p = *reinterpret_cast<const float4*>(ps + kk * kBQ + ty * 4);
-      const float pv[4] = {p.x, p.y, p.z, p.w};
-#pragma unroll
-      for (int g = 0; g < kGroups; ++g) {
-        const float4 w =
-            *reinterpret_cast<const float4*>(vs + kk * DP + g * 64 + tx * 4);
-        const float wv[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int j = 0; j < 8; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e)
-            acc[i][g * 4 + e] = fmaf(pv[i], wv[e], acc[i][g * 4 + e]);
+            s[j][e] = kc == 0 ? part[j][e] : s[j][e] + part[j][e];
+      }
+
+      // Online softmax on the fragments: lane holds keys 8j + 2t + {0, 1}
+      // of rows g (s[j][0..1]) and g + 8 (s[j][2..3]).
+      const bool masked = k0 + kBK > sk || (causal && k0 + kBK - 1 > r0);
+      float mx_lo = kNegInf, mx_hi = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float a = s[j][e] * scale;
+          float b = s[j][2 + e] * scale;
+          if (masked) {
+            const int ik = k0 + 8 * j + 2 * t + e;
+            a = (ik < sk && (!causal || ik <= iq_lo)) ? a : kNegInf;
+            b = (ik < sk && (!causal || ik <= iq_hi)) ? b : kNegInf;
+          }
+          s[j][e] = a;
+          s[j][2 + e] = b;
+          mx_lo = fmaxf(mx_lo, a);
+          mx_hi = fmaxf(mx_hi, b);
+        }
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
+        mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
+      }
+      const float mn_lo = fmaxf(m_lo, mx_lo);
+      const float mn_hi = fmaxf(m_hi, mx_hi);
+      const float al_lo = expf(m_lo - mn_lo);
+      const float al_hi = expf(m_hi - mn_hi);
+      float rs_lo = 0.f, rs_hi = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          s[j][e] = expf(s[j][e] - mn_lo);
+          s[j][2 + e] = expf(s[j][2 + e] - mn_hi);
+          rs_lo += s[j][e];
+          rs_hi += s[j][2 + e];
+        }
+      }
+      l_lo = l_lo * al_lo + rs_lo;
+      l_hi = l_hi * al_hi + rs_hi;
+      m_lo = mn_lo;
+      m_hi = mn_hi;
+
+      // O = O alpha + P V. The accumulator holds P at keys (2t, 2t + 1) of
+      // each 8-key block, where the TF32 A layout wants (t, t + 4): the
+      // key index is permuted instead (A's k = t is key 2t, k = t + 4 is
+      // key 2t + 1) and V's B fragment is read from key rows 2t and
+      // 2t + 1 to match, so P is used where it sits. The tile's P V is
+      // summed from zero in the tensor cores and added to O in f32, so O's
+      // running sum never passes through the tensor cores' accumulation.
+      float pv[DP / 8][4];
+#pragma unroll
+      for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pv[n][e] = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        uint32_t ph[4], pl[4];
+        split_tf32(s[j][0], ph[0], pl[0]);
+        split_tf32(s[j][2], ph[1], pl[1]);
+        split_tf32(s[j][1], ph[2], pl[2]);
+        split_tf32(s[j][3], ph[3], pl[3]);
+        const float* vr = vst + (8 * j + 2 * t) * L::kVStride + g;
+#pragma unroll
+        for (int n = 0; n < DP / 8; ++n) {
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(vr[8 * n], bh0, bl0);
+          split_tf32(vr[L::kVStride + 8 * n], bh1, bl1);
+          mma_3xtf32(pv[n], ph, pl, bh0, bh1, bl0, bl1);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < DP / 8; ++n) {
+        acc[n][0] = fmaf(acc[n][0], al_lo, pv[n][0]);
+        acc[n][1] = fmaf(acc[n][1], al_lo, pv[n][1]);
+        acc[n][2] = fmaf(acc[n][2], al_hi, pv[n][2]);
+        acc[n][3] = fmaf(acc[n][3], al_hi, pv[n][3]);
       }
     }
+    __syncthreads();  // this stage is consumed before it is refilled
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float den = l[i];
+  for (int off = 1; off < 4; off <<= 1) {
+    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
+    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
+  }
+  l_lo = fmaxf(l_lo, 1e-30f);
+  l_hi = fmaxf(l_hi, 1e-30f);
 #pragma unroll
-    for (int off = 8; off > 0; off >>= 1) {
-      den += __shfl_xor_sync(0xffffffffu, den, off);
+  for (int n = 0; n < DP / 8; ++n) {
+    const int c = n * 8 + 2 * t;  // d % 4 == 0: c < d implies c + 1 < d
+    if (c >= d) continue;
+    if (iq_lo < sq) {
+      *reinterpret_cast<float2*>(ob + static_cast<int64_t>(iq_lo) * d + c) =
+          make_float2(acc[n][0] / l_lo, acc[n][1] / l_lo);
     }
-    den = fmaxf(den, 1e-30f);
-    const int iq = q0 + ty * 4 + i;
-    if (iq >= sq) continue;
-#pragma unroll
-    for (int g = 0; g < kGroups; ++g)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = g * 64 + tx * 4 + e;
-        if (c < d) {
-          ob[static_cast<int64_t>(iq) * d + c] = acc[i][g * 4 + e] / den;
-        }
-      }
+    if (iq_hi < sq) {
+      *reinterpret_cast<float2*>(ob + static_cast<int64_t>(iq_hi) * d + c) =
+          make_float2(acc[n][2] / l_hi, acc[n][3] / l_hi);
+    }
   }
 }
 
@@ -560,13 +680,13 @@ fa_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <typename T>
 cudaError_t start(void (*kernel)(const T*, const T*, const T*, T*, int, int,
                                  int, int, float, int),
-                  int threads, int smem, const void* q, const void* k,
+                  int threads, int bq, int smem, const void* q, const void* k,
                   const void* v, void* o, int bh, int group, int sq, int sk,
                   int d, float scale, int causal, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const int n_qt = (sq + kBQ - 1) / kBQ;
+  const int n_qt = (sq + bq - 1) / bq;
   if (n_qt > 65535) return cudaErrorInvalidConfiguration;
   kernel<<<dim3(bh, n_qt), threads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
@@ -579,9 +699,9 @@ template <int DP>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
                        int bh, int group, int sq, int sk, int d, float scale,
                        int causal, cudaStream_t stream) {
-  const int smem = (2 * DP * 64 + 64 * DP + 64 * 64) * sizeof(float);
-  return start<float>(fa_fwd_f32_kernel<DP>, kThreads, smem, q, k, v, o, bh,
-                      group, sq, sk, d, scale, causal, stream);
+  return start<float>(fa_fwd_f32_kernel<DP>, kF32Threads, kBQ32,
+                      F32Tile<DP>::kSmemBytes, q, k, v, o, bh, group, sq, sk,
+                      d, scale, causal, stream);
 }
 
 template <int DP>
@@ -589,8 +709,8 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
                         int bh, int group, int sq, int sk, int d, float scale,
                         int causal, cudaStream_t stream) {
   const int smem = 4 * kBK * DP * sizeof(bf16);  // K and V, two stages each
-  return start<bf16>(fa_fwd_bf16_kernel<DP>, kMmaThreads, smem, q, k, v, o,
-                     bh, group, sq, sk, d, scale, causal, stream);
+  return start<bf16>(fa_fwd_bf16_kernel<DP>, kMmaThreads, kBQ, smem, q, k, v,
+                     o, bh, group, sq, sk, d, scale, causal, stream);
 }
 
 }  // namespace

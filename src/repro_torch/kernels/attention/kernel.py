@@ -19,8 +19,10 @@ multiple of any block: the kernel masks its tails.
 `flash_attention_bhsd_torch` is the plain torch version, the reference
 kernel's online-softmax recurrence over ``bq x bk`` blocks (what its
 interpret mode runs); `flash_attention_bhsd` takes it only for tensors on
-the CPU. For a CUDA tensor it launches the kernel, whose 64 x 64 tiles are
-fixed in its source, or raises. `launches` counts kernel launches.
+the CPU. For a CUDA tensor it launches the kernel, whose tiles (64 queries
+for bf16, 128 for f32, by 64 keys) are fixed in its source, or raises;
+`bq` and `bk` only block the plain version. `launches` counts kernel
+launches.
 """
 from __future__ import annotations
 

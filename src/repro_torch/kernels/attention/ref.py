@@ -27,3 +27,22 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhqs,bshd->bqhd", probs, v.to(torch.float32))
     return out.to(q.dtype)
+
+
+def attention_f64(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool = True) -> torch.Tensor:
+    """The attention function in f64 on folded operands: q (BH, Sq, D),
+    k, v (BH/group, Sk, D), row bh of q attending to row bh // group. An
+    oracle for f32 inputs whose scores are large enough that f32 sums (the
+    plain version's among them) sit near the f32 bound; one KV row's query
+    rows at a time. Returns (BH, Sq, D) in f64."""
+    group = q.shape[0] // k.shape[0]
+    out = torch.empty(q.shape, dtype=torch.float64, device=q.device)
+    for kv in range(k.shape[0]):
+        rows = slice(kv * group, (kv + 1) * group)
+        s = (q[rows].double() @ k[kv].double().T) / math.sqrt(q.shape[2])
+        if causal:
+            s.masked_fill_(torch.ones(s.shape[1:], dtype=torch.bool,
+                                      device=q.device).triu(1), -torch.inf)
+        out[rows] = torch.softmax(s, dim=-1) @ v[kv].double()
+    return out

@@ -25,6 +25,7 @@ from repro_torch.io.streams import (
     AsyncWriteback, ProjectionSource, VolumeSink)
 from repro_torch.kernels.attention import attention_ref, flash_attention
 from repro_torch.kernels.attention import kernel as fak
+from repro_torch.kernels.attention.ref import attention_f64
 from repro_torch.kernels.backproject import kernel as bpk
 from repro_torch.kernels.backproject.ops import kernel_operands
 from repro_torch.kernels.build import CudaLibrary
@@ -263,11 +264,16 @@ def _qkv(bh, kvh, sq, sk, d, dtype, device, seed=0):
 
 # MHA at a tile multiple, GQA with a ragged S, MQA with D = 16 (padded to
 # 64 in the kernel), cross lengths, the serving head dim, the serving shape
-# (48 query heads over 8), and S ragged around one and many 64-row tiles.
+# (48 query heads over 8), and S ragged around one and many 64-row tiles;
+# then head dims that are not a multiple of 8, one query and one key, GQA
+# groups of 6, and the serving head dim ragged around the f32 kernel's
+# 128-row tile.
 ATTN_SHAPES = [(4, 4, 128, 128, 64), (8, 2, 200, 200, 128),
                (6, 1, 77, 77, 16), (4, 2, 96, 160, 32), (2, 2, 64, 64, 128),
                (48, 8, 2048, 2048, 128), (6, 2, 65, 65, 128),
-               (6, 2, 2047, 2047, 128)]
+               (6, 2, 2047, 2047, 128), (4, 2, 100, 100, 12),
+               (6, 1, 130, 130, 36), (12, 2, 200, 200, 100),
+               (4, 4, 1, 1, 64), (6, 1, 1, 1, 128), (12, 2, 70, 70, 128)]
 
 
 @pytest.mark.parametrize("shape", ATTN_SHAPES)
@@ -285,6 +291,52 @@ def test_attention_kernel_matches_plain_version(cuda, shape, causal, dtype):
         torch.testing.assert_close(got, want, rtol=F32_TOL, atol=F32_TOL)
     else:
         assert float((got.float() - want.float()).abs().max()) < BF16_TOL
+
+
+STRESS = 3.0  # q and k scaled: a peaked softmax amplifies score errors
+
+
+def _stressed(q, k, v):
+    return q * STRESS, k * STRESS, v
+
+
+@pytest.mark.parametrize("shape", [(8, 2, 200, 200, 128),
+                                   (6, 1, 130, 130, 36),
+                                   (4, 2, 100, 100, 12)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_f32_kernel_stressed_matches_the_exact_function(
+        cuda, shape, causal):
+    """q and k scaled by 3; a kernel that dropped the 3xTF32 lo terms would
+    miss the bound by far (tests/test_torch_attention.py). The reference
+    is the function in f64: at D = 128 the plain version's own f32 sums
+    sit up to ~2e-5 from it here, the whole bound, and the kernel is also
+    held no farther from it than the plain version. With shorter sums
+    (d < 128) the plain version sits a few 1e-6 from it, closer than three
+    TF32 products can come, and the kernel is also held to the plain
+    version at the f32 bound, as every unstressed case is."""
+    q, k, v = _stressed(*_qkv(*shape, torch.float32, cuda, seed=3))
+    exact = attention_f64(q, k, v, causal)
+    got = fak.flash_attention_bhsd(q, k, v, causal=causal).double()
+    plain = fak.flash_attention_bhsd_torch(q, k, v, causal=causal).double()
+    torch.testing.assert_close(got, exact, rtol=F32_TOL, atol=F32_TOL)
+    if shape[-1] == 128:
+        assert (got - exact).abs().max() <= (plain - exact).abs().max()
+    else:
+        torch.testing.assert_close(got, plain, rtol=F32_TOL, atol=F32_TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_f32_kernel_stressed_at_the_serving_shape(cuda, causal):
+    """Stressed at 48 heads over 8, S = 2048, D = 128. There the plain
+    version's own f32 sums sit ~3e-5 from the exact function, so both are
+    held to its f64 evaluation: the kernel within the f32 bound, and no
+    farther from it than the plain version."""
+    q, k, v = _stressed(*_qkv(48, 8, 2048, 2048, 128, torch.float32, cuda))
+    exact = attention_f64(q, k, v, causal)
+    got = fak.flash_attention_bhsd(q, k, v, causal=causal).double()
+    plain = fak.flash_attention_bhsd_torch(q, k, v, causal=causal).double()
+    torch.testing.assert_close(got, exact, rtol=F32_TOL, atol=F32_TOL)
+    assert (got - exact).abs().max() <= (plain - exact).abs().max()
 
 
 def test_attention_gqa_matches_the_reference_oracle(cuda):
