@@ -12,11 +12,11 @@ Phases, in order; any failure exits non-zero:
 2. Build: both hand-written kernels from the checkout's sources, one nvcc
    per library, both started together; build seconds and the -Xptxas -v
    reports (registers, static shared memory and spill bytes of each
-   kernel).
+   kernel: the back-projector once per compiled tile and wire type).
 3. Back-projection kernel vs plain version: the kernel against its plain
    torch version on the same encoded stream, for all five codecs, at the
    full 512^3 width on the first 32 RabbitCT projections, at
-   default_geometry(64), and at the 2 x 2 mesh's call shapes (phase 12):
+   default_geometry(64), and at the 2 x 2 mesh's call shapes (phase 17):
    each x-slab of 256 with P shifted as the mesh shifts it, and each of its
    four y-chunks, on every 8th projection of each data rank's half.
    Max |kernel - plain| / max |plain| <= 1e-5: both read identical wire
@@ -71,7 +71,37 @@ Phases, in order; any failure exits non-zero:
    engine.reconstruct span at least the kernel's CUDA-event time, the
    exported Chrome JSON loads, the engine cache's cache.core.engine_cache.*
    counters are in the registry's snapshot.
-11. Mesh 1 x 1 over NCCL: the mesh engine (`ReconstructionPlan(mesh=...)`,
+11. [tiles] Every compiled tile of the back-projector (kernel.TILES) x
+   five codecs against the plain version on the 32-projection subset,
+   within 1e-5 of the max, with the direct-gather share per tile and the
+   tuner's staging model (kernel.staging_stats) held to the kernel's
+   direct count; each tile's time (CUDA events, 3 launches) at the full
+   RabbitCT shape and at the delta shape (512, 512) x 62, fp32 and fp16.
+12. [tune] Measured tuning (tune.autotune(measure=True), on the call's
+   real matrices) at those two shapes and codecs: the winner and its time
+   beside the default tile's, and the file cache's hit on a second call
+   after clear_cache(). Then ReconstructionPlan(impl="kernel") at
+   RabbitCT with the tuned launch: the RMSE gate, and within 1e-5 of the
+   default launch's volume.
+13. [traced] build_traced() at RabbitCT, fp32 and fp16, 3 runs each with
+   the tracer on (they fill the calibration store): the volume within
+   1e-5 of build()'s, the stages' seconds and their sum beside build()'s
+   wall time; obs.attribution.compare against predict_plan under ABCI
+   and H100, per stage; the traced incremental session (8 deltas) within
+   1e-5 of fused; 3 traced factorized runs on 32 projections.
+14. [machine-spec] The single-card terms of perf_model.H100 measured:
+   the factorized path's GUPS on 32 projections, RabbitCT's projections
+   over [traced]'s mean fp32 stage.filter span, a pinned host-to-device
+   copy, [io]'s store read and write rates; beside the values the
+   module holds.
+15. [auto] The MachineCalibration fitted from those runs; then
+   plan_from_spec(g, "auto") (stock and calibrated) and auto_plan(...,
+   measure=True) at RabbitCT: the plan picked, predicted beside measured
+   seconds, whether impl="kernel" was admitted, and the picked plan's
+   reconstruction within the RMSE gate. Each new phase prints its
+   seconds. The tuning and calibration files live in a temporary
+   directory for the run.
+16. Mesh 1 x 1 over NCCL: the mesh engine (`ReconstructionPlan(mesh=...)`,
    core/plan.py) on a (pod, data, model) = (1, 1, 1) mesh over a world of
    one, at RabbitCT, fp32 and fp16: fused/psum, pipelined (4 steps)/
    scatter, chunked (2 steps x 4 y-chunks)/psum and /scatter_bf16. Seconds
@@ -81,8 +111,10 @@ Phases, in order; any failure exits non-zero:
    scatter_bf16 within 4 * 2^-8 of the max of chunked/psum (one bf16
    rounding per rank). Then the incremental session (fp32, 8 deltas) under
    psum, scatter and scatter_bf16: psum and scatter bit-equal to the
-   mesh=None session, scatter_bf16 within 4 * 2^-8 of psum's.
-12. Mesh 2 x 2 on one card: first the references on one device, fp32:
+   mesh=None session, scatter_bf16 within 4 * 2^-8 of psum's; and
+   build_traced() and the traced session (fp32, psum) bit-equal to
+   mesh=None's.
+17. Mesh 2 x 2 on one card: first the references on one device, fp32:
    the mesh=None engine (the kernel), and the plain version over all 496
    projections, once for the whole volume and once slab by slab with P
    shifted as the 2-slab mesh shifts it. The kernel's volume within 1e-5
@@ -97,9 +129,9 @@ Phases, in order; any failure exits non-zero:
    shifted volume, and within the witness + 2e-5 of the mesh=None volume
    (the triangle through the two plain volumes); 4 * 2^-8 for
    scatter_bf16, both. The library is built before the ranks start.
-13. backproject_mxu against the factorized oracle at default_geometry(32)
+18. backproject_mxu against the factorized oracle at default_geometry(32)
    on the card, within the reference's own bound (rtol 1e-4, atol 1e-6).
-14. Attention kernel vs plain version at the serving shapes (4 requests x 12
+19. Attention kernel vs plain version at the serving shapes (4 requests x 12
    heads over 2 KV heads, S = 2048, D = 128, inputs from numpy): f32 causal
    and non-causal within rtol = atol = 2e-5 (the reference kernel's test
    bound), bf16 causal within a max abs difference of 0.02 (its bf16
@@ -108,7 +140,7 @@ Phases, in order; any failure exits non-zero:
    sums sit ~3e-5 from the exact function: the kernel within rtol = atol
    = 2e-5 of the f64 evaluation, and no farther from it than the plain
    version.
-15. Serving path: greedy_generate on full-width Qwen2-1.5B (28 layers,
+20. Serving path: greedy_generate on full-width Qwen2-1.5B (28 layers,
    random weights from a seeded generator) for 4 requests x 2048-token
    prompts and 32 greedy steps, s_max = 2080. Prefill seconds, decode ms per
    step, tokens/s, peak device memory, attention-kernel launches (exactly
@@ -116,17 +148,18 @@ Phases, in order; any failure exits non-zero:
    kernel path against the plain attention step on the card (bf16 and f32
    prefill logits), and decode_step's logits at position 2048 against a
    prefill over the prompt plus that token (see `serving`).
-16. Attention kernel time at the serving shape (CUDA events over 20 launches
+21. Attention kernel time at the serving shape (CUDA events over 20 launches
    after a warm-up) for bf16 and f32, beside the bound (for f32 the 3xTF32
    bound, three TF32 products per product at the dense TF32 rate, and the
    f32 cores' beside it), the plain version's time and torch's
    scaled_dot_product_attention on the same tensors with its max distance
    from the plain version (the library yardstick; the port never calls
    it).
-17. The `kernels` JSON line (each kernel with the PR of its design; the
-   back-projector's launches sum every path that runs it: phases 4, 7-11
-   and 12's ranks, each counted from 0 just before the path), the card's
-   name and power limit, and last `{"ok": true, "device": {...}}`.
+22. The `kernels` JSON line (each kernel with the PR of its design; the
+   back-projector's launches sum every path that runs it: phases 4, 7-10,
+   12, 14, 15, 16 and 17's ranks, each counted from 0 just before the
+   path), the card's name and power limit, and last `{"ok": true,
+   "device": {...}}`.
 
 The RabbitCT geometry is the public back-projection benchmark's size (496
 projections of 1248 x 960 pixels into 512^3; Rohkohl et al., Med. Phys.
@@ -142,6 +175,7 @@ import datetime
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -185,6 +219,12 @@ N_STEPS = 8
 TAIL_RUNS = 3           # sessions whose last-delta fold is timed
 STREAM_DEADLINE_S = 300  # a streaming session, first poll to last fold
 MESH_SESSION_REDUCES = ("psum", "scatter", "scatter_bf16")
+# The launch-shape and planner phases.
+TILE_RUNS = 3           # timed launches per (tile, shape, codec) in [tiles]
+TRACED_RUNS = 3         # traced RabbitCT runs per codec: the calibration
+                        # store's MIN_SAMPLES per constant
+H2D_BYTES = 1 << 30     # [machine-spec]'s pinned host-to-device copy
+H2D_RUNS = 5
 
 # Serving: Qwen2-1.5B at full width, 4 requests x 2048-token prompts.
 SEED = 0
@@ -840,10 +880,10 @@ def store_bytes(path: str) -> int:
                if f.endswith(".bin"))
 
 
-def io_phase(dev, g, proj) -> int:
+def io_phase(dev, g, proj) -> tuple:
     """Phase [io]: an fp16-encoded projection store, then build(source=,
     sink=)() and the volume read back. Returns the kernel's launches
-    (fp32 plan)."""
+    (fp32 plan) and the store's read and write rates in bytes/s."""
     import torch
 
     from repro_torch.core.plan import ReconstructionPlan
@@ -897,7 +937,7 @@ def io_phase(dev, g, proj) -> int:
         fail(f"io: {n_launch} kernel launches")
     if not (same_proj and same_vol and same_back):
         fail("io: a round trip is not bit-equal")
-    return n_launch
+    return n_launch, in_bytes / t_read, out_bytes / t_write
 
 
 def trace_phase(g, proj) -> int:
@@ -947,8 +987,376 @@ def trace_phase(g, proj) -> int:
     return n_launch
 
 
+def tiles_phase(g, proj) -> dict:
+    """Phase [tiles]: every compiled tile x five codecs against the plain
+    version on the 32-projection subset (with the direct-gather share, and
+    the tuner's staging model held to the kernel's count); each tile's
+    time at the full RabbitCT shape and at the delta shape, fp32 and fp16.
+    Returns {(shape label, codec): {tile: ms}}."""
+    import torch
+
+    from repro_torch.kernels.backproject import kernel as bpk
+
+    t0 = time.perf_counter()
+    shape = (g.n_x, g.n_y, g.n_z)
+    for codec in CODECS:
+        params, qt = delta_operands(g, proj, codec, 0, SUBSET)
+        want = bpk.backproject_dual_torch(params, qt, *shape)
+        peak = float(want.abs().max())
+        parts = []
+        for t in bpk.TILES:
+            got = bpk.backproject_dual(params, qt, *shape, tile=t)
+            torch.cuda.synchronize()
+            rel = float((got - want).abs().max()) / peak
+            direct = int(bpk.direct_pairs)
+            model = bpk.staging_stats(params, g.n_u, g.n_v, g.n_x, g.n_y,
+                                      g.n_z // 2, t, None, qt.dtype)
+            parts.append(f"{t} {rel:.3e}, direct "
+                         f"{direct / bpk.tile_pairs:.4%}")
+            if not rel <= REL_TOL:
+                fail(f"tile {t} {codec} disagrees with the plain version: "
+                     f"{rel:.3e} > {REL_TOL:.0e}")
+            if direct != model["direct"]:
+                fail(f"tile {t} {codec}: the kernel gathered {direct} "
+                     f"(tile, projection)s directly, the staging model "
+                     f"counts {model['direct']}")
+            del got
+        print(f"[tiles] RabbitCT[:{SUBSET}] {codec}, per tile max|kernel-"
+              f"plain| / max|plain| and direct-gather share: "
+              f"{'; '.join(parts)} (bound {REL_TOL:.0e}; the staging "
+              "model's direct count equal in each)")
+        del want, params, qt
+    times = {}
+    lo, hi = last_delta(g)
+    for label, (a, b) in (("RabbitCT", (0, g.n_proj)), ("delta", (lo, hi))):
+        for codec in MAIN_PATH_CODECS:
+            params, qt = delta_operands(g, proj, codec, a, b)
+            ms = {t: event_ms(lambda: bpk.backproject_dual(
+                      params, qt, *shape, tile=t), TILE_RUNS)
+                  for t in bpk.TILES}
+            times[label, codec] = ms
+            print(f"[tiles] {label} {shape} x {b - a} projections {codec}, "
+                  f"ms per launch (default staging, {TILE_RUNS} launches): "
+                  + ", ".join(f"{t} {v:.3f}" for t, v in ms.items())
+                  + f"; fastest {min(ms, key=ms.get)}")
+            del params, qt
+    print(f"[tiles] phase {time.perf_counter() - t0:.1f} s")
+    return times
+
+
+def tune_phase(g, proj, phantom, tile_ms) -> dict:
+    """Phase [tune]: measured tuning at the RabbitCT and delta shapes,
+    fp32 and fp16, the file cache's hit on a second call, then
+    ReconstructionPlan(impl="kernel") at RabbitCT with the tuned launch:
+    the RMSE gate, and within 1e-5 of the default launch's volume.
+    Returns the kernel's launches per codec on that reconstruction."""
+    import torch
+
+    from repro_torch.core.geometry import projection_matrices
+    from repro_torch.core.plan import ReconstructionPlan, clear_engine_cache
+    from repro_torch.kernels.backproject import kernel as bpk
+    from repro_torch.kernels.backproject import tune
+
+    t0 = time.perf_counter()
+    lo, hi = last_delta(g)
+    pm = torch.as_tensor(projection_matrices(g), device=proj.device)
+    dtypes = {"fp32": torch.float32, "fp16": torch.float16}
+    for label, (a, b) in (("RabbitCT", (0, g.n_proj)), ("delta", (lo, hi))):
+        for codec in MAIN_PATH_CODECS:
+            # the plan's tuning key: its budget (None: the card's), no pins
+            args = (g.n_x, g.n_y, g.n_z, pm[a:b], g.n_u, g.n_v)
+            kw = dict(qt_dtype=dtypes[codec], strict=False)
+            model = tune.autotune(*args, **kw)
+            tune.clear_cache()
+            best = tune.autotune(*args, measure=True, **kw)
+            tune.clear_cache()
+            hits = tune.file_cache_hits()
+            again = tune.autotune(*args, **kw)
+            served = tune.file_cache_hits() == hits + 1 and again == best
+            dflt = tile_ms[label, codec][bpk.DEFAULT_TILE]
+            print(f"[tune] {label} x {b - a} projections {codec}: measured "
+                  f"winner tile {best.tile} staging {best.stage_bytes} "
+                  f"bytes ({best.smem} bytes of shared memory per block) "
+                  f"{best.elapsed * 1e3:.3f} ms; the default tile "
+                  f"{bpk.DEFAULT_TILE} at the default staging "
+                  f"{dflt:.3f} ms ([tiles]); model-ranked pick "
+                  f"{model.as_tuple()}; served from the file cache after "
+                  f"clear_cache(): {served}")
+            if not served or best.tile not in bpk.TILES:
+                fail(f"tune {label} {codec}: winner {best}, served {served}")
+    launches = {}
+    for codec in MAIN_PATH_CODECS:
+        clear_engine_cache()   # engines built before the measured tuning
+        plan = ReconstructionPlan(geometry=g, impl="kernel", precision=codec)
+        fn = plan.build()
+        fn(proj)
+        torch.cuda.synchronize()
+        bpk.launches = 0
+        t1 = time.perf_counter()
+        vol = fn(proj)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        launches[codec] = bpk.launches
+        dflt = ReconstructionPlan(
+            geometry=g, impl="kernel", precision=codec,
+            blocks=bpk.DEFAULT_TILE,
+            vmem_budget=tune.default_config(dtypes[codec]).smem)
+        if dflt.resolved_launch() != tune.default_config(
+                dtypes[codec]).as_tuple():
+            fail(f"the default-launch plan resolved to "
+                 f"{dflt.resolved_launch()}")
+        ref = dflt.build()(proj)
+        rel = rel_max(vol, ref)
+        rmse = interior_rmse(vol, phantom)
+        print(f"[tune] ReconstructionPlan(impl='kernel', precision="
+              f"'{codec}') with the tuned launch {plan.resolved_launch()}: "
+              f"{dt:.4f} s, kernel launches {launches[codec]}, interior "
+              f"RMSE {rmse:.4f} (bound {RMSE_BOUND}), vs the default "
+              f"launch's volume {rel:.3e} of the max (bound {REL_TOL:.0e})")
+        if launches[codec] != 1 or not rmse < RMSE_BOUND or \
+                not rel <= REL_TOL:
+            fail(f"tuned reconstruction {codec}: launches "
+                 f"{launches[codec]}, RMSE {rmse:.4f}, {rel:.3e}")
+        del vol, ref, fn
+    clear_engine_cache()
+    print(f"[tune] phase {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def machine_spec_phase(g, proj, io_rates, t_filter) -> dict:
+    """Phase [machine-spec]: the single-card terms of perf_model.H100,
+    measured here: the factorized path's GUPS on the 32-projection subset,
+    RabbitCT's projections over [traced]'s mean fp32 stage.filter span
+    (`t_filter`), a pinned host-to-device copy, and [io]'s store read and
+    write rates."""
+    import torch
+
+    from repro_torch.core.backprojection import backproject_factorized
+    from repro_torch.core.filtering import make_filter
+    from repro_torch.core.geometry import projection_matrices
+    from repro_torch.core.perf_model import H100
+
+    t0 = time.perf_counter()
+    pm = torch.as_tensor(projection_matrices(g)[:SUBSET], device=proj.device)
+    q = make_filter(g, "ramlak", out_dtype=torch.float32,
+                    device=proj.device)(proj[:SUBSET])
+    shape = (g.n_x, g.n_y, g.n_z)
+    backproject_factorized(pm, q, *shape)     # warm-up
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    backproject_factorized(pm, q, *shape)
+    end.record()
+    end.synchronize()
+    t_fact = start.elapsed_time(end) / 1e3
+    gups_bp = g.n_x * g.n_y * g.n_z * SUBSET / (t_fact * 2**30)
+    del q
+    torch.cuda.empty_cache()
+    th_flt = g.n_proj / t_filter
+    host = torch.empty(H2D_BYTES // 4, dtype=torch.float32).pin_memory()
+    dev_buf = torch.empty_like(host, device=proj.device)
+    dev_buf.copy_(host, non_blocking=True)
+    start.record()
+    for _ in range(H2D_RUNS):
+        dev_buf.copy_(host, non_blocking=True)
+    end.record()
+    end.synchronize()
+    bw_hd = H2D_BYTES * H2D_RUNS / (start.elapsed_time(end) / 1e3)
+    del host, dev_buf
+    measured = {"gups_bp": gups_bp, "th_flt": th_flt, "bw_hd": bw_hd,
+                "bw_load": io_rates[0], "bw_store": io_rates[1]}
+    print(f"[machine-spec] measured: gups_bp {gups_bp:.4f} (the factorized "
+          f"path, {SUBSET} projections into {shape} in {t_fact:.4f} s), "
+          f"th_flt {th_flt:.1f} projections/s ([traced]'s mean fp32 "
+          f"stage.filter {t_filter:.6f} s), bw_hd {bw_hd:.4e} B/s "
+          f"(pinned, {H2D_RUNS} x {H2D_BYTES} bytes), bw_load "
+          f"{io_rates[0]:.4e} B/s and bw_store {io_rates[1]:.4e} B/s "
+          f"([io], the machine's local disk); perf_model.H100 holds "
+          + ", ".join(f"{k} {getattr(H100, k):.4g}" for k in measured)
+          + f"; th_allgather {H100.th_allgather} and th_reduce "
+          f"{H100.th_reduce:.3g} are ABCI's (not measured on one card)")
+    print(f"[machine-spec] phase {time.perf_counter() - t0:.1f} s")
+    return measured
+
+
+def traced_phase(g, proj) -> tuple:
+    """Phase [traced]: build_traced() at RabbitCT, fp32 and fp16, against
+    build() (volume, per-stage seconds, their sum beside build()'s wall
+    time), TRACED_RUNS runs each with the tracer on (the calibration
+    store's samples); attribution.compare against predict_plan under ABCI
+    and H100; the traced incremental session (8 deltas) against fused;
+    and traced factorized runs on the 32-projection subset (the store's
+    evidence for that impl). Returns the kernel's launches per codec and
+    the mean fp32 stage.filter seconds."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core.perf_model import ABCI, H100
+    from repro_torch.core.plan import ReconstructionPlan
+    from repro_torch.kernels.backproject import kernel as bpk
+    from repro_torch.obs import attribution
+    from repro_torch.obs.trace import Tracer, set_tracer
+
+    t0 = time.perf_counter()
+    sync = torch.cuda.synchronize
+    launches = {}
+    for codec in MAIN_PATH_CODECS:
+        plan = ReconstructionPlan(geometry=g, impl="kernel", precision=codec)
+        engine, traced = plan.build(), plan.build_traced()
+        want = engine(proj)
+        traced(proj)
+        sync()
+        t1 = time.perf_counter()
+        engine(proj)
+        sync()
+        t_build = time.perf_counter() - t1
+        tracer = Tracer(enabled=True)
+        prev = set_tracer(tracer)
+        bpk.launches = 0
+        try:
+            for _ in range(TRACED_RUNS):
+                t1 = time.perf_counter()
+                got = traced(proj)
+                sync()
+                t_traced = time.perf_counter() - t1
+        finally:
+            set_tracer(prev)
+        launches[codec] = bpk.launches
+        rel = rel_max(got, want)
+        totals = {k: v / TRACED_RUNS for k, v in
+                  tracer.stage_totals().items()}
+        if codec == "fp32":
+            t_filter = totals["stage.filter"]
+        print(f"[traced] RabbitCT {codec}: build_traced() vs build() "
+              f"{rel:.3e} of the max (bound {REL_TOL:.0e}); per stage (mean "
+              f"of {TRACED_RUNS}): "
+              + ", ".join(f"{k} {v:.6f} s" for k, v in totals.items())
+              + f"; sum {sum(totals.values()):.6f} s, the last traced run "
+              f"{t_traced:.6f} s, build() {t_build:.6f} s; kernel launches "
+              f"{launches[codec]}")
+        if not rel <= REL_TOL or launches[codec] != TRACED_RUNS:
+            fail(f"traced {codec}: {rel:.3e}, {launches[codec]} launches")
+        one_run = [dict(ev, dur=ev["dur"] / TRACED_RUNS)
+                   for ev in tracer.spans("stage.")]
+        for system in (ABCI, H100):
+            rows = attribution.compare(plan, one_run, system)
+            print(f"[traced] attribution {codec} under {system.name}: "
+                  + "; ".join(
+                      f"{r.stage} predicted {r.predicted_s:.6f} s measured "
+                      f"{r.measured_s:.6f} s error "
+                      + ("-" if r.error is None else f"{r.error:+.4f}")
+                      for r in rows)
+                  + f"; aggregate {attribution.aggregate_error(rows):.4f}")
+        del want, got
+        # the traced streaming session, 8 deltas, against fused
+        sess = dataclasses.replace(plan, schedule="incremental",
+                                   n_steps=N_STEPS).build_traced()
+        n_d = g.n_proj // N_STEPS
+        bpk.launches = 0
+        for lo in range(0, g.n_proj, n_d):
+            vol = sess.update(proj[lo:lo + n_d], (lo, lo + n_d),
+                              finalize=lo + n_d == g.n_proj)
+        sync()
+        n_launch = bpk.launches
+        launches[codec] += n_launch
+        rel = rel_max(vol, engine(proj))
+        print(f"[traced] incremental {codec}, {N_STEPS} deltas: finalized "
+              f"vs fused {rel:.3e} of the max (bound {REL_TOL:.0e}); stage "
+              f"seconds {sess.stage_seconds()}; kernel launches {n_launch}")
+        if not rel <= REL_TOL or n_launch != N_STEPS:
+            fail(f"traced session {codec}: {rel:.3e}, {n_launch} launches")
+        del vol, sess, engine, traced
+    g32 = dataclasses.replace(g, n_proj=SUBSET)
+    fact = ReconstructionPlan(geometry=g32, impl="factorized",
+                              precision="fp32").build_traced()
+    sub = proj[:SUBSET]     # timing only: the volume is not looked at
+    prev = set_tracer(Tracer(enabled=True))
+    try:
+        for _ in range(TRACED_RUNS):
+            vol = fact(sub)
+    finally:
+        tracer = set_tracer(prev)
+    sync()
+    print(f"[traced] factorized, {SUBSET} projections "
+          f"(the store's evidence for that impl), per stage: "
+          + ", ".join(f"{k} {v / TRACED_RUNS:.6f} s" for k, v in
+                      tracer.stage_totals().items()))
+    del vol
+    print(f"[traced] phase {time.perf_counter() - t0:.1f} s")
+    return launches, t_filter
+
+
+def auto_phase(g, proj, phantom) -> dict:
+    """Phase [auto]: the calibration fitted from the traced runs, then
+    plan_from_spec(g, "auto") and auto_plan(..., measure=True) at
+    RabbitCT: the plan picked, its predicted seconds (stock and
+    calibrated) beside its measured seconds, whether impl="kernel" was
+    admitted, and the picked plan's reconstruction within the RMSE gate.
+    Returns the kernel's launches per codec of that reconstruction."""
+    import torch
+
+    from repro_torch.core.plan import plan_from_spec
+    from repro_torch.kernels.backproject import kernel as bpk
+    from repro_torch.planner import (
+        admitted_impls, auto_plan, default_calibration, default_store,
+        predict_plan, refine, search_plans)
+    from repro_torch.planner.calibrate import MIN_SAMPLES
+
+    t0 = time.perf_counter()
+    store = default_store()
+    cal = default_calibration()
+    if cal is None:
+        fail(f"no calibration fitted from {store.n_samples()} samples")
+    print(f"[auto] calibration store {store.n_samples()} samples (MIN_SAMPLES"
+          f" {MIN_SAMPLES} per constant): {cal.summary()}; kernel factor "
+          f"fitted {cal.impl_gups_factor('kernel')}, factorized "
+          f"{cal.impl_gups_factor('factorized')}; admitted impls stock "
+          f"{admitted_impls(None, 'cuda')}, calibrated off the card "
+          f"{admitted_impls(cal, 'cpu')}")
+    stock = plan_from_spec(g, "auto", calibration=None)
+    picked = plan_from_spec(g, "auto")
+    for label, plan in (("stock", stock), ("calibrated", picked)):
+        print(f"[auto] plan_from_spec(g, 'auto'), {label}: "
+              f"{plan.describe()}; predicted stock "
+              f"{predict_plan(plan).t_runtime:.4f} s, calibrated "
+              f"{predict_plan(plan, calibration=cal).t_runtime:.4f} s")
+    # auto_plan's own search: the impls it admits on the card
+    head = refine(g, search_plans(g, None, top_k=8, calibration=cal,
+                                  impls=admitted_impls(cal, "cuda")))
+    for p in head[:3]:
+        print(f"[auto] refine: {p.spec()} predicted stock "
+              f"{predict_plan(p.plan).t_runtime:.4f} s, calibrated "
+              f"{p.predicted:.4f} s, measured {p.measured:.4f} s")
+    measured = auto_plan(g, measure=True, calibration=cal)
+    if measured != head[0].plan:
+        fail(f"auto_plan(measure=True) picked {measured}, refine "
+             f"{head[0].plan}")
+    launches = dict.fromkeys(MAIN_PATH_CODECS, 0)
+    fn = measured.build()
+    fn(proj)
+    torch.cuda.synchronize()
+    bpk.launches = 0
+    t1 = time.perf_counter()
+    vol = fn(proj)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t1
+    codec = measured.resolved_precision().storage
+    if codec in launches:
+        launches[codec] = bpk.launches
+    rmse = interior_rmse(vol, phantom)
+    print(f"[auto] auto_plan(measure=True) picked {head[0].spec()} "
+          f"(measured {head[0].measured:.4f} s in refine); its "
+          f"reconstruction {dt:.4f} s, kernel launches {bpk.launches}, "
+          f"interior RMSE {rmse:.4f} (bound {RMSE_BOUND})")
+    if not rmse < RMSE_BOUND or vol.shape != g.volume_shape():
+        fail(f"auto plan reconstruction: RMSE {rmse:.4f}")
+    del vol, fn
+    print(f"[auto] phase {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def mesh_one(dev, g, proj) -> dict:
-    """Phase 11: the mesh engine on a world of one over NCCL; returns the
+    """Phase 16: the mesh engine on a world of one over NCCL; returns the
     kernel's launches per codec on the mesh path."""
     import torch
     import torch.distributed as dist
@@ -1025,17 +1433,19 @@ def mesh_one(dev, g, proj) -> dict:
                     del base, fn, want, got, vol
                 del psum
             launches["fp32"] += mesh_sessions(g, proj, mesh)
+            launches["fp32"] += mesh_traced(g, proj, mesh)
         finally:
             dist.destroy_process_group()
     return launches
 
 
-def fold_session(plan, proj, n_steps: int, mesh=None):
-    """Fold every delta of `proj` in order into a new session of `plan`
-    (on a mesh, this rank's share of each) and finalize."""
+def fold_session(plan, proj, n_steps: int, mesh=None, session=None):
+    """Fold every delta of `proj` in order into `session` (default: a new
+    session of `plan`; on a mesh, this rank's share of each) and
+    finalize."""
     from repro_torch.core.distributed import local_projections
 
-    sess = plan.build_incremental()
+    sess = plan.build_incremental() if session is None else session
     n_d = proj.shape[0] // n_steps
     for lo in range(0, proj.shape[0], n_d):
         delta = proj[lo:lo + n_d]
@@ -1087,6 +1497,46 @@ def mesh_sessions(g, proj, mesh) -> int:
             fail(f"mesh 1x1 incremental {red}: {check}")
         del part
     return launches
+
+
+def mesh_traced(g, proj, mesh) -> int:
+    """Part of [mesh-1x1]: build_traced() and the traced session (fp32, 8
+    deltas) on the world of one, against mesh=None's; returns the
+    kernel's launches on the mesh."""
+    import torch
+
+    from repro_torch.core.distributed import assemble_volume
+    from repro_torch.core.plan import ReconstructionPlan
+    from repro_torch.kernels.backproject import kernel as bpk
+
+    kw = dict(geometry=g, impl="kernel", precision="fp32")
+    want = ReconstructionPlan(**kw).build_traced()(proj)
+    bpk.launches = 0
+    got = assemble_volume(
+        ReconstructionPlan(mesh=mesh, **kw).build_traced()(proj), mesh,
+        "psum")
+    torch.cuda.synchronize()
+    n_launch = bpk.launches
+    engine_ok = torch.equal(got, want)
+    kw.update(schedule="incremental", n_steps=N_STEPS)
+    none = ReconstructionPlan(**kw)
+    want = fold_session(none, proj, N_STEPS, session=none.build_traced())
+    plan = ReconstructionPlan(mesh=mesh, **kw)
+    sess = plan.build_traced()
+    bpk.launches = 0
+    got = assemble_volume(fold_session(plan, proj, N_STEPS, mesh, sess),
+                          mesh, "psum")
+    torch.cuda.synchronize()
+    n_launch += bpk.launches
+    session_ok = torch.equal(got, want)
+    print(f"[mesh-1x1] build_traced() fp32 psum bit-equal to mesh=None's: "
+          f"{engine_ok}; the traced session ({N_STEPS} deltas) bit-equal "
+          f"to mesh=None's: {session_ok}, stage seconds "
+          f"{sess.stage_seconds()}; kernel launches {n_launch}")
+    if not (engine_ok and session_ok) or n_launch != 1 + N_STEPS:
+        fail(f"mesh 1x1 traced: engine {engine_ok}, session {session_ok}, "
+             f"{n_launch} launches")
+    return n_launch
 
 
 def spawn_ranks(world: int, work: str, deadline: float) -> list:
@@ -1209,7 +1659,7 @@ def rel_max(a, b) -> float:
 
 
 def mesh_four(g, proj) -> int:
-    """Phase 12, the 2 x 2 phase: the references on one device, then four
+    """Phase 17, the 2 x 2 phase: the references on one device, then four
     ranks on the one card; returns the kernel launches of all ranks on the
     mesh path."""
     import torch
@@ -1275,7 +1725,7 @@ def mesh_four(g, proj) -> int:
 
 
 def mxu_check(dev) -> None:
-    """Phase 13: backproject_mxu against the factorized oracle at
+    """Phase 18: backproject_mxu against the factorized oracle at
     default_geometry(32) on the card."""
     import torch
 
@@ -1357,7 +1807,7 @@ def f32_excess(got, want) -> float:
 
 
 def attention_checks(cfg, dev) -> dict:
-    """Phase 14; returns the max |kernel - plain| per dtype, and the
+    """Phase 19; returns the max |kernel - plain| per dtype, and the
     stressed f32 case's max distances from the f64 evaluation."""
     import torch
 
@@ -1424,7 +1874,7 @@ def plain_attention_step(layers):
 
 
 def serving(cfg, dev) -> dict:
-    """Phase 15; returns the attention kernel's launches per dtype on the
+    """Phase 20; returns the attention kernel's launches per dtype on the
     serving path (bf16: greedy_generate; f32: the f32 prefill)."""
     import torch
 
@@ -1567,7 +2017,7 @@ def logit_checks(cfg, params, tokens, logits_k, cache) -> int:
 
 def attention_timing(cfg, dev, launches: dict, max_abs: dict,
                      stressed: dict) -> list:
-    """Phase 16; returns the attention kernel's entries of the `kernels`
+    """Phase 21; returns the attention kernel's entries of the `kernels`
     line."""
     import torch
     import torch.nn.functional as F
@@ -1651,6 +2101,21 @@ def main() -> int:
               "of a checkout", file=sys.stderr)
         return 2
     sys.path.insert(0, SRC)
+    # The tuning and calibration files live for this run only (the spawned
+    # mesh ranks inherit them).
+    caches = tempfile.mkdtemp(prefix="chip-smoke-caches-")
+    os.environ["REPRO_TUNE_CACHE"] = os.path.join(caches, "tune.json")
+    os.environ["REPRO_CALIB_CACHE"] = os.path.join(caches, "calib.json")
+    try:
+        return run()
+    finally:
+        shutil.rmtree(caches, ignore_errors=True)
+
+
+def run() -> int:
+    """Phases 1-22 (see the module's docstring)."""
+    import torch
+
     from repro_torch.configs import get_config
     from repro_torch.kernels.attention import kernel as fak
     from repro_torch.kernels.backproject import kernel as bpk
@@ -1689,15 +2154,27 @@ def main() -> int:
     paths = {"single-device": {c: e["launches"]
                                for c, e in zip(MAIN_PATH_CODECS, entries)}}
     paths["incremental"] = incremental(g, proj, phantom)
-    del phantom
     torch.cuda.empty_cache()
     paths["batched"] = batched(g, proj)
     torch.cuda.empty_cache()
-    paths["io"] = {"fp32": io_phase(dev, g, proj), "fp16": 0}
+    n_launch, *io_rates = io_phase(dev, g, proj)
+    paths["io"] = {"fp32": n_launch, "fp16": 0}
     paths["trace"] = {"fp32": trace_phase(g, proj), "fp16": 0}
     torch.cuda.empty_cache()
 
-    # 11-13. The mesh engine and backproject_mxu -----------------------------
+    # 11-15. Launch shapes, the perf model, traced engines, the planner ------
+    tile_ms = tiles_phase(g, proj)
+    paths["tuned"] = tune_phase(g, proj, phantom, tile_ms)
+    torch.cuda.empty_cache()
+    paths["traced"], t_filter = traced_phase(g, proj)
+    torch.cuda.empty_cache()
+    machine_spec_phase(g, proj, io_rates, t_filter)
+    torch.cuda.empty_cache()
+    paths["auto"] = auto_phase(g, proj, phantom)
+    del phantom
+    torch.cuda.empty_cache()
+
+    # 16-18. The mesh engine and backproject_mxu -----------------------------
     paths["mesh 1x1"] = mesh_one(dev, g, proj)
     torch.cuda.empty_cache()
     paths["mesh 2x2, all ranks"] = {"fp32": mesh_four(g, proj), "fp16": 0}
@@ -1709,7 +2186,7 @@ def main() -> int:
               + " + ".join(f"{p[codec]} ({name})"
                            for name, p in paths.items()))
 
-    # 14-16. Serving --------------------------------------------------------
+    # 19-21. Serving --------------------------------------------------------
     cfg = get_config("qwen2_1_5b")
     max_abs, stressed = attention_checks(cfg, dev)
     launches = serving(cfg, dev)
@@ -1722,7 +2199,7 @@ def main() -> int:
     if leaked:
         fail(f"the port imported {leaked}")
 
-    # 17. Result -----------------------------------------------------------
+    # 22. Result -----------------------------------------------------------
     print(json.dumps({"kernels": entries}))
     print(f"[device] {smi}")
     print(json.dumps({"ok": True, "device": {

@@ -42,19 +42,27 @@ reference does:
                             folding projection deltas as the scanner
                             writes them: the paper's instant CT
 
+    build_traced()          the engine cut at its stage seams, each stage
+                            a fenced ``stage.*`` span (a
+                            `TracedIncrementalSession` for
+                            schedule="incremental"); traced runs feed the
+                            planner's calibration store
+
 Every engine call, fold and stage runs in a span of the process tracer
 (obs/trace.py), fenced on the card when the tracer is enabled.
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP.md
-item): `build_traced` and the traced session, `plan_from_spec("auto")`,
-and the reference's `blocks`/`vmem_budget` fields, which return with the
-Hopper launch-shape tuner.
+For impl="kernel" the kernel's launch shape (tile, staging bytes) is
+resolved once at plan time by the tuner (kernels/backproject/tune.py,
+file-backed cache); `blocks` pins the tile and `vmem_budget` bounds the
+per-block shared memory. `plan_from_spec(g, "auto")` resolves through the
+planner (planner/search.py).
 """
 from __future__ import annotations
 
 import dataclasses
 import difflib
-from typing import Callable, Literal, NamedTuple, Optional, Tuple
+from functools import partial
+from typing import Callable, Dict, Literal, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -82,21 +90,11 @@ _REDUCES = ("psum",) + SCATTER_REDUCES
 _IMPLS = ("reference", "factorized", "kernel")
 _PRECISIONS = ("fp32", "bf16", "fp16", "fp8_e4m3", "fp8_e5m2")
 
-# ROADMAP.md Queue 1 items that bring back what the port leaves out.
-_TUNER = "ROADMAP.md Queue 1 item 7 (Hopper launch-shape tuner, tune.py)"
-_TRACED_PLANNER = ("ROADMAP.md Queue 1 item 22 (traced engines, "
-                   "obs.attribution, perf model and planner)")
-
 # build()/build_batched() results keyed by the (hashable) plan (plus the
 # batch size for batched engines) and, on a mesh, the mesh's process
 # groups (a new group behind an equal mesh is a new engine). Its counts
 # also go to the metrics registry as cache.core.engine_cache.*.
 _ENGINE_CACHE = CountingLRU(capacity=64, name="core.engine_cache")
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet; see {item}")
 
 
 def clear_engine_cache() -> None:
@@ -151,6 +149,8 @@ class _Stages:
     """The engine's stage primitives, composed once per plan."""
 
     gather_batch: Callable   # (pm_col, raw_b, async_op) -> wait() -> columns
+    filter_encode: Callable  # raw_b -> wire columns (data, scales)
+    gather_cols: Callable    # (pm_col, cols, async_op) -> wait() -> columns
     slab_pmats: Callable     # pm_col -> P shifted to this rank's x-slab
     reduce_slab: Callable    # full-slab row-reduce epilogue
     scatter_compensated: Callable  # (part, carry) -> (reduced, new carry)
@@ -197,6 +197,13 @@ class ReconstructionPlan:
                  f32 error-feedback carry under the chunked schedule.
     device     : where the plan runs, default "cuda" (on a mesh, each
                  rank's current device of that type).
+    blocks     : the Hopper kernel's tile (ti, tj, tk) for impl="kernel",
+                 one of the compiled `kernels.backproject.kernel.TILES`;
+                 None = the tuner's pick at plan time. (The reference's
+                 field of that name is its Pallas (bi, bj, bs) block.)
+    vmem_budget: per-block shared-memory budget in bytes handed to the
+                 tuner (None = the card's opt-in maximum). (The
+                 reference's is its Pallas kernel's VMEM budget.)
     """
 
     geometry: CBCTGeometry
@@ -209,6 +216,8 @@ class ReconstructionPlan:
     y_chunks: Optional[int] = None
     reduce: ReduceMode = "psum"
     device: str = "cuda"
+    blocks: Optional[Tuple[int, int, int]] = None
+    vmem_budget: Optional[int] = None
 
     def __post_init__(self):
         if self.mesh is not None and not isinstance(self.mesh, DeviceMesh):
@@ -309,15 +318,77 @@ class ReconstructionPlan:
                 raise ValueError(
                     f"scatter extent {scatter_extent} (y) must divide over "
                     f"the data axis of size {self._data_size}")
+        if self.blocks is not None and self.impl != "kernel":
+            raise ValueError(
+                "blocks=(ti, tj, tk) only applies to impl='kernel'")
         if self.impl == "kernel" and g.n_z % 2:
             raise ValueError(
                 f"impl='kernel' requires even N_z (dual-slab layout), "
                 f"got N_z={g.n_z}")
+        if self.impl == "kernel":
+            self._validate_launch()
         return self
 
+    def _validate_launch(self) -> None:
+        """The pinned tile is compiled, and some launch shape fits the
+        shared-memory budget (the kernel takes partial tiles: no tile has
+        to divide the slab)."""
+        from ..kernels.backproject import tune
+        from ..kernels.backproject.kernel import TILES
+        if self.blocks is not None and \
+                tuple(int(b) for b in self.blocks) not in TILES:
+            raise ValueError(
+                f"blocks={tuple(self.blocks)} is not a compiled tile of the "
+                f"back-projection kernel; choose from {TILES}")
+        if self.vmem_budget is not None:
+            dtype = self.resolved_precision().storage_dtype
+            if not tune.candidate_blocks(dtype, self.vmem_budget,
+                                         fix_tile=self.blocks):
+                raise ValueError(
+                    f"vmem_budget={self.vmem_budget} bytes of shared memory "
+                    "per block fits no launch shape of the back-projection "
+                    f"kernel (the smallest needs "
+                    f"{tune.min_smem_bytes(dtype)} bytes)")
+
+    # -- kernel launch shape (plan-time, not per-call) -----------------------
+
+    def resolved_launch(self) -> Optional[Tuple[Tuple[int, int, int], int]]:
+        """(tile, staging bytes) the kernel runs with under this plan: the
+        tuner's pick for the per-call back-projection shape, on the
+        geometry's first n_p matrices of that call (a representative
+        call), with `blocks` pinned and under `vmem_budget`. None for
+        non-kernel impls."""
+        if self.impl != "kernel":
+            return None
+        from ..kernels.backproject import tune
+        g = self.geometry
+        nx_call, ny_call, np_call = self.bp_call_shape()
+        pm = torch.as_tensor(projection_matrices(g)[:np_call],
+                             device=resolve_device(self.device))
+        return tune.pick_blocks(
+            nx_call, ny_call, g.n_z, pm, g.n_u, g.n_v,
+            qt_dtype=self.resolved_precision().storage_dtype,
+            budget=self.vmem_budget,
+            fix_tile=None if self.blocks is None else tuple(self.blocks))
+
+    def resolved_blocks(self) -> Optional[Tuple[int, int, int]]:
+        """The tile this plan runs the kernel with (None for non-kernel
+        impls)."""
+        launch = self.resolved_launch()
+        return None if launch is None else launch[0]
+
+    def _resolve_backprojector(self) -> Callable:
+        if self.impl != "kernel":
+            return _get_backprojector(self.impl)
+        from ..kernels.backproject.ops import backproject_kernel
+        t, stage_bytes = self.resolved_launch()
+        return partial(backproject_kernel, tile=t, stage_bytes=stage_bytes)
+
     def describe(self) -> dict:
-        """Flat summary of the resolved plan (benchmark/report labels)."""
+        """Flat summary of the resolved plan (benchmark/report labels),
+        with the kernel's resolved launch shape."""
         grid = self.grid
+        launch = self.resolved_launch()
         return {
             "schedule": self.schedule,
             "impl": self.impl,
@@ -328,6 +399,8 @@ class ReconstructionPlan:
             "y_chunks": self.y_chunks,
             "reduce": self.reduce,
             "device": str(resolve_device(self.device)),
+            "blocks": None if launch is None else launch[0],
+            "stage_bytes": None if launch is None else launch[1],
         }
 
     def bp_call_shape(self) -> Tuple[int, int, int]:
@@ -355,8 +428,13 @@ class ReconstructionPlan:
         # for scaled codecs (fp8, fp16's scale-on-overflow), the
         # per-projection f32 scale sidecar. The column group's P is not
         # gathered: every rank slices it from the geometry (column_pmats).
-        def gather_batch(pm_col, raw_b, async_op=False):
-            cols = tuple(codec.encode(filt(raw_b)))
+        # Split in two so the traced engines time them apart:
+        # `filter_encode` is collective-free, `gather_cols` moves the wire
+        # bytes over the model axis.
+        def filter_encode(raw_b):
+            return tuple(codec.encode(filt(raw_b)))
+
+        def gather_cols(pm_col, cols, async_op=False):
             if coll is None:
                 return lambda: (pm_col,) + cols
             issued = [None if x is None
@@ -370,6 +448,9 @@ class ReconstructionPlan:
                 return (pm_col,) + tuple(None if x is None else x[0]
                                          for x in issued)
             return wait
+
+        def gather_batch(pm_col, raw_b, async_op=False):
+            return gather_cols(pm_col, filter_encode(raw_b), async_op)
 
         # --- stage: x-slab reparameterization (offset folded into P) -------
         if mesh is None:
@@ -413,10 +494,11 @@ class ReconstructionPlan:
             red = coll.reduce_scatter_y(half, data_axis).to(torch.float32)
             return red, part - half.to(torch.float32)
 
-        return _Stages(gather_batch=gather_batch, slab_pmats=slab_pmats,
-                       reduce_slab=reduce_slab,
+        return _Stages(gather_batch=gather_batch,
+                       filter_encode=filter_encode, gather_cols=gather_cols,
+                       slab_pmats=slab_pmats, reduce_slab=reduce_slab,
                        scatter_compensated=scatter_compensated,
-                       backproject=_get_backprojector(self.impl),
+                       backproject=self._resolve_backprojector(),
                        nx_slab=nx_slab, scale=fdk_scale(g), coll=coll, dp=dp,
                        data_axis=data_axis,
                        pod_axis=AXIS_POD if AXIS_POD in dp else None)
@@ -721,8 +803,95 @@ class ReconstructionPlan:
                 f"{self.schedule!r} — batch schedules go through build()")
         return IncrementalSession(self, source=source, sink=sink)
 
+    # -- traced engine (per-stage attribution) -------------------------------
+
     def build_traced(self, source=None, sink=None):
-        raise _not_ported("build_traced", _TRACED_PLANNER)
+        """The engine cut at its stage seams, each stage a fenced span: the
+        measurement counterpart of the planner's `PerfBreakdown`
+        (obs/attribution.py joins the two).
+
+        Every schedule runs the same FUSED stage decomposition here: one
+        stage after another (filter + encode, column AllGather, slab
+        back-projection, row-reduce epilogue + FDK scale; plus source read
+        and sink write when wired), each fenced so that its span is that
+        stage's wall time on the card. A traced run trades away the overlap
+        the pipelined schedules buy, so it is a MEASUREMENT run, not a
+        production configuration. Span names are the fixed ``stage.*``
+        vocabulary of `obs.attribution.STAGE_FIELDS`; the output is the
+        fused layout (chunked + scatter's y-chunk-major store layout does
+        not apply). On a mesh every rank calls it, and each rank's
+        un-reduced partial crosses the stage boundary as a plain tensor.
+
+        With the tracer disabled the stages run unfenced; with it enabled,
+        every run also deposits its per-stage seconds into the calibration
+        store (planner/calibrate.py).
+
+        schedule="incremental" returns a `TracedIncrementalSession`: the
+        session's stage()/fold work split into the same vocabulary.
+        """
+        if self.schedule == "incremental":
+            return TracedIncrementalSession(self, source=source, sink=sink)
+        self.validate()
+        g, mesh = self.geometry, self.mesh
+        st = self._make_stages()
+        attrs = self._span_attrs()
+        # the fused decomposition's inputs: one batch of this rank's column
+        # group's P, in the order the AllGather concatenates the columns
+        dev, pm_steps, shape, what = dataclasses.replace(
+            self, schedule="fused", n_steps=1, y_chunks=None)._engine_inputs()
+        pm_col = pm_steps[0]
+        spec = None
+        if mesh is not None:
+            spec = ([AXIS_MODEL, AXIS_DATA] if self.reduce in SCATTER_REDUCES
+                    else [AXIS_MODEL])
+
+        def reconstruct_traced(projections=None) -> torch.Tensor:
+            tracer = get_tracer()
+            seconds: Dict[str, float] = {}
+            with tracer.span("engine.traced", **attrs):
+                if projections is None:
+                    if source is None:
+                        raise TypeError(
+                            "this traced plan has no ProjectionSource; "
+                            "pass the projections array")
+                    with tracer.span("stage.read") as sp:
+                        projections = sp.fence(
+                            source.load(mesh, device=self.device))
+                    seconds["stage.read"] = sp.duration_s
+                proj = torch.as_tensor(projections, device=dev)
+                if tuple(proj.shape) != shape:
+                    raise ValueError(
+                        f"projections must be {what} = {shape}, "
+                        f"got {tuple(proj.shape)}")
+                with tracer.span("stage.filter") as sp:
+                    cols = sp.fence(st.filter_encode(proj))
+                seconds["stage.filter"] = sp.duration_s
+                with tracer.span("stage.allgather") as sp:
+                    pm_c, q_col, sc_col = sp.fence(
+                        st.gather_cols(pm_col, cols)())
+                seconds["stage.allgather"] = sp.duration_s
+                with tracer.span("stage.backproject") as sp:
+                    part = sp.fence(st.backproject(
+                        st.slab_pmats(pm_c), q_col, st.nx_slab, g.n_y,
+                        g.n_z, scales=sc_col))
+                seconds["stage.backproject"] = sp.duration_s
+                with tracer.span("stage.reduce") as sp:
+                    volume = sp.fence(st.reduce_slab(part) * st.scale)
+                seconds["stage.reduce"] = sp.duration_s
+                if sink is not None:
+                    with tracer.span("stage.write") as sp:
+                        sink.write(volume, mesh=mesh, spec=spec)
+                    seconds["stage.write"] = sp.duration_s
+            if tracer.enabled:
+                # a traced run IS a calibration sample: feed the measured
+                # stage times back into the planner's store. Disabled
+                # tracer: spans are no-ops, there is nothing to record.
+                from ..planner.calibrate import record_traced_run
+                record_traced_run(self, seconds)
+            return volume
+
+        reconstruct_traced.collectives = st.coll
+        return reconstruct_traced
 
 
 class StagedDelta(NamedTuple):
@@ -855,14 +1024,18 @@ class IncrementalSession:
 
     # -- the fold (one delta) -----------------------------------------------
 
-    def _columns(self, delta, lo: int, hi: int):
-        """Filter + encode + column AllGather of this rank's share of the
-        raw delta for angles [lo, hi): (pm_col, q_col, sc_col)."""
+    def _delta_inputs(self, delta, lo: int, hi: int):
+        """(the column group's P, the raw delta on the device) for this
+        rank's share of angles [lo, hi)."""
         mesh = self.plan.mesh
         pm = self._pmats[lo:hi]
         pm_col = pm if mesh is None else column_pmats(pm, mesh, 1)[0]
-        raw = torch.as_tensor(delta, device=self._pmats.device)
-        return self._stages.gather_batch(pm_col, raw)()
+        return pm_col, torch.as_tensor(delta, device=self._pmats.device)
+
+    def _columns(self, delta, lo: int, hi: int):
+        """Filter + encode + column AllGather of this rank's share of the
+        raw delta for angles [lo, hi): (pm_col, q_col, sc_col)."""
+        return self._stages.gather_batch(*self._delta_inputs(delta, lo, hi))()
 
     def _fold(self, pm_col, q_col, sc_col) -> None:
         st, g = self._stages, self.plan.geometry
@@ -876,8 +1049,13 @@ class IncrementalSession:
                 self._acc = self._acc + st.backproject(
                     pm_s, q_col, st.nx_slab, g.n_y, g.n_z, scales=sc_col)
             return
-        part = st.backproject(pm_s, q_col, st.nx_slab, g.n_y, g.n_z,
-                              scales=sc_col)
+        self._accumulate(st.backproject(pm_s, q_col, st.nx_slab, g.n_y,
+                                        g.n_z, scales=sc_col))
+
+    def _accumulate(self, part) -> None:
+        """The scatter reduces' per-delta reduce of a partial slab into the
+        (scattered) resident accumulator."""
+        st = self._stages
         if self._compensated:
             # error feedback along the time axis: the carry is the residual
             # of the PREVIOUS delta's rounding
@@ -1018,6 +1196,103 @@ class IncrementalSession:
         return volume
 
 
+class TracedIncrementalSession(IncrementalSession):
+    """The streaming session cut at its stage seams: `build_traced` for
+    schedule="incremental".
+
+    Same state machine and exactness contract as `IncrementalSession`, but
+    its work runs in fenced ``stage.*`` spans (the `STAGE_FIELDS`
+    vocabulary): stage() emits ``stage.filter`` + ``stage.allgather``; a
+    fold emits ``stage.backproject`` and, under the scatter reduces (each
+    delta reduce-scatters its partial), ``stage.reduce``; the finalize
+    epilogue is a ``stage.reduce`` span too (psum's one deferred reduce).
+    Raw deltas are routed through stage() first, so the raw-update path
+    decomposes the same way.
+
+    A MEASUREMENT configuration: the spans are `timed=True`, so stage
+    seconds accumulate (`stage_seconds()`) even with the tracer disabled.
+    On the first full-coverage volume (finalize, or `update(...,
+    finalize=True)`) they are deposited into the calibration store
+    (planner/calibrate.py) against the plan's incremental cost point.
+    """
+
+    def __init__(self, plan: ReconstructionPlan, source=None, sink=None):
+        super().__init__(plan, source=source, sink=sink)
+        self._stage_seconds: Dict[str, float] = {}
+        self._recorded = False
+
+    def stage_seconds(self) -> Dict[str, float]:
+        """Accumulated per-stage wall seconds so far (a copy)."""
+        return dict(self._stage_seconds)
+
+    def _timed(self, name: str, fn, *args):
+        """fn(*args) in a fenced, timed span `name`, its seconds added."""
+        with get_tracer().span(name, timed=True) as sp:
+            out = sp.fence(fn(*args))
+        self._stage_seconds[name] = (self._stage_seconds.get(name, 0.0)
+                                     + sp.duration_s)
+        return out
+
+    # -- stage decomposition -------------------------------------------------
+
+    def _columns(self, delta, lo: int, hi: int):
+        st = self._stages
+        pm_col, raw = self._delta_inputs(delta, lo, hi)
+        cols = self._timed("stage.filter", st.filter_encode, raw)
+        return self._timed("stage.allgather",
+                           lambda: st.gather_cols(pm_col, cols)())
+
+    def _fold(self, pm_col, q_col, sc_col) -> None:
+        if not self._scatter:
+            # psum: the fold IS the back-projection; the row reduce is
+            # deferred to the epilogue
+            def fold():
+                IncrementalSession._fold(self, pm_col, q_col, sc_col)
+                return self._acc
+            self._timed("stage.backproject", fold)
+            return
+        st, g = self._stages, self.plan.geometry
+        part = self._timed(
+            "stage.backproject", st.backproject, st.slab_pmats(pm_col),
+            q_col, st.nx_slab, g.n_y, g.n_z, sc_col)
+
+        def reduce():
+            self._accumulate(part)
+            return self._acc
+        self._timed("stage.reduce", reduce)
+
+    def _epilogue(self) -> torch.Tensor:
+        return self._timed("stage.reduce", super()._epilogue)
+
+    # -- calibration feedback ------------------------------------------------
+
+    def update(self, projection_delta, angle_slice=None,
+               finalize: bool = False):
+        if not isinstance(projection_delta, StagedDelta):
+            if angle_slice is None:
+                raise TypeError("angle_slice is required for a raw delta")
+            projection_delta = self.stage(projection_delta, angle_slice)
+            angle_slice = None
+        out = super().update(projection_delta, angle_slice,
+                             finalize=finalize)
+        if finalize and self.is_complete:
+            self._record_calibration()
+        return out
+
+    def finalize(self, partial: bool = False) -> torch.Tensor:
+        volume = super().finalize(partial=partial)
+        if not partial:
+            self._record_calibration()
+        return volume
+
+    def _record_calibration(self) -> None:
+        if self._recorded:
+            return
+        self._recorded = True
+        from ..planner.calibrate import record_traced_run
+        record_traced_run(self.plan, dict(self._stage_seconds))
+
+
 # ---------------------------------------------------------------------------
 # Carrying a reference plan across
 # ---------------------------------------------------------------------------
@@ -1041,7 +1316,8 @@ def plan_from_reference(fields: dict, device="cuda",
     ``reduce``. A reference mesh is carried across as `mesh`, the port's
     mesh, which must have the same axis names and shape; a mesh on one side
     only raises ValueError. A pinned ``blocks``/``vmem_budget`` raises
-    NotImplementedError.
+    ValueError: the reference's Pallas tile and VMEM budget do not carry
+    over to the card's kernel, whose launch shape the port's tuner picks.
     """
     if "geometry" not in fields:
         return ReconstructionPlan(geometry=_geometry_from(fields),
@@ -1054,7 +1330,12 @@ def plan_from_reference(fields: dict, device="cuda",
             "pass mesh=make_mesh(shape, axes) with the same layout")
     for key in ("blocks", "vmem_budget"):
         if fields.get(key) is not None:
-            raise _not_ported(f"a pinned {key}", _TUNER)
+            raise ValueError(
+                f"the reference plan pins {key}={fields[key]!r}: a Pallas "
+                "tile or VMEM budget does not carry over to the card, where "
+                "the kernel's launch shape is a Hopper tile and a per-block "
+                "shared-memory budget; drop it to let the port's tuner "
+                "pick, or set the port plan's blocks/vmem_budget")
     unknown = set(fields) - set(_PLAN_FIELDS) - {
         "geometry", "mesh", "blocks", "vmem_budget"}
     if unknown:
@@ -1094,9 +1375,9 @@ def _geometry_from(g) -> CBCTGeometry:
 # Spec strings
 # ---------------------------------------------------------------------------
 
-_SPEC_INT_KEYS = ("n_steps", "y_chunks")
+_SPEC_INT_KEYS = ("n_steps", "y_chunks", "vmem_budget")
 _SPEC_STR_KEYS = ("impl", "window", "precision", "schedule", "reduce")
-_SPEC_KEYS = _SPEC_STR_KEYS + _SPEC_INT_KEYS
+_SPEC_KEYS = _SPEC_STR_KEYS + _SPEC_INT_KEYS + ("blocks",)
 
 _SPEC_VALUE_KEYS = {
     **{v: "schedule" for v in _SCHEDULES},
@@ -1127,30 +1408,43 @@ def plan_from_spec(geometry: CBCTGeometry, spec: str = "",
     (e.g. ``"schedule=pipelined,n_steps=4,precision=bf16"``).
 
     Recognized keys: impl, window, precision, schedule, n_steps, y_chunks,
-    reduce. ``overrides`` kwargs (``device`` among them) win over the spec
-    string. The
-    reference's ``blocks``/``vmem_budget`` keys and its ``auto`` token (the
-    planner) raise NotImplementedError.
+    reduce, vmem_budget (the per-block shared-memory budget in bytes) and
+    blocks (the kernel's tile, as ``ti:tj:tk``) — the reference's keys, so
+    one spec string parses in both packages. ``overrides`` kwargs
+    (``device`` among them) win over the spec string.
+
+    The bare token ``auto`` hands the remaining (pinned) dimensions to the
+    planner (planner/search.py): ``"auto"`` searches the whole space for
+    the best feasible plan on this (geometry, mesh, device);
+    ``"auto,precision=bf16"`` searches with the precision axis pinned.
     """
     kwargs: dict = {}
+    auto = False
     for item in filter(None, (s.strip() for s in spec.split(","))):
         if "=" not in item:
             if item == "auto":
-                raise _not_ported("plan_from_spec('auto')",
-                                  _TRACED_PLANNER)
+                auto = True
+                continue
             raise ValueError(
                 f"plan spec token {item!r} is not key=value and not 'auto'; "
                 f"valid keys: {', '.join(_SPEC_KEYS)}{_spec_hint(item)}")
         key, val = (s.strip() for s in item.split("=", 1))
         if key in _SPEC_INT_KEYS:
             kwargs[key] = int(val)
+        elif key == "blocks":
+            kwargs[key] = tuple(int(v) for v in val.split(":"))
         elif key in _SPEC_STR_KEYS:
             kwargs[key] = val
-        elif key in ("blocks", "vmem_budget"):
-            raise _not_ported(f"plan spec key {key!r}", _TUNER)
         else:
             raise ValueError(
                 f"unknown plan spec key {key!r}; valid keys: "
                 f"{', '.join(_SPEC_KEYS)}{_spec_hint(key)}")
     kwargs.update(overrides)
+    if auto:
+        from ..planner import auto_plan
+        window = kwargs.pop("window", "ramlak")
+        vmem_budget = kwargs.pop("vmem_budget", None)
+        device = kwargs.pop("device", "cuda")
+        return auto_plan(geometry, mesh=mesh, window=window,
+                         vmem_budget=vmem_budget, device=device, **kwargs)
     return ReconstructionPlan(geometry=geometry, mesh=mesh, **kwargs)

@@ -208,18 +208,35 @@ __device__ __forceinline__ float bilinear(const T* row0, const T* row1,
 
 // ---- the kernel ------------------------------------------------------------
 
-// A block's tile: kTI x kTJ columns x kTK values of k, kWarps warps
-// (`bp_tile` reports it); and the projections whose terms and boxes are
-// made at once.
-constexpr int kTI = 8;
-constexpr int kTJ = 8;
-constexpr int kTK = 64;
+// A block's tile is kTI x kTJ columns x kTK values of k, a template
+// parameter of the kernel: the compiled tiles are kTiles (`bp_tiles` lists
+// them; index 0 is the default). kTK is a multiple of 32 (a lane owns
+// k = k0 + l + 32 e) and kTI kTJ a multiple of kWarps (a warp owns
+// kTI kTJ / kWarps columns). A block has kWarps warps; kPrep projections'
+// terms and boxes are made at once.
 constexpr int kWarps = 8;
 constexpr int kPrep = 2;
+struct TileShape {
+  int ti, tj, tk;
+};
+constexpr TileShape kTiles[] = {{8, 8, 64}, {8, 8, 32}, {16, 8, 32},
+                                {4, 8, 64}};
+constexpr int kNumTiles = sizeof(kTiles) / sizeof(kTiles[0]);
 // The default staging budget, both buffers of the ring together, in Q^T
 // pixels: 104 KB in f32 (two blocks per SM), 52 KB in 16-bit wire types
-// and 26 KB in fp8 (three; the kernel's register cap assumes this).
+// and 26 KB in fp8 (three).
 constexpr int kStagePixels = 26 * 1024;
+
+// Blocks per SM the register cap is set for. Narrow wire types stage half
+// the bytes or less at the default budget, so three blocks fit an SM's
+// shared memory: 85 registers a thread (a few bytes spill with 32
+// accumulators). An f32 block's default staging allows two; a tile with
+// 16 accumulators a thread gets the cap of two blocks (128 registers),
+// one with 32 none (the default tile's f32 kernel holds 1 block's worth).
+template <typename T, int TI, int TJ, int TK>
+constexpr int min_blocks() {
+  return sizeof(T) < 4 ? 3 : ((TI * TJ / kWarps) * (TK / 32) <= 8 ? 2 : 1);
+}
 
 struct Box {
   int rlo, rows;  // first staged row of Q^T_s and the count (0: empty)
@@ -262,12 +279,10 @@ struct RawOf<4> {
 
 // Warp w owns columns [w * kColsPerWarp, (w + 1) * kColsPerWarp) of the
 // block's tile (i fastest across tiles, j within), lane l the
-// k = k0 + l + 32 e, e < kTK / 32. Narrow wire types stage half the
-// bytes at the default budget (kStagePixels), so three blocks fit an SM's
-// shared memory; registers are capped to match (a few bytes spill). An f32
-// block's staging allows two.
-template <typename T>
-__global__ void __launch_bounds__(kWarps * 32, sizeof(T) < 4 ? 3 : 1)
+// k = k0 + l + 32 e, e < kTK / 32. Registers are capped by min_blocks.
+template <typename T, int kTI, int kTJ, int kTK>
+__global__ void __launch_bounds__(kWarps * 32,
+                                  min_blocks<T, kTI, kTJ, kTK>())
 bp_dual_kernel(const float* __restrict__ params, const T* __restrict__ qt,
                float* __restrict__ out, int n_proj, int nu, int nv, int nx,
                int ny, int nzh, int tiles_y, int n_ktiles, int buf_elems,
@@ -529,11 +544,11 @@ int copy_width(const void* qt, int nv) {
   return 0;
 }
 
-template <typename T>
-cudaError_t launch(const float* params, const void* qt, float* out,
-                   int n_proj, int nu, int nv, int nx, int ny, int nzh,
-                   int stage_bytes, unsigned long long* direct_count,
-                   cudaStream_t stream) {
+template <typename T, int kTI, int kTJ, int kTK>
+cudaError_t launch_tile(const float* params, const void* qt, float* out,
+                        int n_proj, int nu, int nv, int nx, int ny, int nzh,
+                        int stage_bytes, unsigned long long* direct_count,
+                        cudaStream_t stream) {
   const int tiles_y = (ny + kTJ - 1) / kTJ;
   const int n_ktiles = (nzh + kTK - 1) / kTK;
   const int64_t blocks =
@@ -545,51 +560,122 @@ cudaError_t launch(const float* params, const void* qt, float* out,
   // Two buffers, each 16-byte aligned.
   const int buf_elems = stage_bytes / 2 / 16 * 16 / static_cast<int>(sizeof(T));
   const int smem = 2 * buf_elems * static_cast<int>(sizeof(T));
+  auto kernel = bp_dual_kernel<T, kTI, kTJ, kTK>;
   cudaError_t err = cudaFuncSetAttribute(
-      bp_dual_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  bp_dual_kernel<T><<<static_cast<unsigned>(blocks), dim3(32, kWarps), smem,
-                      stream>>>(
+  kernel<<<static_cast<unsigned>(blocks), dim3(32, kWarps), smem, stream>>>(
       params, static_cast<const T*>(qt), out, n_proj, nu, nv, nx, ny, nzh,
       tiles_y, n_ktiles, buf_elems, copy_width<T>(qt, nv), direct_count);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// The block's tile, (columns along i, along j, values of k).
-extern "C" void bp_tile(int* tile) {
-  tile[0] = kTI;
-  tile[1] = kTJ;
-  tile[2] = kTK;
+template <typename T, int kTI, int kTJ, int kTK>
+cudaError_t static_smem_tile(int* bytes) {
+  cudaFuncAttributes attr;
+  const cudaError_t err =
+      cudaFuncGetAttributes(&attr, bp_dual_kernel<T, kTI, kTJ, kTK>);
+  *bytes = static_cast<int>(attr.sharedSizeBytes);
+  return err;
 }
 
-// Wire dtype codes: 0 f32, 1 bf16, 2 fp16, 3 fp8 e4m3, 4 fp8 e5m2.
-// stage_bytes < 0: the default staging budget (kStagePixels pixels).
+// One instantiation per compiled tile; `tile` indexes kTiles. CALL takes
+// the tile's (TI, TJ, TK); BP_APPLY expands BP_TILE before the call.
+#define BP_TILE(t) kTiles[t].ti, kTiles[t].tj, kTiles[t].tk
+#define BP_APPLY(M, ...) M(__VA_ARGS__)
+#define BP_TILE_CASES(CALL)            \
+  case 0:                              \
+    return BP_APPLY(CALL, BP_TILE(0)); \
+  case 1:                              \
+    return BP_APPLY(CALL, BP_TILE(1)); \
+  case 2:                              \
+    return BP_APPLY(CALL, BP_TILE(2)); \
+  case 3:                              \
+    return BP_APPLY(CALL, BP_TILE(3)); \
+  default:                             \
+    return cudaErrorInvalidValue;
+static_assert(kNumTiles == 4, "BP_TILE_CASES has a case for every tile");
+
+template <typename T>
+cudaError_t launch(int tile, const float* params, const void* qt, float* out,
+                   int n_proj, int nu, int nv, int nx, int ny, int nzh,
+                   int stage_bytes, unsigned long long* direct_count,
+                   cudaStream_t stream) {
+#define BP_LAUNCH(TI, TJ, TK)                                              \
+  launch_tile<T, TI, TJ, TK>(params, qt, out, n_proj, nu, nv, nx, ny, nzh, \
+                             stage_bytes, direct_count, stream)
+  switch (tile) { BP_TILE_CASES(BP_LAUNCH) }
+#undef BP_LAUNCH
+}
+
+template <typename T>
+cudaError_t static_smem(int tile, int* bytes) {
+#define BP_STATIC(TI, TJ, TK) static_smem_tile<T, TI, TJ, TK>(bytes)
+  switch (tile) { BP_TILE_CASES(BP_STATIC) }
+#undef BP_STATIC
+}
+
+}  // namespace
+
+// The compiled tiles, (columns along i, along j, values of k) each, into
+// tiles[3 t .. 3 t + 2]; returns their count. Index 0 is the default.
+extern "C" int bp_tiles(int* tiles) {
+  for (int t = 0; t < kNumTiles; ++t) {
+    tiles[3 * t] = kTiles[t].ti;
+    tiles[3 * t + 1] = kTiles[t].tj;
+    tiles[3 * t + 2] = kTiles[t].tk;
+  }
+  return kNumTiles;
+}
+
+// The default staging budget in Q^T pixels (both buffers of the ring).
+extern "C" int bp_stage_pixels() { return kStagePixels; }
+
+// The largest shared memory a block may opt in to on `device`
+// (cudaDevAttrMaxSharedMemoryPerBlockOptin), in bytes, into *bytes.
+extern "C" int bp_smem_optin(int device, int* bytes) {
+  return static_cast<int>(cudaDeviceGetAttribute(
+      bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device));
+}
+
+#define BP_WIRE_CASES(CALL)                 \
+  switch (wire_dtype) {                     \
+    case 0:                                 \
+      return static_cast<int>(CALL(float)); \
+    case 1:                                 \
+      return static_cast<int>(CALL(__nv_bfloat16)); \
+    case 2:                                 \
+      return static_cast<int>(CALL(__half)); \
+    case 3:                                 \
+      return static_cast<int>(CALL(__nv_fp8_e4m3)); \
+    case 4:                                 \
+      return static_cast<int>(CALL(__nv_fp8_e5m2)); \
+    default:                                \
+      return static_cast<int>(cudaErrorInvalidValue); \
+  }
+
+// The static shared memory of the instantiation (wire dtype, tile), in
+// bytes, into *bytes (the column-term tables and the boxes).
+extern "C" int bp_static_smem(int wire_dtype, int tile, int* bytes) {
+#define BP_SMEM(T) static_smem<T>(tile, bytes)
+  BP_WIRE_CASES(BP_SMEM)
+#undef BP_SMEM
+}
+
+// Wire dtype codes: 0 f32, 1 bf16, 2 fp16, 3 fp8 e4m3, 4 fp8 e5m2; `tile`
+// indexes the compiled tiles. stage_bytes < 0: the default staging budget
+// (kStagePixels pixels).
 extern "C" int bp_dual_launch(const float* params, const void* qt, float* out,
                               int n_proj, int nu, int nv, int nx, int ny,
-                              int nzh, int wire_dtype, int stage_bytes,
+                              int nzh, int wire_dtype, int tile,
+                              int stage_bytes,
                               unsigned long long* direct_count, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (wire_dtype) {
-    case 0:
-      return launch<float>(params, qt, out, n_proj, nu, nv, nx, ny, nzh,
-                           stage_bytes, direct_count, st);
-    case 1:
-      return launch<__nv_bfloat16>(params, qt, out, n_proj, nu, nv, nx, ny,
-                                   nzh, stage_bytes, direct_count, st);
-    case 2:
-      return launch<__half>(params, qt, out, n_proj, nu, nv, nx, ny, nzh,
-                            stage_bytes, direct_count, st);
-    case 3:
-      return launch<__nv_fp8_e4m3>(params, qt, out, n_proj, nu, nv, nx, ny,
-                                   nzh, stage_bytes, direct_count, st);
-    case 4:
-      return launch<__nv_fp8_e5m2>(params, qt, out, n_proj, nu, nv, nx, ny,
-                                   nzh, stage_bytes, direct_count, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+#define BP_CALL(T)                                                        \
+  launch<T>(tile, params, qt, out, n_proj, nu, nv, nx, ny, nzh, stage_bytes, \
+            direct_count, st)
+  BP_WIRE_CASES(BP_CALL)
+#undef BP_CALL
 }
 
 extern "C" const char* bp_error_string(int code) {

@@ -9,9 +9,10 @@ Port of `repro/kernels/backproject/ops.py`:
                        the codec scale in column 12, and restores the
                        canonical volume from the dual-slab output. The CUDA
                        kernel loops over every projection itself, so there
-                       is no projection-batch block and no padding; Hopper
-                       launch shapes are fixed in the kernel source until
-                       the tuner is ported.
+                       is no projection-batch block and no padding. The
+                       launch shape (tile, staging bytes) not given
+                       explicitly comes from the tuner (tune.pick_blocks),
+                       as the reference's block shape does.
   backproject_mxu    : the gather-free formulation — bilinear
                        interpolation recast as two products with relu-hat
                        weight matrices — in plain torch (the reference
@@ -25,6 +26,7 @@ from typing import Optional, Tuple
 import torch
 
 from ...core.backprojection import _stream_scales, from_dual_slab
+from . import tune
 from .kernel import backproject_dual
 
 
@@ -51,13 +53,27 @@ def kernel_operands(pmats: torch.Tensor, proj: torch.Tensor,
 
 def backproject_kernel(pmats: torch.Tensor, proj: torch.Tensor,
                        nx: int, ny: int, nz: int,
-                       scales: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       scales: Optional[torch.Tensor] = None,
+                       tile: Optional[Tuple[int, int, int]] = None,
+                       stage_bytes: Optional[int] = None) -> torch.Tensor:
     """Alg. 4 via the hand-written kernel. Same signature/result as the
     oracles: operands as in `kernel_operands`; returns (nx, ny, nz) float32
     on the projections' device.
+
+    `tile` and `stage_bytes` not given come from the tuner
+    (tune.pick_blocks) for this call's shapes and matrices, under the
+    device's shared-memory budget; a given one is pinned and the other
+    tuned around it. Plans resolve both once, at build time.
     """
     params, qt = kernel_operands(pmats, proj, scales)
-    return from_dual_slab(backproject_dual(params, qt, nx, ny, nz))
+    if tile is None or stage_bytes is None:
+        n_p, nu, nv = qt.shape
+        tile, stage_bytes = tune.pick_blocks(
+            nx, ny, nz, params, nu, nv, qt_dtype=qt.dtype,
+            fix_tile=tile, fix_stage=stage_bytes)
+    return from_dual_slab(backproject_dual(params, qt, nx, ny, nz,
+                                           tile=tile,
+                                           stage_bytes=stage_bytes))
 
 
 # backproject_mxu's f32 working set per projection above which it refuses

@@ -1,6 +1,7 @@
-"""Observability: span tracing and the unified metrics registry.
+"""Observability: span tracing, the unified metrics registry, and planner
+predicted-vs-measured attribution.
 
-Port of `repro/obs/__init__.py`, with the same exports but one:
+Port of `repro/obs/__init__.py`, with the same exports:
 
   trace.py        nested monotonic-clock spans with explicit fencing (a
                   CUDA event per device, so a span covers dispatch and
@@ -11,20 +12,20 @@ Port of `repro/obs/__init__.py`, with the same exports but one:
                   a process-global default registry; the engine cache, the
                   prefetcher and the write-behind executor report through
                   it.
-
-`attribution` (planner predictions joined onto measured stage spans) comes
-with the planner: ``obs.attribution`` raises NotImplementedError naming
-its ROADMAP.md item.
+  attribution.py  joins measured engine-stage spans onto the planner's
+                  `PerfBreakdown` prediction — per-stage model error.
 
 Quick start::
 
     from repro_torch import obs
     obs.enable()
-    fdk = plan.build(source=src, sink=sink)
+    fdk = plan.build_traced(source=src, sink=sink)
     volume = fdk()
     obs.get_tracer().save("trace.json")       # load in ui.perfetto.dev
+    print(obs.attribution.render_report(
+        obs.attribution.compare(plan, obs.get_tracer())))
 """
-from . import metrics, trace
+from . import attribution, metrics, trace
 from .metrics import (
     Counter, Gauge, Histogram, MetricsRegistry, counter, default_registry,
     gauge, histogram,
@@ -34,20 +35,10 @@ from .trace import (
 )
 
 __all__ = [
-    "metrics", "trace",
+    "attribution", "metrics", "trace",
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "counter",
     "default_registry", "gauge", "histogram",
     "Span", "Tracer", "disable", "enable", "get_tracer", "set_tracer",
     "span",
 ]
 
-ATTRIBUTION_ITEM = ("ROADMAP.md Queue 1 item 22 (traced engines, "
-                    "obs.attribution, perf model and planner)")
-
-
-def __getattr__(name: str):
-    if name == "attribution":
-        raise NotImplementedError(
-            f"obs.attribution is not ported to repro_torch yet; see "
-            f"{ATTRIBUTION_ITEM}")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -5,7 +5,8 @@
 Joins a gloo process group of WORLD ranks through INIT_FILE, builds the
 (2, 2, 2) (pod, data, model) mesh, reconstructs WORK_DIR/proj.npy for every
 case of CASES below through `ReconstructionPlan(mesh=...)`, and assembles
-each rank's output into the global volume. Then, for each reduce of
+each rank's output into the global volume, and the traced engine
+(`build_traced`) for each case of TRACED. Then, for each reduce of
 SESSIONS, an incremental session polls the streaming store WORK_DIR/stream
 (written by the test), folds its deltas and stores the volume to
 WORK_DIR/sink_<reduce>. Rank 0 writes the volumes to WORK_DIR/volumes.npz
@@ -59,6 +60,9 @@ def cases():
 
 CASES = cases()
 SESSIONS = ("psum", "scatter", "scatter_bf16")
+# build_traced runs every schedule as the fused stage decomposition; its
+# output is the fused layout (x over model, y over data under scatter).
+TRACED = (("fused", "psum"), ("pipelined", "scatter"), ("chunked", "scatter"))
 
 
 def gathered_pmats_match(mesh, g, n_steps: int) -> bool:
@@ -96,6 +100,12 @@ def main(rank: int, world: int, init_file: str, work: str) -> None:
             shapes[name] = list(out.shape)
             volumes[name] = assemble_volume(out, mesh, plan.reduce).reshape(
                 g.volume_shape()).numpy()
+        for sched, red in TRACED:
+            plan = ReconstructionPlan(geometry=g, mesh=mesh, device="cpu",
+                                      schedule=sched, reduce=red,
+                                      **SCHEDULES[sched])
+            volumes[f"traced/{sched}/{red}"] = assemble_volume(
+                plan.build_traced()(local), mesh, red).numpy()
         errors = {}
         for key, geom in (("np_ranks", default_geometry(N, n_proj=30)),
                           ("nx_slabs", default_geometry(17, n_proj=N_PROJ))):

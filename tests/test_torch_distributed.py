@@ -249,8 +249,8 @@ def test_mesh_load_is_local_projections(mesh, proj, tmp_path, codec):
                        tdist.local_projections(whole[8:16], mesh))
 
 
-def fold_session(plan, proj, n_deltas=4):
-    sess = plan.build_incremental()
+def fold_session(plan, proj, n_deltas=4, session=None):
+    sess = plan.build_incremental() if session is None else session
     step = G.n_proj // n_deltas
     for lo in range(0, G.n_proj, step):
         delta = proj[lo:lo + step]
@@ -270,6 +270,28 @@ def test_mesh_session_is_bit_equal_to_no_mesh(mesh, proj, impl, reduce):
     plan = tplan.ReconstructionPlan(mesh=mesh, reduce=reduce, **kw)
     got = tdist.assemble_volume(fold_session(plan, proj), mesh, reduce)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("impl,reduce", [("kernel", "scatter"),
+                                         ("factorized", "psum")])
+def test_mesh_traced_engines_are_bit_equal_to_no_mesh(mesh, proj, impl,
+                                                      reduce):
+    """build_traced and the traced session on the (1, 1, 1) mesh: each
+    rank's un-reduced partial crosses the stage seams as a plain tensor,
+    and the volume is bit-equal to mesh=None's traced run."""
+    kw = dict(geometry=G, impl=impl, device="cpu")
+    want = tplan.ReconstructionPlan(**kw).build_traced()(proj)
+    plan = tplan.ReconstructionPlan(mesh=mesh, reduce=reduce, **kw)
+    got = plan.build_traced()(tdist.local_projections(proj, mesh))
+    assert torch.equal(tdist.assemble_volume(got, mesh, reduce), want)
+    kw.update(schedule="incremental", n_steps=4)
+    sessions = [tplan.ReconstructionPlan(**kw).build_traced(),
+                tplan.ReconstructionPlan(mesh=mesh, reduce=reduce,
+                                         **kw).build_traced()]
+    want, got = (fold_session(s.plan, proj, session=s) for s in sessions)
+    assert torch.equal(tdist.assemble_volume(got, mesh, reduce), want)
+    assert set(sessions[1].stage_seconds()) >= {
+        "stage.filter", "stage.allgather", "stage.backproject"}
 
 
 def test_mesh_session_scatter_bf16_within_one_rounding(mesh, proj):

@@ -27,6 +27,7 @@ from repro_torch.kernels.attention import attention_ref, flash_attention
 from repro_torch.kernels.attention import kernel as fak
 from repro_torch.kernels.attention.ref import attention_f64
 from repro_torch.kernels.backproject import kernel as bpk
+from repro_torch.kernels.backproject import tune
 from repro_torch.kernels.backproject.ops import kernel_operands
 from repro_torch.kernels.build import CudaLibrary
 from repro_torch.models import layers
@@ -49,6 +50,15 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda")
+
+
+@pytest.fixture(autouse=True)
+def _hermetic_caches(tmp_path, monkeypatch):
+    """The tuning and calibration files under the test's directory (this
+    file runs without the JAX conftest, which does that for the CPU
+    suite)."""
+    monkeypatch.setenv("REPRO_TUNE_CACHE", str(tmp_path / "tune.json"))
+    monkeypatch.setenv("REPRO_CALIB_CACHE", str(tmp_path / "calib.json"))
 
 
 @pytest.mark.parametrize("codec", sorted(CODECS))
@@ -116,6 +126,99 @@ def test_direct_gather_matches_plain_version(cuda, codec):
     torch.cuda.synchronize()
     assert int(bpk.direct_pairs) == nonempty > 0
     assert float((got - want).abs().max() / want.abs().max()) <= REL
+
+
+# -- launch shapes: the compiled tiles, the staging model, the tuner ---------
+
+@pytest.mark.parametrize("stage_bytes", [None, 0, 2048])
+@pytest.mark.parametrize("t", bpk.TILES)
+@pytest.mark.parametrize("codec", sorted(CODECS))
+def test_every_tile_matches_plain_version(cuda, codec, t, stage_bytes):
+    """Every compiled tile, at the default staging, none and a small one:
+    the plain version's sums, and as many direct gathers as the tuner's
+    staging model (kernel.staging_stats) counts."""
+    params, qt = _edge_operands(cuda, codec)
+    got = bpk.backproject_dual(params, qt, *SHAPE, tile=t,
+                               stage_bytes=stage_bytes)
+    want = bpk.backproject_dual_torch(params, qt, *SHAPE)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max() / want.abs().max()) <= REL
+    model = bpk.staging_stats(params, G.n_u, G.n_v, G.n_x, G.n_y,
+                              G.n_z // 2, t, stage_bytes, qt.dtype)
+    assert int(bpk.direct_pairs) == model["direct"]
+    assert bpk.tile_pairs == model["pairs"]
+
+
+def test_compiled_tiles_and_shared_memory_model(cuda):
+    assert bpk.tiles() == bpk.TILES and bpk.tile() == bpk.DEFAULT_TILE
+    assert bpk.smem_optin(cuda) >= 48 * 1024
+    for dtype in bpk.WIRE_DTYPES:
+        for t in bpk.TILES:
+            assert bpk.compiled_static_smem(dtype, t) == \
+                bpk.static_smem_bytes(t)
+    params, qt = _edge_operands(cuda, "fp32")
+    with pytest.raises(ValueError, match="not compiled"):
+        bpk.backproject_dual(params, qt, *SHAPE, tile=(8, 8, 16))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        bpk.backproject_dual(params, qt, *SHAPE, stage_bytes=1 << 20)
+
+
+@pytest.mark.parametrize("codec", ["fp32", "fp16"])
+def test_measured_autotune_times_compiled_tiles(cuda, codec):
+    pm = torch.as_tensor(projection_matrices(G), device=cuda)
+    dtype = {"fp32": torch.float32, "fp16": torch.float16}[codec]
+    tune.clear_cache()
+    best = tune.autotune(G.n_x, G.n_y, G.n_z, pm, G.n_u, G.n_v,
+                         qt_dtype=dtype, measure=True, max_measure=3)
+    assert best.elapsed > 0 and best.tile in bpk.TILES
+    assert best.smem <= tune.default_budget(cuda)
+    # a measured winner satisfies the next unmeasured request, also
+    # from the file after the memo is dropped
+    tune.clear_cache()
+    hits = tune.file_cache_hits()
+    again = tune.autotune(G.n_x, G.n_y, G.n_z, pm, G.n_u, G.n_v,
+                          qt_dtype=dtype)
+    assert again == best and tune.file_cache_hits() == hits + 1
+
+
+@pytest.mark.parametrize("codec", ["fp32", "fp16"])
+def test_build_traced_matches_build_on_the_card(cuda, codec):
+    from repro_torch.obs.trace import Tracer, set_tracer
+    proj = forward_project(G16, device=cuda)
+    plan = ReconstructionPlan(geometry=G16, impl="kernel", precision=codec)
+    want = plan.build()(proj)
+    prev = set_tracer(Tracer(enabled=True))
+    try:
+        before = bpk.launches
+        got = plan.build_traced()(proj)
+        torch.cuda.synchronize()
+        tracer = set_tracer(prev)
+    finally:
+        set_tracer(prev)
+    assert bpk.launches == before + 1 and got.device.type == "cuda"
+    assert float((got - want).abs().max() / want.abs().max()) <= REL
+    stages = {e["name"] for e in tracer.spans("stage.")}
+    assert stages == {"stage.filter", "stage.allgather",
+                      "stage.backproject", "stage.reduce"}
+    inc = dataclasses.replace(plan, schedule="incremental", n_steps=4)
+    sess = inc.build_traced()
+    for lo in range(0, 16, 4):
+        vol = sess.update(proj[lo:lo + 4], (lo, lo + 4), finalize=lo == 12)
+    assert float((vol - want).abs().max() / want.abs().max()) <= REL
+    assert sess.stage_seconds()["stage.backproject"] > 0
+
+
+def test_auto_plan_on_the_card_admits_the_kernel(cuda):
+    from repro_torch.core.plan import plan_from_spec
+    from repro_torch.planner import admitted_impls, search_plans
+    assert admitted_impls(None, "cuda") == ("factorized", "kernel")
+    props = search_plans(G16, None, top_k=None, calibration=None)
+    assert {p.point.impl for p in props} == {"factorized", "kernel"}
+    plan = plan_from_spec(G16, "auto,impl=kernel")
+    assert plan.impl == "kernel" and plan.device == "cuda"
+    vol = plan.build()(forward_project(G16, device=cuda))
+    torch.cuda.synchronize()
+    assert vol.shape == G16.volume_shape() and bool(vol.isfinite().all())
 
 
 # The mesh engine's launch shapes: an x-slab (N_x/2 columns, P shifted to

@@ -106,6 +106,19 @@ def test_mesh_matches_jax_single_device(mesh_run, jax_f32, impl, schedule,
     assert err < MAX_ABS, f"{impl}/{schedule}/{reduce}: {err:.3e}"
 
 
+@pytest.mark.parametrize("schedule,reduce", [("fused", "psum"),
+                                             ("pipelined", "scatter"),
+                                             ("chunked", "scatter")])
+def test_traced_engine_on_mesh(mesh_run, jax_f32, schedule, reduce):
+    """build_traced on eight ranks (the fused stage decomposition of each
+    schedule; each rank's P in the AllGather's column order) against the
+    JAX package's single-device volume."""
+    _, _, vols, _ = mesh_run
+    err = float(np.max(np.abs(vols[f"traced/{schedule}/{reduce}"]
+                              - jax_f32)))
+    assert err < MAX_ABS, f"traced/{schedule}/{reduce}: {err:.3e}"
+
+
 @pytest.mark.parametrize("schedule", SCHEDULES)
 def test_scatter_bf16_on_mesh(mesh_run, jax_f32, schedule):
     """Half-width reduce on a real 2-rank data axis: within the bf16 bound

@@ -8,6 +8,7 @@ events, prefix views and stage totals; exports have the same keys; a named
 own fencing (CUDA events; nothing to wait for on the CPU) and the
 engine span of `build()` are checked here too.
 """
+import dataclasses
 import json
 import threading
 import time
@@ -259,9 +260,91 @@ def test_engine_span_matches_the_reference():
 
 
 def test_attribution_waits_for_its_item():
-    with pytest.raises(NotImplementedError, match="item 22"):
-        tobs.attribution
-    with pytest.raises(NotImplementedError, match="item 22"):
-        from repro_torch.obs import attribution  # noqa: F401
+    """obs.attribution is ported: the port exports what the reference's
+    obs package exports, attribution among them."""
+    from repro_torch.obs import attribution
+    assert tobs.attribution is attribution
     assert set(tobs.__all__) == set(__import__(
-        "repro.obs", fromlist=["__all__"]).__all__) - {"attribution"}
+        "repro.obs", fromlist=["__all__"]).__all__)
+    assert attribution.__all__ == __import__(
+        "repro.obs.attribution", fromlist=["__all__"]).__all__
+
+
+# ---------------------------------------------------------------------------
+# obs.attribution: predicted-vs-measured rows, against the reference's
+# ---------------------------------------------------------------------------
+
+def _stage_events(seconds):
+    """A Perfetto event list with one complete span per (stage, seconds),
+    plus spans attribution ignores."""
+    events, ts = [], 0.0
+    for name, secs in seconds:
+        events.append({"ph": "X", "name": name, "ts": ts, "dur": secs * 1e6,
+                       "pid": 1, "tid": 1, "args": {}})
+        ts += secs * 1e6
+    events.append({"ph": "X", "name": "engine.traced", "ts": 0.0,
+                   "dur": ts, "pid": 1, "tid": 1, "args": {}})
+    events.append({"ph": "i", "name": "stage.mark", "ts": 0.0, "pid": 1,
+                   "tid": 1, "s": "t"})
+    return events
+
+
+STAGE_RUN = [("stage.read", 0.02), ("stage.filter", 0.004),
+             ("stage.allgather", 0.001), ("stage.backproject", 0.03),
+             ("stage.backproject", 0.01), ("stage.reduce", 0.002)]
+
+
+@pytest.mark.parametrize("form", ["list", "dict"])
+@pytest.mark.parametrize("plan_kw", [
+    {}, {"schedule": "pipelined", "n_steps": 2, "precision": "bf16"},
+    {"impl": "kernel", "precision": "fp8_e4m3"}])
+def test_attribution_compare_matches_reference(form, plan_kw):
+    from repro.obs import attribution as jattr
+    from repro_torch.obs import attribution as tattr
+    events = _stage_events(STAGE_RUN)
+    trace = {"traceEvents": events} if form == "dict" else events
+    jg = jdefault_geometry(16, n_proj=8)
+    want = jattr.compare(jplan.ReconstructionPlan(geometry=jg, **plan_kw),
+                         trace)
+    got = tattr.compare(tplan.ReconstructionPlan(
+        geometry=default_geometry(16, n_proj=8), device="cpu", **plan_kw),
+        trace)
+    assert [dataclasses.astuple(r) for r in got] == \
+        [dataclasses.astuple(r) for r in want]
+    assert [r.error for r in got] == [r.error for r in want]
+    assert tattr.aggregate_error(got) == jattr.aggregate_error(want)
+    assert tattr.render_report(got) == jattr.render_report(want)
+    assert tattr.stage_totals(trace) == jattr.stage_totals(trace)
+    assert tattr.STAGE_FIELDS == jattr.STAGE_FIELDS
+
+
+def test_attribution_reads_the_ports_tracer():
+    from repro_torch.core.perf_model import H100
+    from repro_torch.obs import attribution as tattr
+    from repro_torch.planner import CalibrationStore
+    tracer = ttrace.Tracer(enabled=True)
+    for name, secs in STAGE_RUN:
+        with tracer.span(name):
+            time.sleep(secs / 10)
+    totals = tattr.stage_totals(tracer)
+    assert totals["stage.backproject"]["n"] == 2
+    assert set(totals) == {n for n, _ in STAGE_RUN}
+    plan = tplan.ReconstructionPlan(geometry=default_geometry(16, n_proj=8),
+                                    device="cpu")
+    rows = tattr.compare(plan, tracer, H100)
+    by = {r.stage: r for r in rows}
+    assert [r.stage for r in rows] == list(tattr.STAGE_FIELDS)
+    assert by["stage.reduce"].error is None          # C == 1: predicted 0
+    assert by["stage.write"].n_spans == 0
+    assert by["stage.backproject"].measured_s == pytest.approx(
+        totals["stage.backproject"]["seconds"])
+    store = CalibrationStore()
+    store.record_traced_run(plan, {r.stage: r.measured_s for r in rows},
+                            H100)
+    cal = store.fit(H100, min_samples=1)
+    calibrated = {r.stage: r for r in tattr.compare(plan, tracer, H100,
+                                                    calibration=cal)}
+    # a fit to this one run moves every fitted stage's prediction onto it
+    for stage in ("stage.filter", "stage.read"):
+        assert calibrated[stage].error == pytest.approx(0.0, abs=1e-9)
+    assert tattr.aggregate_error(rows) > 0

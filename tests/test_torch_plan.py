@@ -32,6 +32,7 @@ from repro_torch.core import fdk as tfdk
 from repro_torch.core import geometry as tgeo
 from repro_torch.core import phantom as tph
 from repro_torch.core import plan as tplan
+from repro_torch.kernels.backproject import kernel as tbpk
 
 # Tiny shapes gain nothing from intra-op threads, and the suite runs several
 # test workers on one host: one thread each keeps them from contending.
@@ -100,12 +101,15 @@ def test_plan_from_geometry_dict_and_plan_fields():
 
 
 def test_plan_from_reference_rejects_what_is_not_ported():
+    """A pinned Pallas block or VMEM budget does not carry over to the
+    card's kernel (its launch shape is a Hopper tile and a shared-memory
+    budget, test_torch_tune.py): ValueError, naming why."""
     fields = dataclasses.asdict(
         jplan.ReconstructionPlan(geometry=G, impl="kernel", blocks=(4, 4, 4)))
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(ValueError, match="does not carry over to the card"):
         tplan.plan_from_reference(fields, device="cpu")
     fields = dict(fields, blocks=None, vmem_budget=1 << 20)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(ValueError, match="does not carry over to the card"):
         tplan.plan_from_reference(fields, device="cpu")
     with pytest.raises(ValueError, match="is not the port's mesh"):
         tplan.plan_from_reference(
@@ -198,16 +202,19 @@ def test_the_stateful_and_batched_engines_build(tmp_path):
 
 
 def test_what_this_slice_leaves_out_raises():
+    """Nothing of the plan API raises NotImplementedError any more: the
+    traced engine, the planner's "auto" token and the launch-shape keys
+    are ported; a tile the kernel does not compile is a ValueError."""
     g = tgeo.CBCTGeometry(**dataclasses.asdict(G))
     plan = tplan.ReconstructionPlan(geometry=g, device="cpu")
-    for call, item in [
-            (lambda: plan.build_traced(), "item 22"),
-            (lambda: tplan.plan_from_spec(g, "auto", device="cpu"),
-             "item 22"),
-            (lambda: tplan.plan_from_spec(g, "blocks=4:4:4", device="cpu"),
-             "item 7")]:
-        with pytest.raises(NotImplementedError, match=item):
-            call()
+    assert plan.build_traced()(projections()).shape == g.volume_shape()
+    assert isinstance(tplan.plan_from_spec(g, "auto", device="cpu"),
+                      tplan.ReconstructionPlan)
+    assert tplan.plan_from_spec(g, "impl=kernel,blocks=8:8:32",
+                                device="cpu").blocks == (8, 8, 32)
+    with pytest.raises(ValueError, match="not a compiled tile"):
+        tplan.plan_from_spec(g, "impl=kernel,blocks=4:4:4",
+                             device="cpu").validate()
 
 
 def test_plan_from_spec_describe_and_engine_cache():
@@ -215,10 +222,13 @@ def test_plan_from_spec_describe_and_engine_cache():
     plan = tplan.plan_from_spec(
         g, "schedule=chunked, n_steps=2, y_chunks=2, precision=half",
         device="cpu", impl="kernel")
+    launch = plan.resolved_launch()
+    assert launch[0] in tbpk.TILES
     assert plan.describe() == {
         "schedule": "chunked", "impl": "kernel", "window": "ramlak",
         "precision": "fp16", "grid": (1, 1), "n_steps": 2, "y_chunks": 2,
-        "reduce": "psum", "device": "cpu"}
+        "reduce": "psum", "device": "cpu", "blocks": launch[0],
+        "stage_bytes": launch[1]}
     with pytest.raises(ValueError, match="did you mean 'schedule=pipelined'"):
         tplan.plan_from_spec(g, "pipelned")
     with pytest.raises(ValueError, match="unknown plan spec key"):
