@@ -16,7 +16,7 @@ Phases, in order; any failure exits non-zero:
 3. Back-projection kernel vs plain version: the kernel against its plain
    torch version on the same encoded stream, for all five codecs, at the
    full 512^3 width on the first 32 RabbitCT projections, at
-   default_geometry(64), and at the 2 x 2 mesh's call shapes (phase 17):
+   default_geometry(64), and at the 2 x 2 mesh's call shapes (phase 20):
    each x-slab of 256 with P shifted as the mesh shifts it, and each of its
    four y-chunks, on every 8th projection of each data rank's half.
    Max |kernel - plain| / max |plain| <= 1e-5: both read identical wire
@@ -98,10 +98,42 @@ Phases, in order; any failure exits non-zero:
    plan_from_spec(g, "auto") (stock and calibrated) and auto_plan(...,
    measure=True) at RabbitCT: the plan picked, predicted beside measured
    seconds, whether impl="kernel" was admitted, and the picked plan's
-   reconstruction within the RMSE gate. Each new phase prints its
-   seconds. The tuning and calibration files live in a temporary
-   directory for the run.
-16. Mesh 1 x 1 over NCCL: the mesh engine (`ReconstructionPlan(mesh=...)`,
+   reconstruction within the RMSE gate. Each phase from 11 on prints its
+   seconds. The tuning and calibration files, the stores and the
+   checkpoints live in a temporary directory for the run.
+16. [service] ReconstructionService(device="cuda", max_batch=4) with
+   spec="auto" (the calibration [traced] filled), two rounds of the same
+   traffic: family A pins impl="kernel" and sends the phantom's scan and
+   copies scaled by 1.5 and 0.5 (one bucket of 4 with 1 pad lane); family
+   B pins impl="kernel", precision="fp16" and sends the phantom's scan in
+   memory and [io]'s fp16 ProjectionSource with a VolumeSink. Gates:
+   every ticket DONE; each volume bit-equal to
+   plan_cache.resolve(family).build()(scan); the sink's read() bit-equal
+   to its ticket's volume; the phantom scan's interior RMSE < 0.17;
+   padded_lanes 1 per round; planner searches 2 after both rounds; a
+   service whose hbm_bytes is below one scan's footprint raises
+   AdmissionError and counts it; max_queue=2 raises QueueFullError on the
+   third submit. Printed: seconds per drain beside the warm single-scan
+   build() seconds of the same scans, the footprint, the bucket capacity
+   under the card's memory and the peak memory, the queue-wait, assembly
+   and time-to-volume means, each bucket's assembly, engine and
+   write-behind spans, the source load's seconds under an engine span
+   (prefetch overlapping compute), and a pad lane's seconds.
+17. [serve-loop] serve(), 4 family-A submits with deadline_s = 4 x the
+   measured per-scan seconds, wait(timeout=120), shutdown(): every ticket
+   DONE and bit-equal as above, and the mean time-to-volume at least one
+   scan's seconds (DONE waits for the card); SLO met/missed, scans/hour,
+   loop passes and errors.
+18. [resumable] ResumableReconstruction over 8 micro-batches of 62
+   projections; each step folds its batch through the kernel with the
+   streaming session's stage() and fold into a 512^3 f32 accumulator on
+   the card. A CheckpointManager in the run's temporary directory,
+   checkpoint_every=2, fail_at=5; a fresh instance resume()s. Gates: the
+   cursor resumes at 4; the resumed result bit-equal to an uninterrupted
+   run; after fdk_scale within 1e-5 of the max of the fused build()
+   volume. Printed: seconds and GB/s of each save (512 MiB) and of the
+   restore; the StragglerMonitor over the uninterrupted run's 8 steps.
+19. Mesh 1 x 1 over NCCL: the mesh engine (`ReconstructionPlan(mesh=...)`,
    core/plan.py) on a (pod, data, model) = (1, 1, 1) mesh over a world of
    one, at RabbitCT, fp32 and fp16: fused/psum, pipelined (4 steps)/
    scatter, chunked (2 steps x 4 y-chunks)/psum and /scatter_bf16. Seconds
@@ -114,7 +146,7 @@ Phases, in order; any failure exits non-zero:
    mesh=None session, scatter_bf16 within 4 * 2^-8 of psum's; and
    build_traced() and the traced session (fp32, psum) bit-equal to
    mesh=None's.
-17. Mesh 2 x 2 on one card: first the references on one device, fp32:
+20. Mesh 2 x 2 on one card: first the references on one device, fp32:
    the mesh=None engine (the kernel), and the plain version over all 496
    projections, once for the whole volume and once slab by slab with P
    shifted as the 2-slab mesh shifts it. The kernel's volume within 1e-5
@@ -129,9 +161,15 @@ Phases, in order; any failure exits non-zero:
    shifted volume, and within the witness + 2e-5 of the mesh=None volume
    (the triangle through the two plain volumes); 4 * 2^-8 for
    scatter_bf16, both. The library is built before the ranks start.
-18. backproject_mxu against the factorized oracle at default_geometry(32)
+   After fused/psum each rank saves its slab as a sharded checkpoint,
+   save_checkpoint(dir, 1, {"vol": snapshot(part, mesh, spec)}) with the
+   engine's spec (x over model, replicated over data), and loads it back
+   with mesh=, its own part bit-equal; this process then loads it with
+   mesh=None, bit-equal to the assembled volume. Printed: seconds, and the
+   shard files each load opened.
+21. backproject_mxu against the factorized oracle at default_geometry(32)
    on the card, within the reference's own bound (rtol 1e-4, atol 1e-6).
-19. Attention kernel vs plain version at the serving shapes (4 requests x 12
+22. Attention kernel vs plain version at the serving shapes (4 requests x 12
    heads over 2 KV heads, S = 2048, D = 128, inputs from numpy): f32 causal
    and non-causal within rtol = atol = 2e-5 (the reference kernel's test
    bound), bf16 causal within a max abs difference of 0.02 (its bf16
@@ -140,7 +178,7 @@ Phases, in order; any failure exits non-zero:
    sums sit ~3e-5 from the exact function: the kernel within rtol = atol
    = 2e-5 of the f64 evaluation, and no farther from it than the plain
    version.
-20. Serving path: greedy_generate on full-width Qwen2-1.5B (28 layers,
+23. Serving path: greedy_generate on full-width Qwen2-1.5B (28 layers,
    random weights from a seeded generator) for 4 requests x 2048-token
    prompts and 32 greedy steps, s_max = 2080. Prefill seconds, decode ms per
    step, tokens/s, peak device memory, attention-kernel launches (exactly
@@ -148,18 +186,19 @@ Phases, in order; any failure exits non-zero:
    kernel path against the plain attention step on the card (bf16 and f32
    prefill logits), and decode_step's logits at position 2048 against a
    prefill over the prompt plus that token (see `serving`).
-21. Attention kernel time at the serving shape (CUDA events over 20 launches
+24. Attention kernel time at the serving shape (CUDA events over 20 launches
    after a warm-up) for bf16 and f32, beside the bound (for f32 the 3xTF32
    bound, three TF32 products per product at the dense TF32 rate, and the
    f32 cores' beside it), the plain version's time and torch's
    scaled_dot_product_attention on the same tensors with its max distance
    from the plain version (the library yardstick; the port never calls
    it).
-22. The `kernels` JSON line (each kernel with the PR of its design; the
+25. The `kernels` JSON line (each kernel with the PR of its design; the
    back-projector's launches sum every path that runs it: phases 4, 7-10,
-   12, 14, 15, 16 and 17's ranks, each counted from 0 just before the
-   path), the card's name and power limit, and last `{"ok": true,
-   "device": {...}}`.
+   12, 14-18, 19 and 20's ranks, each counted from 0 just before the
+   path; a path on another wire type's instantiation, such as the auto
+   plan's, is printed beside it), the card's name and power limit, and
+   last `{"ok": true, "device": {...}}`.
 
 The RabbitCT geometry is the public back-projection benchmark's size (496
 projections of 1248 x 960 pixels into 512^3; Rohkohl et al., Med. Phys.
@@ -880,10 +919,11 @@ def store_bytes(path: str) -> int:
                if f.endswith(".bin"))
 
 
-def io_phase(dev, g, proj) -> tuple:
-    """Phase [io]: an fp16-encoded projection store, then build(source=,
-    sink=)() and the volume read back. Returns the kernel's launches
-    (fp32 plan) and the store's read and write rates in bytes/s."""
+def io_phase(dev, g, proj, work: str) -> tuple:
+    """Phase [io]: an fp16-encoded projection store (WORK/io-proj, which
+    [service] serves again), then build(source=, sink=)() and the volume
+    read back. Returns the kernel's launches (fp32 plan) and the store's
+    read and write rates in bytes/s."""
     import torch
 
     from repro_torch.core.plan import ReconstructionPlan
@@ -894,9 +934,9 @@ def io_phase(dev, g, proj) -> tuple:
 
     sync = torch.cuda.synchronize
     plan = ReconstructionPlan(geometry=g, impl="kernel", precision="fp32")
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
         t0 = time.perf_counter()
-        src = ProjectionSource.write(os.path.join(tmp, "proj"), proj,
+        src = ProjectionSource.write(os.path.join(work, "io-proj"), proj,
                                      codec="fp16")
         t_put = time.perf_counter() - t0
         in_bytes = store_bytes(src.path)
@@ -1355,8 +1395,358 @@ def auto_phase(g, proj, phantom) -> dict:
     return launches
 
 
+def count_launches(svc, plans: dict, launches: dict) -> None:
+    """Tally the back-projector's launches per codec of each bucket's plan
+    while `svc` serves: the wrapper's count read at the bucket's ends."""
+    from repro_torch.kernels.backproject import kernel as bpk
+
+    serve_bucket = svc._serve_bucket
+
+    def counted(bucket, *args):
+        n0 = bpk.launches
+        try:
+            return serve_bucket(bucket, *args)
+        finally:
+            codec = plans[bucket.family].resolved_precision().storage
+            launches[codec] = launches.get(codec, 0) + bpk.launches - n0
+
+    svc._serve_bucket = counted
+
+
+def spans_s(spans: list) -> list:
+    """The durations of trace events, in seconds."""
+    return [round(s["dur"] / 1e6, 4) for s in spans]
+
+
+def overlap_s(spans: list, others: list) -> float:
+    """Seconds during which a span of `spans` and one of `others` both ran
+    (trace events, µs)."""
+    total = 0.0
+    for a in spans:
+        for b in others:
+            lo = max(a["ts"], b["ts"])
+            hi = min(a["ts"] + a["dur"], b["ts"] + b["dur"])
+            total += max(0.0, hi - lo) / 1e6
+    return total
+
+
+def service_phase(g, proj, phantom, work: str) -> tuple:
+    """Phase 16 [service]: ReconstructionService(device="cuda",
+    max_batch=4) with spec="auto" serving two rounds of family A (impl=
+    "kernel": 3 in-memory scans, one bucket of 4 with 1 pad lane) and
+    family B (impl="kernel", precision="fp16": an in-memory scan, and
+    [io]'s fp16 ProjectionSource with a VolumeSink). Returns (the
+    service, the kernel's launches per codec of the two drains, the family
+    A plan's warm seconds per scan)."""
+    import torch
+
+    from repro_torch.io.streams import ProjectionSource, VolumeSink
+    from repro_torch.kernels.backproject import kernel as bpk
+    from repro_torch.obs.trace import Tracer, set_tracer
+    from repro_torch.planner import plan_footprint, point_from_plan
+    from repro_torch.service import (
+        AdmissionError, QueueFullError, ReconstructionService, TicketState)
+
+    sync = torch.cuda.synchronize
+    t_phase = time.perf_counter()
+    src = ProjectionSource(os.path.join(work, "io-proj"))
+    scans_a = [proj, proj * 1.5, proj * 0.5]
+    pins_a = {"impl": "kernel"}
+    pins_b = {"impl": "kernel", "precision": "fp16"}
+    svc = ReconstructionService(device="cuda", max_batch=4)
+    total = torch.cuda.get_device_properties(0).total_memory
+    if svc.hbm_bytes != total:
+        fail(f"service budget {svc.hbm_bytes} is not the card's {total}")
+    launches: dict = {}
+    plans: dict = {}
+    count_launches(svc, plans, launches)
+    drains, seconds_a = [], None
+    for rnd in (1, 2):
+        sink = VolumeSink(os.path.join(work, f"service-vol-{rnd}"))
+        tickets = [svc.submit(projections=p, geometry=g, **pins_a)
+                   for p in scans_a]
+        tickets.append(svc.submit(projections=proj, geometry=g, **pins_b))
+        tickets.append(svc.submit(source=src, geometry=g, sink=sink,
+                                  **pins_b))
+        for t in tickets:
+            plans.setdefault(t.family, svc.plan_cache.resolve(t.family))
+        st0 = svc.stats()
+        tracer = Tracer(enabled=True)
+        prev = set_tracer(tracer)
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        bpk.launches = 0
+        t0 = time.perf_counter()
+        try:
+            svc.drain()
+            sync()
+        finally:
+            set_tracer(prev)
+        dt = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        n_launch = bpk.launches
+        st = svc.stats()
+        bad = [t.scan_id for t in tickets if t.state is not TicketState.DONE]
+        if bad:
+            fail(f"service round {rnd}: tickets {bad} not DONE: "
+                 f"{[repr(t.error) for t in tickets if t.error]}")
+        # what the drain is compared with: each scan through its family
+        # plan's warm build()
+        loaded = src.load(device="cuda")
+        inputs = scans_a + [proj, loaded]
+        single, same = [], []
+        for p, t in zip(inputs, tickets):
+            fn = plans[t.family].build()
+            fn(p)
+            sync()
+            t1 = time.perf_counter()
+            vol = fn(p)
+            sync()
+            single.append(time.perf_counter() - t1)
+            same.append(torch.equal(vol, t.result()))
+            del vol
+        same_sink = torch.equal(sink.read(), tickets[-1].result().cpu())
+        rmse = interior_rmse(tickets[0].result(), phantom)
+        loads = [s for s in tracer.spans("io.prefetch.load")
+                 if s["dur"] > 1e3]
+        engines = tracer.spans("engine.batched")
+        assembly = tracer.spans("service.bucket.assemble")
+        writes = tracer.spans("io.writeback.write")
+        lat = st["latency"]
+        print(f"[service] round {rnd}: drain {dt:.4f} s for 5 scans in "
+              f"{st['buckets'] - st0['buckets']} buckets beside "
+              f"{sum(single):.4f} s of warm single-scan build() "
+              f"({', '.join(f'{s:.4f}' for s in single)}); kernel launches "
+              f"{n_launch}; padded lanes {st['padded_lanes'] - st0['padded_lanes']}; "
+              f"volumes bit-equal to plan_cache.resolve(family).build()"
+              f"(scan): {same}; sink read() bit-equal: {same_sink}; "
+              f"phantom scan interior RMSE {rmse:.4f} (bound {RMSE_BOUND}); "
+              f"peak {peak / 2**30:.2f} GiB")
+        print(f"[service] round {rnd}: means queue-wait "
+              f"{lat['queue_wait']['mean']:.4f} s, bucket assembly "
+              f"{lat['bucket_assembly']['mean']:.4f} s, time-to-volume "
+              f"{lat['time_to_volume']['mean']:.4f} s (cumulative); per "
+              f"bucket: assembly {spans_s(assembly)} s, engine "
+              f"{spans_s(engines)} s; the sink's write-behind "
+              f"{spans_s(writes)} s; the source load {spans_s(loads)} s on "
+              f"the prefetch thread, {overlap_s(loads, engines):.4f} s of it "
+              f"under an engine span (loads overlapped compute: "
+              f"{overlap_s(loads, engines) > 0})")
+        if not (all(same) and same_sink):
+            fail(f"service round {rnd}: a volume is not bit-equal")
+        if not rmse < RMSE_BOUND:
+            fail(f"service round {rnd}: RMSE {rmse:.4f} >= {RMSE_BOUND}")
+        pads = st["padded_lanes"] - st0["padded_lanes"]
+        if pads != 1:
+            fail(f"service round {rnd}: {pads} padded lanes, expected 1")
+        if n_launch < 1:
+            fail(f"service round {rnd} did not launch the kernel")
+        drains.append(dt)
+        seconds_a = single[:3]
+        del tickets, inputs, loaded
+    del svc._serve_bucket   # the class's method again: counting ends
+    st = svc.stats()
+    if st["plan_cache"]["searches"] != 2:
+        fail(f"service: {st['plan_cache']['searches']} planner searches "
+             "for 2 families")
+    fam_a = next(f for f in plans if dict(f.pins) == pins_a)
+    plan_a = plans[fam_a]
+    fp = plan_footprint(g, point_from_plan(plan_a)).total
+    cap = svc._bucket_capacity(fam_a, plan_a)
+    fn = plan_a.build()
+    pad = torch.zeros_like(proj)
+    fn(pad)
+    sync()
+    t1 = time.perf_counter()
+    fn(pad)
+    sync()
+    t_pad = time.perf_counter() - t1
+    del pad, fn
+    print(f"[service] family A plan {plan_a.describe()}; family B plan "
+          f"{plans[next(f for f in plans if f is not fam_a)].describe()}; "
+          f"plan_cache {st['plan_cache']}; per-scan footprint "
+          f"{fp / 2**30:.3f} GiB, bucket capacity {cap} under the card's "
+          f"{total / 2**30:.2f} GiB (max_batch 4), capacity x footprint "
+          f"{cap * fp / 2**30:.2f} GiB; a pad lane (build() of zeros) "
+          f"{t_pad:.4f} s; kernel launches per codec {launches}")
+    # the two rejections
+    low = ReconstructionService(device="cuda", hbm_bytes=fp - 1)
+    try:
+        low.submit(projections=proj, geometry=g, **pins_a)
+        fail("service: a scan over the budget was admitted")
+    except AdmissionError as e:
+        rejected = low.stats()["rejected"]
+        print(f"[service] hbm_bytes = footprint - 1: AdmissionError "
+              f"({str(e)[:90]}...), rejected {rejected}")
+        if rejected != 1:
+            fail(f"service: {rejected} rejections counted, expected 1")
+    finally:
+        low.close()
+    small = ReconstructionService(device="cuda", max_queue=2)
+    try:
+        for _ in range(2):
+            small.submit(projections=proj, geometry=g, **pins_a)
+        small.submit(projections=proj, geometry=g, **pins_a)
+        fail("service: a third submit to max_queue=2 was queued")
+    except QueueFullError:
+        print(f"[service] max_queue=2: the third submit raised "
+              f"QueueFullError, rejected {small.stats()['rejected']}, "
+              f"queued {small.queued}")
+    finally:
+        small.close()
+    print(f"[service] drains {[round(d, 4) for d in drains]} s; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return svc, launches, seconds_a
+
+
+def serve_loop_phase(svc, g, proj, seconds_a: list) -> dict:
+    """Phase 17 [serve-loop]: serve(), 4 family-A submits with deadline_s
+    = 4 x the measured per-scan seconds, ticket.wait(timeout=120),
+    shutdown(). Returns the kernel's launches per codec."""
+    import torch
+
+    from repro_torch.kernels.backproject import kernel as bpk
+    from repro_torch.service import TicketState
+
+    t_phase = time.perf_counter()
+    scans = [proj, proj * 1.5, proj * 0.5, proj]
+    per_scan = sum(seconds_a) / len(seconds_a)
+    deadline = 4 * per_scan
+    st0 = svc.stats()
+    bpk.launches = 0
+    t0 = time.perf_counter()
+    svc.serve()
+    tickets = [svc.submit(projections=p, geometry=g, impl="kernel",
+                          deadline_s=deadline) for p in scans]
+    waited = [t.wait(timeout=120) for t in tickets]
+    wall = time.perf_counter() - t0
+    svc.shutdown()
+    n_launch = bpk.launches
+    st = svc.stats()
+    if not all(waited) or any(t.state is not TicketState.DONE
+                              for t in tickets):
+        fail(f"serve-loop: tickets {[t.state for t in tickets]}, waited "
+             f"{waited}: {[repr(t.error) for t in tickets if t.error]}")
+    plan = svc.plan_cache.resolve(tickets[0].family)
+    fn = plan.build()
+    same = [torch.equal(fn(p), t.result()) for p, t in zip(scans, tickets)]
+    met = st["slo"]["met"] - st0["slo"]["met"]
+    missed = st["slo"]["missed"] - st0["slo"]["missed"]
+    ttv, ttv0 = st["latency"]["time_to_volume"], st0["latency"][
+        "time_to_volume"]
+    ttv_mean = (ttv["sum"] - ttv0["sum"]) / (ttv["count"] - ttv0["count"])
+    print(f"[serve-loop] 4 submits, deadline_s {deadline:.4f} (4 x "
+          f"{per_scan:.4f} s per scan): {wall:.4f} s from serve() to the "
+          f"last wait(), {4 / wall * 3600:.0f} scans/hour; mean "
+          f"time-to-volume {ttv_mean:.4f} s; SLO met {met}, "
+          f"missed {missed}, attainment {met / (met + missed):.2f}; loop "
+          f"passes {st['loop']['passes']}, errors {st['loop']['errors']}; "
+          f"buckets {st['buckets'] - st0['buckets']}, padded lanes "
+          f"{st['padded_lanes'] - st0['padded_lanes']}; kernel launches "
+          f"{n_launch}; volumes bit-equal to build(): {same}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    if not all(same):
+        fail("serve-loop: a volume is not bit-equal to build()")
+    if not ttv_mean >= per_scan:
+        fail(f"serve-loop: mean time-to-volume {ttv_mean:.4f} s is shorter "
+             f"than one scan's {per_scan:.4f} s: DONE before the card "
+             "finished")
+    if n_launch < 1 or st["loop"]["errors"]:
+        fail(f"serve-loop: {n_launch} launches, {st['loop']['errors']} "
+             "loop errors")
+    return {plan.resolved_precision().storage: n_launch}
+
+
+def resumable_phase(g, proj, work: str) -> dict:
+    """Phase 18 [resumable]: ResumableReconstruction over 8 micro-batches
+    of 62 projections, each folded through the kernel by the streaming
+    session's stage and fold into a 512^3 f32 accumulator on the card;
+    checkpointed every 2 batches, failed at batch 5, resumed by a fresh
+    instance. Returns the kernel's launches per codec (fp32)."""
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core.fdk import fdk_scale
+    from repro_torch.core.plan import ReconstructionPlan
+    from repro_torch.kernels.backproject import kernel as bpk
+    from repro_torch.runtime import ResumableReconstruction, StragglerMonitor
+
+    sync = torch.cuda.synchronize
+    t_phase = time.perf_counter()
+    n = g.n_proj // N_STEPS
+    sess = ReconstructionPlan(geometry=g, impl="kernel", precision="fp32",
+                              schedule="incremental",
+                              n_steps=N_STEPS).build_incremental()
+
+    def step(acc, b):
+        s = sess.stage(proj[b * n:(b + 1) * n], (b * n, (b + 1) * n))
+        sess._acc = acc
+        sess._fold(s.pm_col, s.q_col, s.sc_col)
+        return sess._acc
+
+    zeros = torch.zeros(g.volume_shape(), device="cuda")
+    step(zeros, 0)    # warm-up
+    mon = StragglerMonitor()
+    want = ResumableReconstruction(lambda acc, b: mon.timed(step, acc, b)[0],
+                                   zeros, N_STEPS).run()
+    saves, nbytes = [], zeros.numel() * zeros.element_size()
+    with tempfile.TemporaryDirectory(dir=work) as ckdir:
+        mgr = CheckpointManager(ckdir)
+        save = mgr.save
+
+        def timed_save(*args, **kw):
+            t0 = time.perf_counter()
+            save(*args, **kw)
+            saves.append(time.perf_counter() - t0)
+
+        mgr.save = timed_save
+        bpk.launches = 0
+        r1 = ResumableReconstruction(step, zeros, N_STEPS, mgr,
+                                     checkpoint_every=2)
+        try:
+            r1.run(fail_at=5)
+            fail("resumable: the injected failure did not raise")
+        except RuntimeError as e:
+            if "injected" not in str(e):
+                raise
+        r2 = ResumableReconstruction(step, zeros, N_STEPS, mgr,
+                                     checkpoint_every=2)
+        t0 = time.perf_counter()
+        r2.resume()
+        sync()
+        t_restore = time.perf_counter() - t0
+        cursor = r2.state.cursor
+        got = r2.run()
+        sync()
+        n_launch = bpk.launches
+    same = torch.equal(got, want)
+    fused = ReconstructionPlan(geometry=g, impl="kernel",
+                               precision="fp32").build()(proj)
+    rel = rel_max(got * fdk_scale(g), fused)
+    hint = mon.rebalance_hint(N_STEPS, 1)
+    print(f"[resumable] {N_STEPS} micro-batches of {n} projections, "
+          f"checkpoint_every=2, fail_at=5: resumed at cursor {cursor}; "
+          f"kernel launches {n_launch}; resumed result bit-equal to the "
+          f"uninterrupted run: {same}; after fdk_scale vs fused build() "
+          f"{rel:.3e} of the max (bound {REL_TOL:.0e})")
+    print(f"[resumable] saves ({nbytes / 2**20:.0f} MiB + cursor) "
+          f"{[round(s, 4) for s in saves]} s = "
+          f"{[round(nbytes / s / 1e9, 3) for s in saves]} GB/s; restore "
+          f"{t_restore:.4f} s = {nbytes / t_restore / 1e9:.3f} GB/s; step "
+          f"seconds (StragglerMonitor, uninterrupted run) EMA "
+          f"{mon.ema:.4f}, flagged {mon.flagged}, hint {hint}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    if cursor != 4:
+        fail(f"resumable: resumed at cursor {cursor}, expected 4")
+    if not same:
+        fail("resumable: the resumed result is not bit-equal")
+    if not rel <= REL_TOL:
+        fail(f"resumable: {rel:.3e} from fused > {REL_TOL:.0e}")
+    return {"fp32": n_launch}
+
+
 def mesh_one(dev, g, proj) -> dict:
-    """Phase 16: the mesh engine on a world of one over NCCL; returns the
+    """Phase 19: the mesh engine on a world of one over NCCL; returns the
     kernel's launches per codec on the mesh path."""
     import torch
     import torch.distributed as dist
@@ -1617,6 +2007,9 @@ def mesh_rank(rank: int, world: int, work: str) -> None:
                 case["rel"] = {k: float((vol - ref).abs().max()
                                         / ref.abs().max())
                                for k, ref in refs.items()}
+            if not report["cases"]:
+                report["checkpoint"] = mesh_checkpoint(
+                    rank, work, mesh, plan.output_spec(), part, vol)
             report["cases"].append(case)
             del fn, part, vol
             torch.cuda.empty_cache()
@@ -1624,6 +2017,35 @@ def mesh_rank(rank: int, world: int, work: str) -> None:
         dist.destroy_process_group()
         with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
             json.dump(report, f)
+
+
+def mesh_checkpoint(rank: int, work: str, mesh, spec, part, vol) -> dict:
+    """A rank's half of the 2 x 2 phase's checkpoint: save its part as
+    step 1 of WORK/ckpt under `spec`, load it back on the mesh; rank 0
+    also stores the assembled volume for the parent's whole load."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.io import shard_store
+
+    out = {"spec": spec}
+    snap = shard_store.snapshot(part, mesh, spec)
+    dist.barrier()   # the ranks' save seconds from one start
+    t0 = time.perf_counter()
+    save_checkpoint(os.path.join(work, "ckpt"), 1, {"vol": snap})
+    out["save_s"] = time.perf_counter() - t0
+    shard_store.reset_open_count()
+    t0 = time.perf_counter()
+    back = load_checkpoint(os.path.join(work, "ckpt"), 1, {"vol": snap},
+                           mesh=mesh, device="cuda")["vol"]
+    torch.cuda.synchronize()
+    out["load_s"] = time.perf_counter() - t0
+    out["opened"] = shard_store.open_count()
+    out["equal"] = bool(torch.equal(back, part))
+    if rank == 0:
+        torch.save(vol.cpu(), os.path.join(work, "assembled.pt"))
+    return out
 
 
 def plain_reference(g, proj, r: int):
@@ -1659,7 +2081,7 @@ def rel_max(a, b) -> float:
 
 
 def mesh_four(g, proj) -> int:
-    """Phase 17, the 2 x 2 phase: the references on one device, then four
+    """Phase 20, the 2 x 2 phase: the references on one device, then four
     ranks on the one card; returns the kernel launches of all ranks on the
     mesh path."""
     import torch
@@ -1688,10 +2110,11 @@ def mesh_four(g, proj) -> int:
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         results = spawn_ranks(4, work, RANK_DEADLINE_S)
-    for r, (rc, tail, rep) in enumerate(results):
-        if rc != 0 or rep is None or len(rep["cases"]) != len(
-                MESH_FOUR_CASES):
-            fail(f"mesh 2x2 rank {r} exited {rc}:\n{tail}")
+        for r, (rc, tail, rep) in enumerate(results):
+            if rc != 0 or rep is None or len(rep["cases"]) != len(
+                    MESH_FOUR_CASES):
+                fail(f"mesh 2x2 rank {r} exited {rc}:\n{tail}")
+        whole_checkpoint(g, work, [rep["checkpoint"] for _, _, rep in results])
     print(f"[mesh-2x2] 4 ranks (pod, data, model) = {MESH_FOUR_SHAPE}, "
           f"gloo over CUDA tensors, {time.perf_counter() - t0:.1f} s from "
           f"spawn to exit; local projections "
@@ -1724,8 +2147,38 @@ def mesh_four(g, proj) -> int:
     return launches
 
 
+def whole_checkpoint(g, work: str, ranks: list) -> None:
+    """The 2 x 2 phase's checkpoint in this process: the ranks' loads
+    (each its own part, bit-equal), then a load with mesh=None, bit-equal
+    to the assembled volume rank 0 stored."""
+    import torch
+
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.io import shard_store
+
+    shard_store.reset_open_count()
+    t0 = time.perf_counter()
+    whole = load_checkpoint(os.path.join(work, "ckpt"), 1, {
+        "vol": torch.empty(g.volume_shape(), device="meta")},
+        device="cuda")["vol"]
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    opened = shard_store.open_count()
+    same = torch.equal(whole.cpu(), torch.load(
+        os.path.join(work, "assembled.pt")))
+    print(f"[mesh-2x2] checkpoint of fused/psum, spec {ranks[0]['spec']}: "
+          f"save seconds per rank {[round(c['save_s'], 3) for c in ranks]}; "
+          f"load with mesh= per rank {[round(c['load_s'], 3) for c in ranks]}"
+          f" s, shard files opened {[c['opened'] for c in ranks]}, own part "
+          f"bit-equal {[c['equal'] for c in ranks]}; load with mesh=None "
+          f"{t_load:.3f} s, {opened} shard files, bit-equal to the "
+          f"assembled volume: {same}")
+    if not (same and all(c["equal"] for c in ranks)):
+        fail("mesh 2x2 checkpoint: a load is not bit-equal")
+
+
 def mxu_check(dev) -> None:
-    """Phase 18: backproject_mxu against the factorized oracle at
+    """Phase 21: backproject_mxu against the factorized oracle at
     default_geometry(32) on the card."""
     import torch
 
@@ -1807,7 +2260,7 @@ def f32_excess(got, want) -> float:
 
 
 def attention_checks(cfg, dev) -> dict:
-    """Phase 19; returns the max |kernel - plain| per dtype, and the
+    """Phase 22; returns the max |kernel - plain| per dtype, and the
     stressed f32 case's max distances from the f64 evaluation."""
     import torch
 
@@ -1874,7 +2327,7 @@ def plain_attention_step(layers):
 
 
 def serving(cfg, dev) -> dict:
-    """Phase 20; returns the attention kernel's launches per dtype on the
+    """Phase 23; returns the attention kernel's launches per dtype on the
     serving path (bf16: greedy_generate; f32: the f32 prefill)."""
     import torch
 
@@ -2017,7 +2470,7 @@ def logit_checks(cfg, params, tokens, logits_k, cache) -> int:
 
 def attention_timing(cfg, dev, launches: dict, max_abs: dict,
                      stressed: dict) -> list:
-    """Phase 21; returns the attention kernel's entries of the `kernels`
+    """Phase 24; returns the attention kernel's entries of the `kernels`
     line."""
     import torch
     import torch.nn.functional as F
@@ -2101,19 +2554,20 @@ def main() -> int:
               "of a checkout", file=sys.stderr)
         return 2
     sys.path.insert(0, SRC)
-    # The tuning and calibration files live for this run only (the spawned
-    # mesh ranks inherit them).
-    caches = tempfile.mkdtemp(prefix="chip-smoke-caches-")
-    os.environ["REPRO_TUNE_CACHE"] = os.path.join(caches, "tune.json")
-    os.environ["REPRO_CALIB_CACHE"] = os.path.join(caches, "calib.json")
+    # The tuning and calibration files, the stores and the checkpoints
+    # live for this run only (the spawned mesh ranks inherit the files).
+    work = tempfile.mkdtemp(prefix="chip-smoke-")
+    os.environ["REPRO_TUNE_CACHE"] = os.path.join(work, "tune.json")
+    os.environ["REPRO_CALIB_CACHE"] = os.path.join(work, "calib.json")
     try:
-        return run()
+        return run(work)
     finally:
-        shutil.rmtree(caches, ignore_errors=True)
+        shutil.rmtree(work, ignore_errors=True)
 
 
-def run() -> int:
-    """Phases 1-22 (see the module's docstring)."""
+def run(work: str) -> int:
+    """Phases 1-25 (see the module's docstring); stores and checkpoints
+    go under `work`."""
     import torch
 
     from repro_torch.configs import get_config
@@ -2157,7 +2611,7 @@ def run() -> int:
     torch.cuda.empty_cache()
     paths["batched"] = batched(g, proj)
     torch.cuda.empty_cache()
-    n_launch, *io_rates = io_phase(dev, g, proj)
+    n_launch, *io_rates = io_phase(dev, g, proj, work)
     paths["io"] = {"fp32": n_launch, "fp16": 0}
     paths["trace"] = {"fp32": trace_phase(g, proj), "fp16": 0}
     torch.cuda.empty_cache()
@@ -2171,22 +2625,36 @@ def run() -> int:
     machine_spec_phase(g, proj, io_rates, t_filter)
     torch.cuda.empty_cache()
     paths["auto"] = auto_phase(g, proj, phantom)
-    del phantom
     torch.cuda.empty_cache()
 
-    # 16-18. The mesh engine and backproject_mxu -----------------------------
+    # 16-18. The service, its serve loop, the resumable reconstruction -----
+    svc, paths["service"], seconds_a = service_phase(g, proj, phantom, work)
+    del phantom
+    torch.cuda.empty_cache()
+    paths["serve-loop"] = serve_loop_phase(svc, g, proj, seconds_a)
+    svc.close()
+    del svc
+    torch.cuda.empty_cache()
+    paths["resumable"] = resumable_phase(g, proj, work)
+    torch.cuda.empty_cache()
+
+    # 19-21. The mesh engine and backproject_mxu -----------------------------
     paths["mesh 1x1"] = mesh_one(dev, g, proj)
     torch.cuda.empty_cache()
     paths["mesh 2x2, all ranks"] = {"fp32": mesh_four(g, proj), "fp16": 0}
     del proj
     mxu_check(dev)
     for entry, codec in zip(entries, MAIN_PATH_CODECS):
-        entry["launches"] = sum(p[codec] for p in paths.values())
+        entry["launches"] = sum(p.get(codec, 0) for p in paths.values())
         print(f"[kernels] {entry['name']} launches: {entry['launches']} = "
-              + " + ".join(f"{p[codec]} ({name})"
+              + " + ".join(f"{p.get(codec, 0)} ({name})"
                            for name, p in paths.items()))
+    other = {f"{name}, {c}": n for name, p in paths.items()
+             for c, n in p.items() if c not in MAIN_PATH_CODECS and n}
+    print(f"[kernels] back-projector launches on the other wire types' "
+          f"instantiations (no entry of their own): {other}")
 
-    # 19-21. Serving --------------------------------------------------------
+    # 22-24. Serving --------------------------------------------------------
     cfg = get_config("qwen2_1_5b")
     max_abs, stressed = attention_checks(cfg, dev)
     launches = serving(cfg, dev)
@@ -2199,7 +2667,7 @@ def run() -> int:
     if leaked:
         fail(f"the port imported {leaked}")
 
-    # 22. Result -----------------------------------------------------------
+    # 25. Result -----------------------------------------------------------
     print(json.dumps({"kernels": entries}))
     print(f"[device] {smi}")
     print(json.dumps({"ok": True, "device": {

@@ -22,7 +22,8 @@ records for the same layout), and writes only its own shard file, and only
 if it is the first replica of that shard; rank 0 writes the manifest after
 a barrier, so the manifest is the commit point there too.
 
-Read side — `read_region`: for a region in global coordinates, only the
+Read side — `read_region`: for a region in global coordinates (on a mesh,
+`mesh_region` gives this rank's part of a stored spec), only the
 shard files that intersect it are opened (memory-mapped, after a size
 check: truncation by a crashed or out-of-quota writer raises before any
 data is trusted). All corruption paths raise `StoreError` with the
@@ -228,16 +229,38 @@ def snapshot(value, mesh=None, spec: Optional[Sequence] = None):
     """
     if mesh is None:
         return _host_tensor(value)
-    names = list(mesh.mesh_dim_names)
-    sizes = list(mesh.shape)
-    coord = list(mesh.get_coordinate())
     local = tuple(value.shape)
     spec = list(spec or [])
-    if len(spec) > len(local):
+    cuts, owner = _spec_cuts(mesh, spec, len(local))
+    parts = [n for n, _ in cuts]
+    mine = tuple((i * ext, (i + 1) * ext) for ext, (_, i) in zip(local, cuts))
+    shape = tuple(e * n for e, n in zip(local, parts))
+    shards = [(mine, _host_tensor(value))] if owner else []
+    return HostShardedArray(
+        shape=shape, dtype=value.dtype,
+        spec=[list(e) if isinstance(e, (tuple, list)) else e for e in spec],
+        shards=shards, table=_grid(shape, parts),
+        rank=dist.get_rank(), world=dist.get_world_size())
+
+
+def _spec_cuts(mesh, spec: Sequence, ndim: int):
+    """([(pieces, this rank's piece)] per dimension, whether this rank is
+    the first replica of its piece) for `spec` on `mesh`: dimension d is cut
+    over the mesh axes `spec[d]` (a name, a list of names in row-major
+    order, or None; missing trailing entries are None), as
+    `DeviceMesh.get_coordinate()` places the rank."""
+    names = list(mesh.mesh_dim_names)
+    sizes = list(mesh.shape)
+    coord = mesh.get_coordinate()
+    if coord is None:
+        raise ValueError("this rank holds no coordinate in the mesh "
+                         f"{tuple(names)} {tuple(sizes)}")
+    spec = list(spec or [])
+    if len(spec) > ndim:
         raise ValueError(f"spec {spec} has more entries than the "
-                         f"{len(local)} dimensions of the tensor")
-    used, parts, mine = set(), [], []
-    for d, ext in enumerate(local):
+                         f"{ndim} dimensions of the tensor")
+    used, cuts = set(), []
+    for d in range(ndim):
         entry = spec[d] if d < len(spec) else None
         axes = (() if entry is None
                 else (entry,) if isinstance(entry, str) else tuple(entry))
@@ -250,16 +273,25 @@ def snapshot(value, mesh=None, spec: Optional[Sequence] = None):
             k = names.index(a)
             n, i = n * sizes[k], i * sizes[k] + coord[k]
             used.add(a)
-        parts.append(n)
-        mine.append((i * ext, (i + 1) * ext))
-    shape = tuple(e * n for e, n in zip(local, parts))
+        cuts.append((n, i))
     owner = all(c == 0 for a, c in zip(names, coord) if a not in used)
-    shards = [(tuple(mine), _host_tensor(value))] if owner else []
-    return HostShardedArray(
-        shape=shape, dtype=value.dtype,
-        spec=[list(e) if isinstance(e, (tuple, list)) else e for e in spec],
-        shards=shards, table=_grid(shape, parts),
-        rank=dist.get_rank(), world=dist.get_world_size())
+    return cuts, owner
+
+
+def mesh_region(shape: Sequence[int], mesh, spec: Sequence) -> Index:
+    """This rank's region, in global coordinates, of an array of global
+    `shape` laid out on `mesh` by `spec` (see `snapshot`): the part a
+    restarted job reads back on whatever mesh it has."""
+    cuts, _ = _spec_cuts(mesh, spec, len(shape))
+    out = []
+    for dim, (n, i) in zip(shape, cuts):
+        if dim % n:
+            raise ValueError(
+                f"dimension of {dim} does not divide into the {n} pieces "
+                f"spec {list(spec)} cuts it into on this mesh")
+        ext = dim // n
+        out.append((i * ext, (i + 1) * ext))
+    return tuple(out)
 
 
 # ---------------------------------------------------------------------------

@@ -55,6 +55,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from ...device import resolve_device
 from ...filecache import JsonFileCache
 from . import kernel as bpk
 from .kernel import TILES, smem_bytes, staging_stats
@@ -139,10 +140,12 @@ def _file_cache_put(key: tuple, cfg: BlockConfig) -> None:
     _FILE_CACHE.put(key, dataclasses.asdict(cfg))
 
 
-def default_budget(device="cpu") -> int:
+def default_budget(device="cuda") -> int:
     """The per-block shared-memory budget: the card's opt-in maximum for a
-    CUDA device (builds the kernel library), else DEFAULT_SMEM_BUDGET."""
-    device = torch.device(device)
+    CUDA device (builds the kernel library; the default, which raises and
+    names ``device="cpu"`` on a host without one), else
+    DEFAULT_SMEM_BUDGET."""
+    device = resolve_device(device)
     if device.type == "cuda":
         return bpk.smem_optin(device)
     return DEFAULT_SMEM_BUDGET

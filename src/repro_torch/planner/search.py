@@ -238,8 +238,10 @@ def search_plans(g: CBCTGeometry, mesh=None, *,
     return proposals[:top_k]
 
 
-def admitted_impls(calibration=None, device="cpu") -> tuple[str, ...]:
-    """The impl axis auto selection ranks on `device`.
+def admitted_impls(calibration=None, device="cuda") -> tuple[str, ...]:
+    """The impl axis auto selection ranks on `device` (the card by
+    default, as every entry point of the port; a host without one raises
+    and names ``device="cpu"``).
 
     On a CUDA device both deployment impls compete on their analytic
     factors: the hand-written kernel is the deployment target there.

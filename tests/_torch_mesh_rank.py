@@ -1,6 +1,11 @@
-"""One rank of the port's mesh engine for tests/test_torch_mesh.py.
+"""One rank of the port's mesh engine for tests/test_torch_mesh.py, and of
+its sharded checkpoints for tests/test_torch_checkpoint_mesh.py.
 
-    PYTHONPATH=src python tests/_torch_mesh_rank.py RANK WORLD INIT_FILE WORK_DIR
+    PYTHONPATH=src python tests/_torch_mesh_rank.py RANK WORLD INIT_FILE WORK_DIR [MODE]
+
+MODE "checkpoint-save" (4 ranks, (1, 2, 2) mesh) and "checkpoint-load"
+(2 ranks, (1, 1, 2) mesh) are described at `checkpoint_save` and
+`checkpoint_load`; without a MODE:
 
 Joins a gloo process group of WORLD ranks through INIT_FILE, builds the
 (2, 2, 2) (pod, data, model) mesh, reconstructs WORK_DIR/proj.npy for every
@@ -143,5 +148,87 @@ def main(rank: int, world: int, init_file: str, work: str) -> None:
         dist.destroy_process_group()
 
 
+CKPT_LEAVES = {"slab": ["model"], "scattered": ["model", "data"]}
+
+
+def checkpoint_save(rank: int, world: int, init_file: str, work: str) -> None:
+    """Reconstruct WORK_DIR/proj.npy on the (1, 2, 2) mesh (fused, kernel)
+    under psum and under scatter, and save each rank's part as a step-1
+    checkpoint in WORK_DIR/ckpt, with the layout of each leaf's spec in
+    CKPT_LEAVES, plus a host scalar. Each rank then loads the checkpoint
+    back on the same mesh; rank 0 writes the assembled volumes to
+    WORK_DIR/assembled.npz, and each rank whether its loaded parts equal
+    its own and the shard files it opened to WORK_DIR/save_rank<R>.json."""
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.io import shard_store
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = make_mesh((1, 2, 2), MESH_AXES, device_type="cpu")
+        g = default_geometry(N, n_proj=N_PROJ)
+        local = torch.as_tensor(local_projections(
+            np.load(os.path.join(work, "proj.npy")), mesh))
+        parts, volumes = {}, {}
+        for leaf, red in (("slab", "psum"), ("scattered", "scatter")):
+            plan = ReconstructionPlan(geometry=g, mesh=mesh, impl="kernel",
+                                      reduce=red, device="cpu")
+            assert plan.output_spec() == CKPT_LEAVES[leaf]
+            parts[leaf] = plan.build()(local)
+            volumes[leaf] = assemble_volume(parts[leaf], mesh, red).numpy()
+        tree = {"cursor": np.int64(3)}
+        tree.update({k: shard_store.snapshot(v, mesh, CKPT_LEAVES[k])
+                     for k, v in parts.items()})
+        save_checkpoint(os.path.join(work, "ckpt"), 1, tree)
+        shard_store.reset_open_count()
+        back = load_checkpoint(os.path.join(work, "ckpt"), 1, tree,
+                               mesh=mesh, device="cpu")
+        report = {"opened": shard_store.open_count(),
+                  "equal": all(torch.equal(back[k], parts[k])
+                               for k in parts),
+                  "cursor": int(back["cursor"])}
+        if rank == 0:
+            np.savez(os.path.join(work, "assembled.npz"), **volumes)
+        with open(os.path.join(work, f"save_rank{rank}.json"), "w") as f:
+            json.dump(report, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def checkpoint_load(rank: int, world: int, init_file: str, work: str) -> None:
+    """Restore WORK_DIR/ckpt step 1 on a (1, 1, 2) mesh of 2 ranks (an
+    elastic restart from 4): each rank writes the parts it read to
+    WORK_DIR/load_rank<R>.npz and the shard files it opened to
+    WORK_DIR/load_rank<R>.json."""
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.io import shard_store
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = make_mesh((1, 1, 2), MESH_AXES, device_type="cpu")
+        shape = default_geometry(N, n_proj=N_PROJ).volume_shape()
+        like = {"cursor": np.int64(0)}
+        like.update({k: torch.empty(shape, device="meta")
+                     for k in CKPT_LEAVES})
+        shard_store.reset_open_count()
+        out = load_checkpoint(os.path.join(work, "ckpt"), 1, like,
+                              mesh=mesh, device="cpu")
+        np.savez(os.path.join(work, f"load_rank{rank}.npz"),
+                 **{k: v.numpy() for k, v in out.items()})
+        with open(os.path.join(work, f"load_rank{rank}.json"), "w") as f:
+            json.dump({"opened": shard_store.open_count(),
+                       "coord": list(mesh.get_coordinate())}, f)
+    finally:
+        dist.destroy_process_group()
+
+
 if __name__ == "__main__":
-    main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    mode = sys.argv[5] if len(sys.argv) > 5 else "mesh"
+    {"mesh": main, "checkpoint-save": checkpoint_save,
+     "checkpoint-load": checkpoint_load}[mode](
+        int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4])

@@ -530,3 +530,114 @@ def test_kernel_step_refuses_what_its_mask_cannot_express(cuda):
         layers.prefill_attention(cfg.scaled(sliding_window=4), q, k, k, pos)
     with pytest.raises(ValueError, match="0..S-1"):
         layers.prefill_attention(cfg, q, k, k, pos + 3)
+
+
+# -- the service, checkpoints and the resumable reconstruction on the card
+
+def test_service_lanes_bit_equal_to_build_on_the_card(cuda, tmp_path):
+    """3 in-memory scans and a stored fp16 scan with a sink, impl="kernel",
+    at default_geometry(64): each volume bit-equal to its family plan's
+    build(), the sink's store equal to the volume; every bucket launches
+    the kernel once per lane (pad lanes included)."""
+    from repro_torch.core.geometry import default_geometry
+    from repro_torch.service import ReconstructionService, TicketState
+    g = default_geometry(64)
+    proj = forward_project(g, device=cuda)
+    scans = [proj, proj * 1.5, proj * 0.5]
+    src = ProjectionSource.write(str(tmp_path / "p"), proj, codec="fp16")
+    sink = VolumeSink(str(tmp_path / "v"))
+    svc = ReconstructionService(max_batch=4)
+    try:
+        assert svc.device.type == "cuda"
+        before = bpk.launches
+        tickets = [svc.submit(projections=p, geometry=g, impl="kernel")
+                   for p in scans]
+        tickets.append(svc.submit(source=src, geometry=g, sink=sink,
+                                  impl="kernel"))
+        svc.drain()
+        assert all(t.state is TicketState.DONE for t in tickets)
+        assert bpk.launches - before >= 4
+        build = svc.plan_cache.resolve(tickets[0].family).build()
+        for p, t in zip(scans + [src.load(device=cuda)], tickets):
+            assert t.result().device.type == "cuda"
+            assert torch.equal(build(p), t.result())
+        assert torch.equal(sink.read(), tickets[-1].result().cpu())
+        st = svc.stats()
+        assert st["padded_lanes"] == 0 and st["buckets"] == 1
+        assert st["plan_cache"]["searches"] == 1
+    finally:
+        svc.close()
+
+
+def test_serve_loop_on_the_card(cuda):
+    """serve() launches from its own thread on the card; wait() then the
+    volumes bit-equal to build()."""
+    from repro_torch.service import ReconstructionService
+    proj = forward_project(G16, device=cuda)
+    svc = ReconstructionService(max_batch=2).serve()
+    try:
+        tickets = [svc.submit(projections=proj * (1 + k), geometry=G16,
+                              impl="kernel", deadline_s=60.0)
+                   for k in range(3)]
+        for t in tickets:
+            assert t.wait(timeout=120.0) and t.done
+        build = svc.plan_cache.resolve(tickets[0].family).build()
+        for k, t in enumerate(tickets):
+            assert torch.equal(build(proj * (1 + k)), t.result())
+        svc.shutdown()
+        st = svc.stats()
+        assert st["loop"]["errors"] == 0 and st["slo"]["met"] == 3
+    finally:
+        svc.close()
+
+
+def test_service_budget_defaults_to_the_card_memory(cuda):
+    from repro_torch.planner import DEFAULT_HBM_BYTES
+    from repro_torch.service import ReconstructionService
+    svc = ReconstructionService()
+    try:
+        total = torch.cuda.get_device_properties(cuda).total_memory
+        assert svc.hbm_bytes == total != DEFAULT_HBM_BYTES
+    finally:
+        svc.close()
+
+
+def test_bare_defaults_answer_for_the_card(cuda):
+    from repro_torch.planner import admitted_impls
+    assert admitted_impls() == ("factorized", "kernel")
+    assert tune.default_budget() == tune.default_budget(cuda) >= 48 * 1024
+
+
+def test_resumable_reconstruction_on_the_card(cuda, tmp_path):
+    """Micro-batches folded through the kernel by the session's stage and
+    fold, killed at batch 3 and resumed from the checkpoint onto the card:
+    bit-equal to an uninterrupted run, and within 1e-5 of build()."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core.fdk import fdk_scale
+    from repro_torch.runtime import ResumableReconstruction
+    proj = forward_project(G16, device=cuda)
+    plan = ReconstructionPlan(geometry=G16, impl="kernel", precision="fp32",
+                              schedule="incremental", n_steps=4)
+    sess = plan.build_incremental()
+
+    def step(acc, b):
+        s = sess.stage(proj[4 * b:4 * b + 4], (4 * b, 4 * b + 4))
+        sess._acc = acc
+        sess._fold(s.pm_col, s.q_col, s.sc_col)
+        return sess._acc
+
+    zeros = torch.zeros(G16.volume_shape(), device=cuda)
+    want = ResumableReconstruction(step, zeros, 4).run()
+    mgr = CheckpointManager(str(tmp_path))
+    with pytest.raises(RuntimeError, match="injected"):
+        ResumableReconstruction(step, zeros, 4, mgr,
+                                checkpoint_every=2).run(fail_at=3)
+    r = ResumableReconstruction(step, zeros, 4, mgr, checkpoint_every=2)
+    r.resume()
+    assert r.state.cursor == 2 and r.state.accumulator.device.type == "cuda"
+    got = r.run()
+    assert torch.equal(got, want)
+    ref = ReconstructionPlan(geometry=G16, impl="kernel",
+                             precision="fp32").build()(proj)
+    vol = got * fdk_scale(G16)
+    assert float((vol - ref).abs().max() / ref.abs().max()) <= REL

@@ -16,6 +16,7 @@ from repro import planner as jpl
 from repro_torch.core import geometry as tgeo
 from repro_torch.core import plan as tplan
 from repro_torch.core.distributed import IFDKGrid as TGrid
+from repro_torch.kernels.backproject import tune as ttune
 from repro_torch import planner as tpl
 from repro_torch.planner import measure as tmeasure
 from repro_torch.planner import search as tsearch
@@ -170,6 +171,19 @@ def test_admitted_impls_follow_the_device(monkeypatch):
                              top_k=None)
     assert plans and all(p.plan.impl == "kernel" and p.plan.device == "cpu"
                          for p in plans)
+
+
+@pytest.mark.parametrize("call", [
+    lambda: tpl.admitted_impls(),
+    lambda: ttune.default_budget()])
+def test_bare_defaults_name_the_card(call):
+    """Both answer for the card by default, like every entry point of the
+    port: on a host without one the bare call raises and names the way
+    out (neither answers as if on the CPU)."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        call()
 
 
 class TestMeasure:
