@@ -193,12 +193,39 @@ Phases, in order; any failure exits non-zero:
    scaled_dot_product_attention on the same tensors with its max distance
    from the plain version (the library yardstick; the port never calls
    it).
-25. The `kernels` JSON line (each kernel with the PR of its design; the
-   back-projector's launches sum every path that runs it: phases 4, 7-10,
-   12, 14-18, 19 and 20's ranks, each counted from 0 just before the
-   path; a path on another wire type's instantiation, such as the auto
-   plan's, is printed beside it), the card's name and power limit, and
-   last `{"ok": true, "device": {...}}`.
+25. [train-check] The attention kernel under autograd
+   (`flash_attention_trainable`) at the serving shape, f32 and bf16, with
+   dO from numpy: its forward within the phase-22 bounds of the plain
+   version, dq, dk, dv bit-equal to autograd through
+   `prefill_attention_plain`; the raw wrapper raises on operands that
+   require grad. Then `loss_and_grads` (loss_fn, remat) at Qwen2-1.5B's
+   full width with the depth cut to 4 layers, 2 x 2048 tokens, block
+   weights at std 1 / sqrt(fan_in): kernel path against the plain
+   attention step, in f32 the loss and each leaf's gradient within a
+   relative RMSE of 1e-3, in bf16 the kernel path's distance from the f32
+   plain path at most twice the bf16 plain path's, for each leaf's
+   gradient and for the per-token cross entropies (relative RMSE; the
+   mean loss is printed, not gated: a single mean of 4096 roundings lands
+   anywhere inside their noise).
+26. [train] make_train_step(microbatches=2, warmup=2, total_steps=16,
+   remat=True) on full-width, full-depth Qwen2-1.5B (init_train_state,
+   seed 0) with SyntheticTokens(batch=4, seq=2048): 6 steps on one fixed
+   batch (loss and grad norm finite, the last loss below the first), a
+   warm-up step on the stream under the profiler, 6 timed steps. Every
+   step launches the attention kernel 28 x 2 (remat) x 2 micro-batches =
+   112 times; opt.step counts the 13 steps; the params are finite and
+   moved. Printed: median step seconds, tokens/s, 6 N tokens / step
+   beside the bf16 peak, the AdamW update's seconds (CUDA events), peak
+   device memory, the profile, and the kernel's time at the training
+   shape (2 x 12 heads, S = 2048) beside its bound. Each of 25 and 26
+   prints its seconds.
+27. The `kernels` JSON line (each kernel with the PR of its design and
+   its launches by path; the back-projector's launches sum every path
+   that runs it: phases 4, 7-10, 12, 14-18, 19 and 20's ranks, the
+   attention kernel's the serving prefill and the training steps, each
+   counted from 0 just before the path; a path on another wire type's
+   instantiation, such as the auto plan's, is printed beside it), the
+   card's name and power limit, and last `{"ok": true, "device": {...}}`.
 
 The RabbitCT geometry is the public back-projection benchmark's size (496
 projections of 1248 x 960 pixels into 512^3; Rohkohl et al., Med. Phys.
@@ -280,6 +307,12 @@ ATTN_STRESS = 3.0
 # 28 layers of random weights amplify that, but not by 10^4.
 F32_LOGITS_REL = 1e-3
 ATTN_RUNS = 20
+# Training: Qwen2-1.5B at full width, 4 x 2048 tokens a step in 2
+# micro-batches, remat on; [train-check] cuts the depth to 4 layers.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICROBATCHES = 4, 2048, 2
+TRAIN_WARMUP, TRAIN_TOTAL = 2, 16
+FIXED_STEPS, TIMED_STEPS = 6, 6   # one fixed batch; then 1 warm-up + timed
+TRAIN_CHECK_LAYERS = 4
 
 # Mesh phases: the (pod, data, model) engine of core/plan.py at RabbitCT.
 MESH_AXES = ("pod", "data", "model")
@@ -2238,18 +2271,24 @@ def profile(fn, label: str, top: int) -> None:
               f"x{e.count:<5d} {e.key}")
 
 
-def attention_operands(cfg, s: int, dtype, dev, seed: int):
+def attention_operands(cfg, s: int, dtype, dev, seed: int, batch=None):
     """Folded (B*H, S, D) q and (B*K, S, D) k, v at the serving widths, from
-    numpy's standard normal."""
+    numpy's standard normal; B is `batch`, by default the serving BATCH."""
     import torch
 
     rng = np.random.default_rng(seed)
     d = cfg.resolved_head_dim
+    b = BATCH if batch is None else batch
     return tuple(
-        torch.from_numpy(rng.standard_normal((BATCH * n, s, d),
+        torch.from_numpy(rng.standard_normal((b * n, s, d),
                                              dtype=np.float32))
         .to(device=dev, dtype=dtype)
         for n in (cfg.num_heads, cfg.num_kv_heads, cfg.num_kv_heads))
+
+
+def causal_attention_flops(batch: int, heads: int, s: int, d: int) -> float:
+    """Query i meets keys 0..i, 2 D operations each for q.k and p.v."""
+    return 4 * d * s * (s + 1) / 2 * batch * heads
 
 
 def f32_excess(got, want) -> float:
@@ -2478,8 +2517,7 @@ def attention_timing(cfg, dev, launches: dict, max_abs: dict,
     from repro_torch.kernels.attention import kernel as fak
 
     h, kh, d, s = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, PROMPT
-    # causal: query i meets keys 0..i, 2 D operations each for q.k and p.v
-    flops = 4 * d * s * (s + 1) / 2 * BATCH * h
+    flops = causal_attention_flops(BATCH, h, s, d)
     entries = []
     for dtype, name in ((torch.bfloat16, "fa_fwd_bf16_kernel"),
                         (torch.float32, "fa_fwd_f32_kernel")):
@@ -2526,6 +2564,7 @@ def attention_timing(cfg, dev, launches: dict, max_abs: dict,
             "source": "src/repro_torch/kernels/attention/csrc/attention.cu",
             "replaces": "src/repro/kernels/attention/kernel.py:33",
             "launches": launches[dtype],
+            "launches_by_path": {"serving prefill": launches[dtype]},
             "max_abs_err": max_abs[dtype],
             "ms": ms,
             "plain_ms": plain_ms,
@@ -2541,6 +2580,340 @@ def attention_timing(cfg, dev, launches: dict, max_abs: dict,
         entries.append(entry)
         del q, k, v, q4, k4, v4
     return entries
+
+
+def fan_in_scaled(params, cfg) -> None:
+    """Each stacked block weight rescaled in place to the std its unstacked
+    def draws, 1 / sqrt(fan_in). The stacked defs keep no fan_in, so
+    init_params draws them at 1 / sqrt(repeats): at 4 layers a one-hot
+    softmax whose gradients magnify any round-off. The CPU parity tests
+    (tests/test_torch_training.py) rescale alike and say how much."""
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    with torch.no_grad():
+        for i, sub in enumerate(cfg.pattern):
+            block = params["blocks"][f"sub_{i}"]
+            for name, defs in T._sublayer_defs(cfg, sub).items():
+                for key, d in defs.items():
+                    fan_in = d.fan_in or d.shape[0]
+                    block[name][key].mul_(math.sqrt(cfg.repeats / fan_in))
+
+
+def train_check(cfg, dev) -> None:
+    """Phase 25 [train-check]: the attention kernel under autograd against
+    its plain version, then loss_fn's gradients through it at full width."""
+    import torch
+
+    from repro_torch.kernels.attention import flash_attention_trainable
+    from repro_torch.kernels.attention import kernel as fak
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.training import loss_and_grads
+
+    t_phase = time.perf_counter()
+    h, kh, d, s = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, PROMPT
+    pos = torch.arange(s, dtype=torch.int32, device=dev).expand(BATCH, s)
+
+    def plain(q, k, v):
+        return L.prefill_attention_plain(cfg, q, k, v, pos)
+
+    def unfold(t, n):
+        return t.view(BATCH, n, s, d).transpose(1, 2)
+
+    # The Function at the serving shape: forward against the kernel's plain
+    # version, gradients against autograd through the plain step.
+    for i, dtype in enumerate((torch.float32, torch.bfloat16)):
+        qf, kf, vf = attention_operands(cfg, s, dtype, dev, seed=SEED + 20 + i)
+        d_out = torch.from_numpy(np.random.default_rng(SEED + 30 + i)
+                                 .standard_normal((BATCH, s, h, d),
+                                                  dtype=np.float32)
+                                 ).to(dev, dtype)
+        ops = [unfold(t, n).detach().requires_grad_()
+               for t, n in ((qf, h), (kf, kh), (vf, kh))]
+        out = flash_attention_trainable(*ops, causal=True, plain=plain)
+        got = torch.autograd.grad(out, ops, d_out)
+        ref = [t.detach().clone().requires_grad_() for t in ops]
+        want = torch.autograd.grad(plain(*ref), ref, d_out)
+        fwd = fak.flash_attention_bhsd_torch(qf, kf, vf)
+        torch.cuda.synchronize()
+        out = out.detach().transpose(1, 2).reshape(fwd.shape)
+        worst = float((out.float() - fwd.float()).abs().max())
+        if dtype == torch.float32:
+            ok = f32_excess(out, fwd) <= ATTN_F32_TOL
+            bound = f"rtol = atol = {ATTN_F32_TOL:.0e}"
+        else:
+            ok = worst < ATTN_BF16_MAX_ABS
+            bound = f"max abs < {ATTN_BF16_MAX_ABS}"
+        equal = [torch.equal(g, w) for g, w in zip(got, want)]
+        print(f"[train-check] flash_attention_trainable {dtype}, q "
+              f"{tuple(ops[0].shape)}, k/v {tuple(ops[1].shape)}: forward "
+              f"max|kernel-plain| {worst:.3e} ({bound}); dq, dk, dv "
+              f"bit-equal to autograd through prefill_attention_plain: "
+              f"{equal} (max |dq| {float(got[0].abs().max()):.3e})")
+        if not ok:
+            fail(f"the trainable attention's forward is off its plain "
+                 f"version by {worst:.3e} ({dtype})")
+        if not all(equal):
+            fail(f"the trainable attention's gradients differ from the "
+                 f"plain step's ({dtype})")
+        del qf, kf, vf, d_out, ops, out, got, ref, want, fwd
+
+    # The raw wrapper refuses operands that require grad.
+    qf, kf, vf = attention_operands(cfg, 256, torch.bfloat16, dev, seed=SEED)
+    try:
+        fak.flash_attention_bhsd(qf.requires_grad_(), kf, vf)
+    except RuntimeError as e:
+        print(f"[train-check] flash_attention_bhsd on operands that "
+              f"require grad raises: {str(e)[:90]}...")
+    else:
+        fail("flash_attention_bhsd returned a result detached from autograd")
+
+    # loss_fn and its gradients at full width, depth cut.
+    cfg_cut = cfg.scaled(num_layers=TRAIN_CHECK_LAYERS)
+    params = T.init_params(cfg_cut, seed=SEED, device=dev)
+    fan_in_scaled(params, cfg_cut)
+    rng = np.random.default_rng(SEED + 40)
+    mb = TRAIN_BATCH // TRAIN_MICROBATCHES
+    batch = {k: torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (mb, TRAIN_SEQ)).astype(np.int32)).to(dev)
+        for k in ("labels", "tokens")}
+    res, ce = {}, {}
+    for dt in ("float32", "bfloat16"):
+        c = cfg_cut.scaled(dtype=dt)
+        fak.launches = 0
+        res[dt, "kernel"] = loss_and_grads(params, c, batch)
+        torch.cuda.synchronize()
+        if fak.launches != 2 * TRAIN_CHECK_LAYERS:
+            fail(f"{dt} loss_fn launched the attention kernel "
+                 f"{fak.launches} times, not {2 * TRAIN_CHECK_LAYERS}")
+        ce[dt, "kernel"] = token_ce(params, c, batch)
+        launched = fak.launches
+        with plain_attention_step(L):
+            res[dt, "plain"] = loss_and_grads(params, c, batch)
+            ce[dt, "plain"] = token_ce(params, c, batch)
+        torch.cuda.synchronize()
+        if fak.launches != launched:
+            fail("the plain attention step launched the kernel")
+
+    def dist(a, b):
+        """(relative loss distance, [(leaf, gradient rel. RMSE)])."""
+        (la, ga), (lb, gb) = res[a], res[b]
+        return (abs(float(la) - float(lb)) / abs(float(lb)),
+                [(k, rel_rmse(x, y)) for (k, x), (_, y)
+                 in zip(flat_leaves(ga), flat_leaves(gb))])
+
+    f32_loss, f32_grads = dist(("float32", "kernel"), ("float32", "plain"))
+    bk_loss, bk_grads = dist(("bfloat16", "kernel"), ("float32", "plain"))
+    bp_loss, bp_grads = dist(("bfloat16", "plain"), ("float32", "plain"))
+    bk_ce = rel_rmse(ce["bfloat16", "kernel"], ce["float32", "plain"])
+    bp_ce = rel_rmse(ce["bfloat16", "plain"], ce["float32", "plain"])
+    worst32 = max(f32_grads, key=lambda kv: kv[1])
+    ratio = max(((k, x / y) for (k, x), (_, y) in zip(bk_grads, bp_grads)),
+                key=lambda kv: kv[1])
+    print(f"[train-check] loss_fn at full width, depth cut to "
+          f"{TRAIN_CHECK_LAYERS} of {cfg.num_layers} layers, {mb} x "
+          f"{TRAIN_SEQ} tokens, block weights at std 1/sqrt(fan_in): "
+          f"kernel launches {2 * TRAIN_CHECK_LAYERS} a pass (remat); loss "
+          f"f32 kernel {float(res['float32', 'kernel'][0]):.6f} vs plain "
+          f"{float(res['float32', 'plain'][0]):.6f}, bf16 kernel "
+          f"{float(res['bfloat16', 'kernel'][0]):.6f} vs plain "
+          f"{float(res['bfloat16', 'plain'][0]):.6f}")
+    print(f"[train-check] f32 kernel path vs f32 plain path: loss relative "
+          f"{f32_loss:.3e}, worst gradient relative RMSE {worst32[1]:.3e} "
+          f"({worst32[0]}) (bound {F32_LOGITS_REL:.0e} each)")
+    print(f"[train-check] bf16 vs f32 plain, relative: per-token CE RMSE "
+          f"kernel path {bk_ce:.3e} (bound 2 x plain path's {bp_ce:.3e}); "
+          f"gradients: worst ratio of kernel path to plain path "
+          f"{ratio[1]:.3f} ({ratio[0]}; bound 2); the mean loss (not "
+          f"gated: one mean of {mb * TRAIN_SEQ} roundings) kernel path "
+          f"{bk_loss:.3e}, plain path {bp_loss:.3e}")
+    for k, e in f32_grads:
+        if not e <= F32_LOGITS_REL:
+            fail(f"f32 kernel path's gradient {k} off the plain path by "
+                 f"{e:.3e}")
+    if not f32_loss <= F32_LOGITS_REL:
+        fail(f"f32 kernel path's loss off the plain path by {f32_loss:.3e}")
+    for (k, x), (_, y) in zip(bk_grads, bp_grads):
+        if not x <= 2 * y:
+            fail(f"bf16 kernel path's gradient {k}: {x:.3e} from f32, "
+                 f"bound {2 * y:.3e}")
+    if not bk_ce <= 2 * bp_ce:
+        fail(f"bf16 kernel path's per-token CE {bk_ce:.3e} from f32, bound "
+             f"{2 * bp_ce:.3e}")
+    print(f"[train-check] {time.perf_counter() - t_phase:.1f} s")
+
+
+def token_ce(params, cfg, batch):
+    """Each token's cross entropy, the terms whose mean is loss_fn's loss,
+    computed as loss_fn computes them (without grad: the attention step is
+    the kernel's forward, or the plain step inside plain_attention_step)."""
+    import torch
+
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    with torch.no_grad():
+        x = T.embed_inputs(params, cfg, batch)
+        b, s = x.shape[:2]
+        pos = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+        x, _ = T._run_blocks(params, cfg, x, pos, None, remat=False)
+        x = L.rmsnorm(params["final_norm"], x, cfg.rms_eps)
+        logits = T._logits(params, cfg, x).to(torch.float32)
+        labels = batch["labels"].to(torch.int64)[..., None]
+        return (torch.logsumexp(logits, dim=-1)
+                - torch.gather(logits, -1, labels)[..., 0])
+
+
+@contextlib.contextmanager
+def timed_updates(module, events: list):
+    """`module.adamw_update` with CUDA events recorded around each call."""
+    import torch
+
+    inner = module.adamw_update
+
+    def timed(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = inner(*args, **kwargs)
+        end.record()
+        events.append((start, end))
+        return out
+
+    module.adamw_update = timed
+    try:
+        yield
+    finally:
+        module.adamw_update = inner
+
+
+def training(cfg, dev) -> dict:
+    """Phase 26 [train]: make_train_step on full-width, full-depth
+    Qwen2-1.5B. Returns the attention kernel's launches and its time at
+    the training shape."""
+    import statistics
+
+    import torch
+
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.kernels.attention import kernel as fak
+    from repro_torch.models import transformer as T
+    from repro_torch.training import init_train_state, make_train_step
+    from repro_torch.training import train_step as ts
+
+    sync = torch.cuda.synchronize
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(cfg, seed=SEED, device=dev)
+    n_params = T.param_count(state.params)
+    data = SyntheticTokens(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=SEED, device=dev)
+    step = make_train_step(cfg, microbatches=TRAIN_MICROBATCHES,
+                           warmup=TRAIN_WARMUP, total_steps=TRAIN_TOTAL,
+                           remat=True)
+    per_step = cfg.num_layers * 2 * TRAIN_MICROBATCHES
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    count = {"launches": 0, "steps": 0}
+
+    def one(batch):
+        nonlocal state
+        fak.launches = 0
+        state, metrics = step(state, batch)
+        sync()
+        if fak.launches != per_step:
+            fail(f"a train step launched the attention kernel "
+                 f"{fak.launches} times, not {per_step}")
+        count["launches"] += fak.launches
+        count["steps"] += 1
+        values = {k: float(v) for k, v in metrics.items()}
+        if not all(math.isfinite(v) for v in values.values()):
+            fail(f"train step {count['steps']}: {values}")
+        return values
+
+    print(f"[train] {cfg.name}: {cfg.num_layers} layers, {n_params} "
+          f"parameters (f32 weights {n_params * 4 / 1e9:.2f} GB, + 2 "
+          f"moments {n_params * 12 / 1e9:.2f} GB); {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} tokens a step in {TRAIN_MICROBATCHES} micro-batches, "
+          f"remat, warmup {TRAIN_WARMUP} of {TRAIN_TOTAL}")
+    fixed = data(0)
+    losses = []
+    for _ in range(FIXED_STEPS):
+        losses.append(one(fixed)["loss"])
+    print(f"[train] {FIXED_STEPS} steps on one batch: losses "
+          f"{[round(x, 4) for x in losses]}")
+    if not losses[-1] < losses[0]:
+        fail(f"the loss did not fall on a fixed batch: {losses}")
+    del fixed
+
+    # Where the time goes: the warm-up step on the stream, traced.
+    profile(lambda: one(data(FIXED_STEPS)), "bf16 train step", top=14)
+
+    events, seconds, metrics = [], [], []
+    with timed_updates(ts, events):
+        for i in range(TIMED_STEPS):
+            batch = data(FIXED_STEPS + 1 + i)
+            sync()
+            t0 = time.perf_counter()
+            metrics.append(one(batch))
+            seconds.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    update_s = [a.elapsed_time(b) / 1e3 for a, b in events]
+    step_s = statistics.median(seconds)
+    flops = 6 * n_params * tokens
+    print(f"[train] {TIMED_STEPS} timed steps on the stream: "
+          f"{[round(x, 4) for x in seconds]} s; median {step_s:.4f} s, "
+          f"{tokens / step_s:.0f} tokens/s; 6 N tokens / step "
+          f"{flops / step_s / 1e12:.1f} TFLOP/s = "
+          f"{flops / step_s / PEAK_BF16_OPS_PER_S:.1%} of the dense bf16 "
+          f"peak (989 TFLOP/s; a share of peak, not a benchmark's MFU); "
+          f"AdamW update alone (CUDA events) median "
+          f"{statistics.median(update_s):.4f} s "
+          f"({[round(x, 4) for x in update_s]}); peak device memory "
+          f"{peak / 1e9:.2f} GB ({peak / 2**30:.2f} GiB) over every step")
+    print(f"[train] stream losses {[round(m['loss'], 4) for m in metrics]}, "
+          f"grad norms {[round(m['grad_norm'], 3) for m in metrics]}, "
+          f"lr_scale {[round(m['lr_scale'], 4) for m in metrics]}")
+
+    taken = count["steps"]
+    if int(state.opt.step) != taken:
+        fail(f"opt.step {int(state.opt.step)} after {taken} steps")
+    init = T.init_params(cfg, seed=SEED, device=dev)
+    for (key, p), (_, p0) in zip(flat_leaves(state.params),
+                                 flat_leaves(init)):
+        if not bool(torch.isfinite(p).all()) or torch.equal(p, p0):
+            fail(f"after {taken} steps {key} is not finite or did not move")
+    del init, state
+    print(f"[train] {taken} steps, opt.step {taken}; params finite and "
+          f"moved; attention-kernel launches {count['launches']} "
+          f"({per_step} a step = {cfg.num_layers} layers x 2 (remat) x "
+          f"{TRAIN_MICROBATCHES} micro-batches)")
+
+    # The kernel at the training shape: one micro-batch's layer.
+    torch.cuda.empty_cache()
+    mb = TRAIN_BATCH // TRAIN_MICROBATCHES
+    h, d = cfg.num_heads, cfg.resolved_head_dim
+    q, k, v = attention_operands(cfg, TRAIN_SEQ, torch.bfloat16, dev,
+                                 seed=SEED, batch=mb)
+    ms = event_ms(lambda: fak.flash_attention_bhsd(q, k, v), ATTN_RUNS)
+    n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    bound_ms = max(n_bytes / PEAK_BYTES_PER_S,
+                   causal_attention_flops(mb, h, TRAIN_SEQ, d)
+                   / PEAK_BF16_OPS_PER_S) * 1e3
+    print(f"[train] fa_fwd_bf16_kernel at the training shape "
+          f"{tuple(q.shape)} q, {tuple(k.shape)} k/v: {ms:.3f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_ms / ms:.2%} of bound)")
+    print(f"[train] {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": count["launches"], "train_shape_ms": ms,
+            "train_shape_bound_ms": bound_ms}
+
+
+def flat_leaves(tree, prefix: str = "") -> list:
+    """[(key, tensor)] of nested dicts in sorted key order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in flat_leaves(tree[k], f"{prefix}/{k}")]
+    return [(prefix, tree)]
 
 
 def main() -> int:
@@ -2566,7 +2939,7 @@ def main() -> int:
 
 
 def run(work: str) -> int:
-    """Phases 1-25 (see the module's docstring); stores and checkpoints
+    """Phases 1-27 (see the module's docstring); stores and checkpoints
     go under `work`."""
     import torch
 
@@ -2645,7 +3018,9 @@ def run(work: str) -> int:
     del proj
     mxu_check(dev)
     for entry, codec in zip(entries, MAIN_PATH_CODECS):
-        entry["launches"] = sum(p.get(codec, 0) for p in paths.values())
+        entry["launches_by_path"] = {name: p.get(codec, 0)
+                                     for name, p in paths.items()}
+        entry["launches"] = sum(entry["launches_by_path"].values())
         print(f"[kernels] {entry['name']} launches: {entry['launches']} = "
               + " + ".join(f"{p.get(codec, 0)} ({name})"
                            for name, p in paths.items()))
@@ -2659,7 +3034,24 @@ def run(work: str) -> int:
     max_abs, stressed = attention_checks(cfg, dev)
     launches = serving(cfg, dev)
     torch.cuda.empty_cache()
-    entries += attention_timing(cfg, dev, launches, max_abs, stressed)
+    attn = attention_timing(cfg, dev, launches, max_abs, stressed)
+    torch.cuda.empty_cache()
+
+    # 25-26. Training (the serving weights are freed) -----------------------
+    train_check(cfg, dev)
+    torch.cuda.empty_cache()
+    trained = training(cfg, dev)
+    for entry in attn:
+        trains = entry["name"] == "fa_fwd_bf16_kernel"  # cfg.dtype bf16
+        entry["launches_by_path"]["training"] = (
+            trained["launches"] if trains else 0)
+        entry["launches"] = sum(entry["launches_by_path"].values())
+        if trains:
+            entry["train_shape_ms"] = trained["train_shape_ms"]
+            entry["train_shape_bound_ms"] = trained["train_shape_bound_ms"]
+        print(f"[kernels] {entry['name']} launches: {entry['launches']} = "
+              f"{entry['launches_by_path']}")
+    entries += attn
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "repro."))
@@ -2667,7 +3059,7 @@ def run(work: str) -> int:
     if leaked:
         fail(f"the port imported {leaked}")
 
-    # 25. Result -----------------------------------------------------------
+    # 27. Result -----------------------------------------------------------
     print(json.dumps({"kernels": entries}))
     print(f"[device] {smi}")
     print(json.dumps({"ok": True, "device": {

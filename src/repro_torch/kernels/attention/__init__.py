@@ -1,2 +1,2 @@
-from .ops import flash_attention
+from .ops import flash_attention, flash_attention_trainable
 from .ref import attention_ref

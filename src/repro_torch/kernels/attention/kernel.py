@@ -23,6 +23,11 @@ the CPU. For a CUDA tensor it launches the kernel, whose tiles (64 queries
 for bf16, 128 for f32, by 64 keys) are fixed in its source, or raises;
 `bq` and `bk` only block the plain version. `launches` counts kernel
 launches.
+
+The kernel's output is written through ctypes, outside autograd. So on the
+card the wrapper raises when grad is enabled and q, k or v requires grad:
+under autograd the kernel runs only through the `ops.FlashAttention`
+Function (`ops.flash_attention_trainable`).
 """
 from __future__ import annotations
 
@@ -134,6 +139,13 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_bhsd_torch(q, k, v, bq, bk, causal)
     if q.device.type != "cuda":
         raise ValueError(f"no flash-attention kernel for device {q.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise RuntimeError(
+            "flash_attention_bhsd writes the kernel's output outside "
+            "autograd, so its result would carry no gradient; under autograd "
+            "call kernels.attention.flash_attention_trainable (the "
+            "FlashAttention autograd Function), or run under torch.no_grad()")
     bh, sq, d = q.shape
     if d % 4 or not 4 <= d <= MAX_HEAD_DIM:
         raise ValueError(f"the kernel takes head dims that are multiples of "

@@ -3,9 +3,9 @@
 Port of `repro/models/config.py`: the same frozen dataclasses, so that the
 reference's configs load unchanged. A model is `num_layers` sub-layers
 arranged as repeats of a block pattern (tuple of SubLayer descriptors).
-The port serves dense attention + MLP patterns; the MoE, SSM and frontend
-dataclasses are data only here, and the layers that use them raise
-NotImplementedError naming their ROADMAP.md item (`not_ported`).
+The port serves and trains dense attention + MLP patterns; the MoE, SSM
+and frontend dataclasses are data only here, and the layers that use them
+raise NotImplementedError naming their ROADMAP.md item (`not_ported`).
 """
 from __future__ import annotations
 
@@ -16,8 +16,6 @@ Kind = Literal["attn", "ssm"]
 Ffn = Literal["mlp", "moe", "none"]
 
 # ROADMAP.md Queue 1 items that bring back what the LM slice leaves out.
-TRAINING = ("ROADMAP.md Queue 1 item 14 (training: loss_fn, train_step, "
-            "optim)")
 MOE = "ROADMAP.md Queue 1 item 15 (MoE layers)"
 SSM = "ROADMAP.md Queue 1 item 16 (SSM and hybrid layers)"
 FRONTENDS = "ROADMAP.md Queue 1 item 17 (vision and audio frontends)"

@@ -4,13 +4,16 @@ Port of `repro/models/layers.py`. Params are plain dicts of tensors; each
 layer has a `*_defs()` (shapes, init scale, and the reference's logical
 sharding spec, kept as data) and a forward function.
 
-The prefill attention step (between `_qkv` and the output projection) runs
-the hand-written flash-attention kernel when q is on the card, and the
-reference's own code on the CPU: dense scores up to `CHUNK_THRESHOLD`, a
-query-chunked exact attention beyond it. Decode keeps the plain form on
-both devices: the kernel's causal mask is top-left aligned, which is not
-the mask of one query against a cache. The large products around attention
-(`_qkv`, `wo`, `mlp`) are plain matrix products, as in the reference.
+The prefill and training attention step (between `_qkv` and the output
+projection) runs the hand-written flash-attention kernel when q is on the
+card, and the reference's own code on the CPU: dense scores up to
+`CHUNK_THRESHOLD`, a query-chunked exact attention beyond it. Under
+autograd the card's step is `flash_attention_trainable`: the kernel's
+forward, and the gradient of that plain step recomputed in the backward.
+Decode keeps the plain form on both devices: the kernel's causal mask is
+top-left aligned, which is not the mask of one query against a cache. The
+large products around attention (`_qkv`, `wo`, `mlp`) are plain matrix
+products, as in the reference.
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..kernels.attention import flash_attention
+from ..kernels.attention import flash_attention, flash_attention_trainable
 from .config import CONFIGS, PARALLEL, ModelConfig, not_ported
 
 CHUNK_THRESHOLD = 8192
@@ -161,9 +164,12 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def prefill_attention_plain(cfg: ModelConfig, q: torch.Tensor,
                             k: torch.Tensor, v: torch.Tensor,
-                            positions: torch.Tensor) -> torch.Tensor:
+                            positions: torch.Tensor,
+                            check_positions: bool = True) -> torch.Tensor:
     """The reference's attention step: dense up to CHUNK_THRESHOLD, then
-    exact attention over QUERY_CHUNK query blocks (never (S, S))."""
+    exact attention over QUERY_CHUNK query blocks (never (S, S)). It takes
+    any positions; `check_positions` is accepted so that it can stand in
+    for `prefill_attention`."""
     b, s = q.shape[:2]
     n_groups = cfg.num_heads // cfg.num_kv_heads
     if s <= CHUNK_THRESHOLD:
@@ -184,14 +190,21 @@ def prefill_attention_plain(cfg: ModelConfig, q: torch.Tensor,
 
 
 def prefill_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
-                      v: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-    """The prefill attention step: the flash-attention kernel on the card,
-    `prefill_attention_plain` on the CPU.
+                      v: torch.Tensor, positions: torch.Tensor,
+                      check_positions: bool = True) -> torch.Tensor:
+    """The prefill and training attention step: the flash-attention kernel
+    on the card, `prefill_attention_plain` on the CPU.
+
+    On the card, when grad is enabled and q, k or v requires grad, the
+    step is `flash_attention_trainable` with this step's plain version as
+    its backward: the kernel's output, and dq, dk, dv bit-equal to
+    autograd's through `prefill_attention_plain`.
 
     The kernel masks by index (key j visible to query i iff j <= i), so on
-    the card every row of `positions` must be 0..S-1, as `prefill` gives
-    them; checking that costs one host sync. Sliding-window attention is
-    not what the kernel masks and raises there.
+    the card every row of `positions` must be 0..S-1, as `prefill` and
+    `loss_fn` give them; checking that costs one host sync, which a caller
+    that built them with arange skips with `check_positions=False`.
+    Sliding-window attention is not what the kernel masks and raises there.
     """
     if q.device.type != "cuda":
         return prefill_attention_plain(cfg, q, k, v, positions)
@@ -199,22 +212,41 @@ def prefill_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
         raise not_ported("sliding-window attention in the flash kernel",
                          CONFIGS)
     s = q.shape[1]
-    if not bool((positions == torch.arange(s, device=positions.device)).all()):
+    if check_positions and not bool(
+            (positions == torch.arange(s, device=positions.device)).all()):
         raise ValueError("the flash-attention kernel masks by index: "
                          "positions must be 0..S-1 in every row")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return flash_attention_trainable(
+            q, k, v, causal=True,
+            plain=lambda q, k, v: prefill_attention_plain(cfg, q, k, v,
+                                                          positions))
     return flash_attention(q, k, v, causal=True)
 
 
 def attention_with_kv(params, cfg: ModelConfig, x: torch.Tensor,
-                      positions: torch.Tensor, rules=None
+                      positions: torch.Tensor, rules=None,
+                      check_positions: bool = True
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Causal GQA self-attention; returns (out, k, v) so prefill can cache."""
+    """Causal GQA self-attention; returns (out, k, v) so prefill can cache.
+    `check_positions` as in `prefill_attention`."""
     if rules is not None:
         raise not_ported("rules=", PARALLEL)
     q, k, v = _qkv(params, cfg, x, positions)
-    out = prefill_attention(cfg, q, k, v, positions)
+    out = prefill_attention(cfg, q, k, v, positions,
+                            check_positions=check_positions)
     out = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
     return out, k, v
+
+
+def attention(params, cfg: ModelConfig, x: torch.Tensor,
+              positions: torch.Tensor, rules=None,
+              check_positions: bool = True) -> torch.Tensor:
+    """Training / prefill self-attention (causal, GQA)."""
+    out, _, _ = attention_with_kv(params, cfg, x, positions, rules,
+                                  check_positions)
+    return out
 
 
 # -- decode path ------------------------------------------------------------

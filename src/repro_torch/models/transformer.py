@@ -1,27 +1,29 @@
 """Full model, dense subset: embeddings + block stack + tied or untied head;
-prefill and decode with KV caches.
+the training loss, and prefill and decode with KV caches.
 
 Port of `repro/models/transformer.py`. Parameters keep the reference's dict
 keys, with each pattern-repeat's weights stacked on a leading `repeats`
 axis, so that carrying weights across is one-to-one
 (`params_from_reference`). The reference scans over that axis; here a
-Python loop walks it, one layer's views at a time.
+Python loop walks it, one layer's views at a time. `loss_fn` rematerialises
+each repeat's block in the backward (`torch.utils.checkpoint`, the
+counterpart of the reference's `jax.checkpoint(..., nothing_saveable)`).
 
-Not in this slice: MoE and SSM sub-layers, vision/audio frontends,
-`loss_fn` and sharding rules raise NotImplementedError naming their
-ROADMAP.md item.
+Not in this slice: MoE and SSM sub-layers, vision/audio frontends and
+sharding rules raise NotImplementedError naming their ROADMAP.md item.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple
+from typing import Any, Dict, List, NamedTuple, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from . import layers as L
-from .config import (FRONTENDS, MOE, PARALLEL, SSM, TRAINING, ModelConfig,
-                     SubLayer, not_ported)
+from .config import (FRONTENDS, MOE, PARALLEL, SSM, ModelConfig, SubLayer,
+                     not_ported)
 
 PyTree = Any
 
@@ -126,6 +128,18 @@ def _layer(tree: PyTree, r: int) -> PyTree:
     return {k: _layer(v, r) for k, v in tree.items()}
 
 
+def _unstack(tree: PyTree) -> List[PyTree]:
+    """Every repeat's views of a stacked (repeats, ...) tree, from one
+    unbind per leaf. In the backward each leaf's gradient is then one stack
+    of its repeats' gradients; `_layer`'s indexing would zero-fill and add
+    a whole leaf-sized gradient for every repeat."""
+    if isinstance(tree, torch.Tensor):
+        return list(tree.unbind(0))
+    parts = {k: _unstack(v) for k, v in tree.items()}
+    n = len(next(iter(parts.values())))
+    return [{k: part[r] for k, part in parts.items()} for r in range(n)]
+
+
 # ---------------------------------------------------------------------------
 # Input embedding and head
 # ---------------------------------------------------------------------------
@@ -144,8 +158,83 @@ def _logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return x @ head.to(x.dtype)
 
 
-def loss_fn(*args, **kwargs):
-    raise not_ported("loss_fn (training)", TRAINING)
+def _ffn(p, cfg: ModelConfig, sub: SubLayer, h: torch.Tensor) -> torch.Tensor:
+    if sub.ffn == "none":
+        return h
+    hn = L.rmsnorm(p["norm_ffn"], h, cfg.rms_eps)
+    return h + L.mlp(p["mlp"], cfg, hn)
+
+
+# ---------------------------------------------------------------------------
+# Blocks and the training forward (loss)
+# ---------------------------------------------------------------------------
+
+def _apply_sublayer(p, cfg: ModelConfig, sub: SubLayer, x: torch.Tensor,
+                    positions: torch.Tensor, rules,
+                    check_positions: bool = True
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One attention sub-layer and its FFN; returns (x, aux), aux being the
+    MoE router loss, 0 in the dense slice."""
+    h = L.rmsnorm(p["norm_mix"], x, cfg.rms_eps)
+    x = x + L.attention(p["attn"], cfg, h, positions, rules, check_positions)
+    return _ffn(p, cfg, sub, x), x.new_zeros((), dtype=torch.float32)
+
+
+def _block(p_block, cfg: ModelConfig, x: torch.Tensor,
+           positions: torch.Tensor, rules, check_positions: bool = True
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    aux_total = x.new_zeros((), dtype=torch.float32)
+    for i, sub in enumerate(cfg.pattern):
+        x, aux = _apply_sublayer(p_block[f"sub_{i}"], cfg, sub, x,
+                                 positions, rules, check_positions)
+        aux_total = aux_total + aux
+    return x, aux_total
+
+
+def _run_blocks(params, cfg: ModelConfig, x: torch.Tensor,
+                positions: torch.Tensor, rules, remat: bool,
+                check_positions: bool = True
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The block stack over the stacked weights' repeats. With `remat`,
+    each repeat keeps only its input for the backward and recomputes its
+    block there (no RNG runs inside a block, so its state is not kept)."""
+    def block(p, h):
+        return _block(p, cfg, h, positions, rules, check_positions)
+
+    aux = x.new_zeros((), dtype=torch.float32)
+    for p_block in _unstack(params["blocks"]):
+        if remat:
+            x, a = checkpoint(block, p_block, x, use_reentrant=False,
+                              preserve_rng_state=False)
+        else:
+            x, a = block(p_block, x)
+        aux = aux + a
+    return x, aux
+
+
+def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            rules=None, remat: bool = True
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross entropy, mean(logsumexp(logits) - logit[label])
+    over every position in f32. batch: tokens (B, S) and labels (B, S)
+    ids. Returns (ce + aux, {"ce": ce, "aux": aux}), aux a 0-d f32 zero
+    (the router loss of the MoE layers this slice leaves out).
+
+    The positions are 0..S-1 in every row by construction, so the kernel's
+    attention step skips its check (and its host sync)."""
+    x = embed_inputs(params, cfg, batch, rules)
+    b, s = x.shape[0], x.shape[1]
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=x.device).expand(b, s)
+    x, aux = _run_blocks(params, cfg, x, positions, rules, remat,
+                         check_positions=False)
+    x = L.rmsnorm(params["final_norm"], x, cfg.rms_eps)
+    logits = _logits(params, cfg, x).to(torch.float32)
+    labels = batch["labels"].to(device=logits.device, dtype=torch.int64)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None])[..., 0]
+    ce = torch.mean(lse - ll)
+    return ce + aux, {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------------------
@@ -184,13 +273,6 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int,
     """Zeroed decode caches in cfg.dtype for a decode up to `s_max`."""
     return _zero_cache(cfg, batch, cache_alloc_len(cfg, s_max),
                        resolve_device(device))
-
-
-def _ffn(p, cfg: ModelConfig, sub: SubLayer, h: torch.Tensor) -> torch.Tensor:
-    if sub.ffn == "none":
-        return h
-    hn = L.rmsnorm(p["norm_ffn"], h, cfg.rms_eps)
-    return h + L.mlp(p["mlp"], cfg, hn)
 
 
 def decode_step(params, cfg: ModelConfig, cache: DecodeCache,

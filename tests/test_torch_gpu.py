@@ -23,7 +23,8 @@ from repro_torch.core.precision import CODECS
 from repro_torch.io import load_array, read_manifest, save_array
 from repro_torch.io.streams import (
     AsyncWriteback, ProjectionSource, VolumeSink)
-from repro_torch.kernels.attention import attention_ref, flash_attention
+from repro_torch.kernels.attention import (
+    attention_ref, flash_attention, flash_attention_trainable)
 from repro_torch.kernels.attention import kernel as fak
 from repro_torch.kernels.attention.ref import attention_f64
 from repro_torch.kernels.backproject import kernel as bpk
@@ -32,7 +33,10 @@ from repro_torch.kernels.backproject.ops import kernel_operands
 from repro_torch.kernels.build import CudaLibrary
 from repro_torch.models import layers
 from repro_torch.models.transformer import init_params, prefill
+from repro_torch.optim import AdamWConfig
 from repro_torch.serving import greedy_generate
+from repro_torch.training import (
+    init_train_state, make_train_step, train_state_from_reference)
 
 pytestmark = pytest.mark.gpu
 
@@ -530,6 +534,125 @@ def test_kernel_step_refuses_what_its_mask_cannot_express(cuda):
         layers.prefill_attention(cfg.scaled(sliding_window=4), q, k, k, pos)
     with pytest.raises(ValueError, match="0..S-1"):
         layers.prefill_attention(cfg, q, k, k, pos + 3)
+
+
+# -- training on the card -------------------------------------------------
+
+def test_raw_attention_wrapper_raises_under_grad(cuda):
+    """The kernel writes outside autograd: the raw wrapper refuses operands
+    that require grad while grad is enabled, and launches under no_grad."""
+    q, k, v = _qkv(8, 2, 64, 64, 32, torch.bfloat16, cuda)
+    q.requires_grad_()
+    before = fak.launches
+    with pytest.raises(RuntimeError, match="flash_attention_trainable"):
+        fak.flash_attention_bhsd(q, k, v)
+    with pytest.raises(RuntimeError, match="flash_attention_trainable"):
+        flash_attention(q.view(1, 8, 64, 32).transpose(1, 2),
+                        k.view(1, 2, 64, 32).transpose(1, 2),
+                        v.view(1, 2, 64, 32).transpose(1, 2))
+    assert fak.launches == before
+    with torch.no_grad():
+        fak.flash_attention_bhsd(q, k, v)
+    assert fak.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_trainable_attention_gradients_bit_equal_on_the_card(cuda, dtype):
+    """The Function's forward is the kernel (one launch, within the
+    kernel's bounds of the dense oracle); dq, dk, dv are bit-equal to
+    autograd through the plain step with the same dO, called directly and
+    through the layer's attention step (S = 200, ragged for the tiles)."""
+    cfg = get_smoke_config("qwen2_1_5b")
+    h, kh, hd, s = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, 200
+    rng = np.random.default_rng(7)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                                ).to(cuda, dtype)
+    q, k, v, d_out = t(2, s, h, hd), t(2, s, kh, hd), t(2, s, kh, hd), \
+        t(2, s, h, hd)
+    pos = torch.arange(s, dtype=torch.int32, device=cuda).expand(2, s)
+
+    def plain(q, k, v):
+        return layers.prefill_attention_plain(cfg, q, k, v, pos)
+    ref = [x.clone().requires_grad_() for x in (q, k, v)]
+    want = torch.autograd.grad(plain(*ref), ref, d_out)
+    for step in (lambda *a: flash_attention_trainable(*a, plain=plain),
+                 lambda *a: layers.prefill_attention(cfg, *a, pos)):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        before = fak.launches
+        out = step(*leaves)
+        got = torch.autograd.grad(out, leaves, d_out)
+        torch.cuda.synchronize()
+        assert fak.launches == before + 1
+        for g, w in zip(got, want):
+            assert g.dtype == dtype and torch.equal(g, w)
+        oracle = attention_ref(q, k, v)
+        if dtype == torch.float32:
+            torch.testing.assert_close(out.detach(), oracle, rtol=F32_TOL,
+                                       atol=F32_TOL)
+        else:
+            assert float((out.detach().float() - oracle.float()).abs().max()
+                         ) < BF16_TOL
+
+
+def _fan_in_scaled(params, cfg):
+    """Block weights at std 1 / sqrt(fan_in), as tests/test_torch_training.py
+    draws them (the stacked init's one-hot softmax magnifies round-off)."""
+    from repro_torch.models.transformer import _sublayer_defs
+    with torch.no_grad():
+        for i, sub in enumerate(cfg.pattern):
+            block = params["blocks"][f"sub_{i}"]
+            for name, defs in _sublayer_defs(cfg, sub).items():
+                for key, d in defs.items():
+                    block[name][key].mul_(
+                        (cfg.repeats / (d.fan_in or d.shape[0])) ** 0.5)
+
+
+def test_smoke_train_step_on_the_card_matches_the_cpu(cuda):
+    """Two f32 steps of a 2-layer model, 2 micro-batches: on the card each
+    step launches the kernel 2 layers x 2 (remat) x 2 micro-batches times,
+    and its metrics and params are within the CPU parity test's bounds of
+    the same steps on the CPU."""
+    cfg = get_smoke_config("qwen2_1_5b").scaled(dtype="float32")
+    cpu = init_train_state(cfg, seed=0, device="cpu")
+    _fan_in_scaled(cpu.params, cfg)
+
+    def host(tree):
+        if isinstance(tree, dict):
+            return {k: host(v) for k, v in tree.items()}
+        return tree.detach().numpy().copy()
+    card = train_state_from_reference(
+        (host(cpu.params), (cpu.opt.step.numpy(), host(cpu.opt.mu),
+                            host(cpu.opt.nu))), cfg, device=cuda)
+    step = make_train_step(cfg, microbatches=2, warmup=2, total_steps=16)
+    rng = np.random.default_rng(8)
+    opt = AdamWConfig()
+    for _ in range(2):
+        batch = {k: torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (4, 24)).astype(np.int32))
+            for k in ("labels", "tokens")}
+        cpu, want = step(cpu, batch)
+        before = fak.launches
+        card, got = step(card, {k: v.to(cuda) for k, v in batch.items()})
+        torch.cuda.synchronize()
+        assert fak.launches == before + 2 * 2 * 2
+        for key in ("loss", "grad_norm", "lr_scale"):
+            np.testing.assert_allclose(float(got[key]), float(want[key]),
+                                       rtol=1e-5, err_msg=key)
+        move = 2 * opt.lr * float(want["lr_scale"])
+        flat_cpu, flat_card = host(cpu.params), host(_to(card.params, "cpu"))
+        for (pa, a), (pb, b) in zip(_leaves_of(flat_cpu),
+                                    _leaves_of(flat_card)):
+            assert pa == pb and np.abs(a - b).max() <= move, pa
+    assert int(card.opt.step) == int(cpu.opt.step) == 2
+
+
+def _leaves_of(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in _leaves_of(tree[k], f"{prefix}/{k}")]
+    return [(prefix, tree)]
 
 
 # -- the service, checkpoints and the resumable reconstruction on the card

@@ -26,6 +26,7 @@ from repro_torch import configs as tconfigs
 from repro_torch.models import config as tconfig
 from repro_torch.models import layers as TL
 from repro_torch.models import transformer as TT
+from repro_torch.training import make_abstract_state
 
 torch.set_num_threads(1)
 
@@ -278,5 +279,7 @@ def test_what_the_slice_leaves_out_raises():
     toks = torch.zeros((1, 4), dtype=torch.int64)
     with pytest.raises(NotImplementedError, match="item 19"):
         TT.prefill(tp, tc, {"tokens": toks}, rules=object())
-    with pytest.raises(NotImplementedError, match="item 14"):
-        TT.loss_fn(tp, tc, {"tokens": toks})
+    with pytest.raises(NotImplementedError, match="item 19"):
+        TT.loss_fn(tp, tc, {"tokens": toks, "labels": toks}, rules=object())
+    with pytest.raises(NotImplementedError, match="item 19"):
+        make_abstract_state(tc)
