@@ -173,7 +173,9 @@ Phases, in order; any failure exits non-zero:
    heads over 2 KV heads, S = 2048, D = 128, inputs from numpy): f32 causal
    and non-causal within rtol = atol = 2e-5 (the reference kernel's test
    bound), bf16 causal within a max abs difference of 0.02 (its bf16
-   bound), and a ragged S = 2000 in both dtypes. Then f32 causal with q
+   bound), and a ragged S = 2000 in both dtypes; Qwen2-MoE's group-1 shape
+   (16 heads over 16) and the Jamba pattern's group-8 shape (64 heads over
+   8) causal in both dtypes. Then f32 causal with q
    and k scaled by 3 (a peaked softmax), where the plain version's own f32
    sums sit ~3e-5 from the exact function: the kernel within rtol = atol
    = 2e-5 of the f64 evaluation, and no farther from it than the plain
@@ -219,13 +221,43 @@ Phases, in order; any failure exits non-zero:
    device memory, the profile, and the kernel's time at the training
    shape (2 x 12 heads, S = 2048) beside its bound. Each of 25 and 26
    prints its seconds.
-27. The `kernels` JSON line (each kernel with the PR of its design and
+27. (Phase 26's weights and state are freed before each phase below, which
+   prints the device memory still allocated on entry.)
+28. [moe-serve] Qwen2-MoE-A2.7B at full width and depth (24 layers, d_model
+   2048, 16/16 heads of 128, 60 experts top-4 of 1408, 4 shared, capacity
+   factor 1.25, vocab 151 936; init_params(seed 0) with the draw's peak
+   memory): the serving traffic of phase 23 through greedy_generate, 24
+   kernel launches per prefill (gated); prefill seconds, decode ms per
+   step, tokens/s, peak memory; the share of (token, choice) pairs the
+   capacity dropped in the prefill, from the router's own outputs; a
+   traced prefill and decode step; both kernels timed at the group-1
+   shape. Then [moe-check] at full width and 2 layers, block weights at
+   1 / sqrt(fan_in): the share of tokens whose top-4 set differs between
+   the kernel path and the plain attention step (bf16, f32), then phase
+   23's logit checks (kernel path vs plain step, f32 and bf16), and decode
+   vs prefill on a copy at capacity factor E / k, where nothing drops
+   (prefill with drops and decode without them are different
+   computations), bound 2 x that copy's bf16 plain path from its f32 one.
+29. [ssm-serve] Mamba-2-130M at full width and depth (24 layers, d_model
+   768, SSD d_state 128, head_dim 64, chunk 256): the same traffic, 0
+   kernel launches (attention-free); decode_step's f32 logits at position
+   2048 against an f32 prefill over 2049 tokens within the reference's SSM
+   tolerance (rtol 1e-4, atol 1e-5 x the max).
+30. [hybrid] Jamba-1.5-Large's pattern: one repeat of its 8 sub-layers
+   (attention at 4, MoE on odd indices), d_model 8192, 64/8 heads of 128,
+   16 experts top-2, its SSD as published (256 heads of 64, d_state 128);
+   cut to d_ff / d_ff_expert 4096, the only widths cut. The same traffic,
+   1 launch per prefill (gated); then, on the same
+   weights rescaled to 1 / sqrt(fan_in), phase 23's logit checks with the
+   decode check on a no-drop copy as in [moe-check].
+31. The `kernels` JSON line (each kernel with the PR of its design and
    its launches by path; the back-projector's launches sum every path
    that runs it: phases 4, 7-10, 12, 14-18, 19 and 20's ranks, the
-   attention kernel's the serving prefill and the training steps, each
-   counted from 0 just before the path; a path on another wire type's
-   instantiation, such as the auto plan's, is printed beside it), the
-   card's name and power limit, and last `{"ok": true, "device": {...}}`.
+   attention kernel's the serving prefills (phases 23, 28-30) and the
+   training steps, each counted from 0 just before the path; a path on
+   another wire type's instantiation, such as the auto plan's, is printed
+   beside it), the card's name and power limit, and last
+   `{"ok": true, "device": {...}}`.
 
 The RabbitCT geometry is the public back-projection benchmark's size (496
 projections of 1248 x 960 pixels into 512^3; Rohkohl et al., Med. Phys.
@@ -237,6 +269,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import dataclasses
 import datetime
 import json
 import math
@@ -313,6 +346,17 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICROBATCHES = 4, 2048, 2
 TRAIN_WARMUP, TRAIN_TOTAL = 2, 16
 FIXED_STEPS, TIMED_STEPS = 6, 6   # one fixed batch; then 1 warm-up + timed
 TRAIN_CHECK_LAYERS = 4
+# MoE, SSM and hybrid serving: the same traffic (BATCH, PROMPT, STEPS,
+# S_MAX). [moe-check] cuts Qwen2-MoE's depth to 2 layers; [hybrid] runs
+# one repeat of Jamba's 8-sub-layer pattern at its published d_model,
+# heads and SSD, with d_ff and d_ff_expert cut from 24576 to HYBRID_D_FF:
+# 43.68 GB of f32 weights, and the phase's f32 checks peak near 61 GB on
+# an 80 GB card. Each 1024 more of both FFN widths adds 6.8 GB of weights
+# and grows the no-drop expert buffers; keeping d_model (the SSD's heads
+# and every projection) is the cut that leaves the mixers as published.
+MOE_CHECK_LAYERS = 2
+HYBRID_D_FF = 4096
+SSM_RTOL, SSM_ATOL = 1e-4, 1e-5   # the reference's SSM test tolerance
 
 # Mesh phases: the (pod, data, model) engine of core/plan.py at RabbitCT.
 MESH_AXES = ("pod", "data", "model")
@@ -2298,20 +2342,28 @@ def f32_excess(got, want) -> float:
     return float((err - ATTN_F32_TOL * want.double().abs()).max())
 
 
-def attention_checks(cfg, dev) -> dict:
+def attention_checks(cfg, dev, mha_cfg, gqa8_cfg) -> dict:
     """Phase 22; returns the max |kernel - plain| per dtype, and the
-    stressed f32 case's max distances from the f64 evaluation."""
+    stressed f32 case's max distances from the f64 evaluation. `mha_cfg`
+    gives the group-1 (MHA) cases their heads, `gqa8_cfg` the group-8
+    ones."""
     import torch
 
     from repro_torch.kernels.attention import kernel as fak
     from repro_torch.kernels.attention.ref import attention_f64
 
     max_abs = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    cases = [(torch.float32, True, PROMPT), (torch.float32, False, PROMPT),
-             (torch.bfloat16, True, PROMPT), (torch.float32, True, RAGGED),
-             (torch.bfloat16, True, RAGGED)]
-    for i, (dtype, causal, s) in enumerate(cases):
-        q, k, v = attention_operands(cfg, s, dtype, dev, seed=SEED + i)
+    cases = [(cfg, torch.float32, True, PROMPT),
+             (cfg, torch.float32, False, PROMPT),
+             (cfg, torch.bfloat16, True, PROMPT),
+             (cfg, torch.float32, True, RAGGED),
+             (cfg, torch.bfloat16, True, RAGGED),
+             (mha_cfg, torch.float32, True, PROMPT),
+             (mha_cfg, torch.bfloat16, True, PROMPT),
+             (gqa8_cfg, torch.float32, True, PROMPT),
+             (gqa8_cfg, torch.bfloat16, True, PROMPT)]
+    for i, (c, dtype, causal, s) in enumerate(cases):
+        q, k, v = attention_operands(c, s, dtype, dev, seed=SEED + i)
         got = fak.flash_attention_bhsd(q, k, v, causal=causal)
         want = fak.flash_attention_bhsd_torch(q, k, v, causal=causal)
         torch.cuda.synchronize()
@@ -2365,13 +2417,77 @@ def plain_attention_step(layers):
         layers.prefill_attention = kernel_step
 
 
+def serving_prompts(cfg, dev):
+    """The serving cell's BATCH x PROMPT token ids, from numpy."""
+    import torch
+
+    rng = np.random.default_rng(SEED)
+    return torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (BATCH, PROMPT))).to(dev)
+
+
+def attention_layers(cfg) -> int:
+    return cfg.repeats * sum(s.kind == "attn" for s in cfg.pattern)
+
+
+def generate(tag: str, cfg, params, prompt) -> dict:
+    """The serving traffic: greedy_generate over `prompt` for STEPS steps
+    up to S_MAX after a warm-up prefill, with the kernels' counts at 0 just
+    before it; then a prefill alone, timed. Gates the ids and one kernel
+    launch per attention layer of the prefill. Returns the launches, the
+    timed prefill's logits and cache, prefill seconds, decode ms per step
+    and the peak device memory of the greedy run."""
+    import torch
+
+    from repro_torch.kernels.attention import kernel as fak
+    from repro_torch.kernels.backproject import kernel as bpk
+    from repro_torch.serving import greedy_generate, make_prefill
+
+    sync = torch.cuda.synchronize
+    prefill = make_prefill(cfg)
+    prefill(params, prompt)   # warm-up: cuBLAS handles, the allocator
+    sync()
+    n_attn = attention_layers(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    bpk.launches = fak.launches = 0
+    t0 = time.perf_counter()
+    ids = greedy_generate(cfg, params, prompt, steps=STEPS, s_max=S_MAX)
+    sync()
+    total_s = time.perf_counter() - t0
+    launches = fak.launches
+    peak = torch.cuda.max_memory_allocated()
+    if tuple(ids.shape) != (BATCH, STEPS + 1) or not (
+            0 <= int(ids.min()) and int(ids.max()) < cfg.vocab_size):
+        fail(f"{tag} greedy_generate gave ids of shape {tuple(ids.shape)} "
+             f"outside [0, {cfg.vocab_size})")
+    if launches != n_attn:
+        fail(f"{tag} one prefill launched the attention kernel {launches} "
+             f"times, not {n_attn}")
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, prompt)
+    sync()
+    prefill_s = time.perf_counter() - t0
+    decode_ms = (total_s - prefill_s) / STEPS * 1e3
+    print(f"{tag} greedy_generate {BATCH} x {PROMPT}-token prompts, "
+          f"{STEPS} steps, s_max {S_MAX}: {total_s:.4f} s, "
+          f"{BATCH * (STEPS + 1) / total_s:.1f} generated tokens/s; prefill "
+          f"{prefill_s:.4f} s ({BATCH * PROMPT / prefill_s:.0f} prompt "
+          f"tokens/s); decode {decode_ms:.3f} ms/step "
+          f"({BATCH * 1e3 / decode_ms:.1f} tokens/s); peak "
+          f"{peak / 2**30:.2f} GiB; attention-kernel launches {launches} "
+          f"(one prefill of {n_attn} attention layers)")
+    print(f"{tag} first request's ids: {ids[0, :12].tolist()} ...")
+    if not torch.isfinite(logits.float()).all():
+        fail(f"{tag} prefill gave non-finite logits")
+    return {"launches": launches, "logits": logits, "cache": cache,
+            "prefill_s": prefill_s, "decode_ms": decode_ms, "peak": peak}
+
+
 def serving(cfg, dev) -> dict:
     """Phase 23; returns the attention kernel's launches per dtype on the
     serving path (bf16: greedy_generate; f32: the f32 prefill)."""
     import torch
 
-    from repro_torch.kernels.attention import kernel as fak
-    from repro_torch.kernels.backproject import kernel as bpk
     from repro_torch.models import transformer as T
     from repro_torch.serving import greedy_generate, make_prefill
 
@@ -2385,47 +2501,12 @@ def serving(cfg, dev) -> dict:
           f"{cfg.resolved_head_dim}, {n_params} parameters ({cfg.param_dtype}"
           f", {n_params * 4 / 1e9:.2f} GB) drawn on the card in "
           f"{time.perf_counter() - t0:.2f} s")
-    rng = np.random.default_rng(SEED)
-    tokens = torch.from_numpy(
-        rng.integers(0, cfg.vocab_size, (BATCH, PROMPT))).to(dev)
+    tokens = serving_prompts(cfg, dev)
     prompt = {"tokens": tokens}
     prefill = make_prefill(cfg)
-    prefill(params, prompt)   # warm-up: cuBLAS handles, the allocator
-    sync()
-
-    # The serving path, with the counts at 0 just before it.
-    torch.cuda.reset_peak_memory_stats()
-    bpk.launches = fak.launches = 0
-    t0 = time.perf_counter()
-    ids = greedy_generate(cfg, params, prompt, steps=STEPS, s_max=S_MAX)
-    sync()
-    total_s = time.perf_counter() - t0
-    launches = {torch.bfloat16: fak.launches}
-    peak = torch.cuda.max_memory_allocated()
-    if tuple(ids.shape) != (BATCH, STEPS + 1) or not (
-            0 <= int(ids.min()) and int(ids.max()) < cfg.vocab_size):
-        fail(f"greedy_generate gave ids of shape {tuple(ids.shape)} outside "
-             f"[0, {cfg.vocab_size})")
-    if launches[torch.bfloat16] != cfg.num_layers:
-        fail(f"one prefill launched the attention kernel "
-             f"{launches[torch.bfloat16]} times, not {cfg.num_layers}")
-    t0 = time.perf_counter()
-    logits_k, cache = prefill(params, prompt)
-    sync()
-    prefill_s = time.perf_counter() - t0
-    decode_ms = (total_s - prefill_s) / STEPS * 1e3
-    print(f"[serve] greedy_generate {BATCH} x {PROMPT}-token prompts, "
-          f"{STEPS} steps, s_max {S_MAX}: {total_s:.4f} s, "
-          f"{BATCH * (STEPS + 1) / total_s:.1f} generated tokens/s; prefill "
-          f"{prefill_s:.4f} s ({BATCH * PROMPT / prefill_s:.0f} prompt "
-          f"tokens/s); decode {decode_ms:.3f} ms/step "
-          f"({BATCH * 1e3 / decode_ms:.1f} tokens/s); peak "
-          f"{peak / 2**30:.2f} GiB; attention-kernel launches "
-          f"{launches[torch.bfloat16]} (one prefill of {cfg.num_layers} "
-          f"layers)")
-    print(f"[serve] first request's ids: {ids[0, :12].tolist()} ...")
-    if not torch.isfinite(logits_k.float()).all():
-        fail("prefill gave non-finite logits")
+    run = generate("[serve]", cfg, params, prompt)
+    launches = {torch.bfloat16: run["launches"]}
+    logits_k, cache = run["logits"], run["cache"]
 
     # Where the time goes: the prefill alone, then the whole path.
     profile(lambda: prefill(params, prompt), "bf16 prefill", top=10)
@@ -2437,9 +2518,13 @@ def serving(cfg, dev) -> dict:
     return launches
 
 
-def logit_checks(cfg, params, tokens, logits_k, cache) -> int:
+def logit_checks(cfg, params, tokens, logits_k, cache,
+                 tag: str = "[serve-check]", decode_cfg=None) -> int:
     """The serving checks on the card, from the bf16 prefill's last-position
-    logits and cache; returns the f32 prefill's kernel launches."""
+    logits and cache; returns the f32 prefill's kernel launches. With
+    `decode_cfg` (a MoE model's copy whose capacity drops nothing) the
+    decode check runs on that copy, from its own prefill, under a bound
+    computed on it."""
     import torch
 
     from repro_torch.kernels.attention import kernel as fak
@@ -2448,6 +2533,7 @@ def logit_checks(cfg, params, tokens, logits_k, cache) -> int:
 
     sync = torch.cuda.synchronize
     prompt = {"tokens": tokens}
+    n_attn = attention_layers(cfg)
 
     # The kernel path against the plain attention step, on the card. In
     # bf16 the plain step rounds the scores to bf16 and the kernel keeps
@@ -2467,44 +2553,69 @@ def logit_checks(cfg, params, tokens, logits_k, cache) -> int:
     logits_32k, _ = T.prefill(params, cfg32, prompt)
     sync()
     f32_launches = fak.launches
-    if f32_launches != cfg.num_layers:
-        fail(f"the f32 prefill launched the kernel {f32_launches} times")
+    if f32_launches != n_attn:
+        fail(f"{tag} the f32 prefill launched the kernel {f32_launches} "
+             f"times, not {n_attn}")
     e_plain = rel_rmse(logits_p, logits_32p)
     bf16_bound = 2 * e_plain
     d_bf16 = rel_rmse(logits_k, logits_p)
     d_f32 = rel_rmse(logits_32k, logits_32p)
-    print(f"[serve-check] last-position logits, relative RMSE: bf16 kernel "
+    print(f"{tag} last-position logits, relative RMSE: bf16 kernel "
           f"path vs bf16 plain path {d_bf16:.3e} (bound {bf16_bound:.3e} = "
           f"2 x bf16 plain vs f32 plain {e_plain:.3e}); bf16 kernel path vs "
           f"f32 plain {rel_rmse(logits_k, logits_32p):.3e}; f32 kernel path "
           f"vs f32 plain path {d_f32:.3e} (bound {F32_LOGITS_REL:.0e})")
     if not d_bf16 <= bf16_bound:
-        fail(f"bf16 kernel path off the plain path by {d_bf16:.3e}")
+        fail(f"{tag} bf16 kernel path off the plain path by {d_bf16:.3e}")
     if not d_f32 <= F32_LOGITS_REL:
-        fail(f"f32 kernel path off the plain path by {d_f32:.3e}")
+        fail(f"{tag} f32 kernel path off the plain path by {d_f32:.3e}")
     del logits_p, logits_32p, logits_32k
 
     # Decode self-consistency: decode_step at position PROMPT against a
     # prefill over the prompt plus that token (S = PROMPT + 1, a ragged
     # tail for the kernel). Decode runs the plain step on a bf16 cache,
     # the prefill the kernel: the same bf16 bound.
+    if decode_cfg is not None:
+        cfg = decode_cfg
+        logits_k, cache = T.prefill(params, cfg, prompt)
     nxt = logits_k.argmax(-1)[:, None]
-    full = T.init_cache(cfg, BATCH, PROMPT + 1)
-    for big, small in ((full.attn_k, cache.attn_k),
-                       (full.attn_v, cache.attn_v)):
-        for key in small:
-            big[key][:, :, :PROMPT] = small[key]
+    longer = {"tokens": torch.cat([tokens, nxt], dim=1)}
+    if decode_cfg is not None:
+        # Each bf16 path within e of f32 puts them within 2 e of each other.
+        with plain_attention_step(L):
+            bf16_bound = 2 * rel_rmse(
+                T.prefill(params, cfg, longer)[0],
+                T.prefill(params, cfg.scaled(dtype="float32"), longer)[0])
+    full = T.extend_cache(cfg, cache, PROMPT + 1)
     dec, _ = T.decode_step(params, cfg, full, nxt, PROMPT)
-    ref, _ = T.prefill(params, cfg,
-                       {"tokens": torch.cat([tokens, nxt], dim=1)})
+    ref, _ = T.prefill(params, cfg, longer)
     d_dec = rel_rmse(dec, ref)
-    print(f"[serve-check] decode_step at {PROMPT} vs prefill over "
+    print(f"{tag} decode_step at {PROMPT} vs prefill over "
           f"{PROMPT + 1} tokens: relative RMSE {d_dec:.3e} (bound "
           f"{bf16_bound:.3e}); argmax agrees for "
           f"{int((dec.argmax(-1) == ref.argmax(-1)).sum())}/{BATCH}")
     if not d_dec <= bf16_bound:
-        fail(f"decode_step off prefill by {d_dec:.3e}")
+        fail(f"{tag} decode_step off prefill by {d_dec:.3e}")
     return f32_launches
+
+
+def attention_bounds(q, k, v, flops: float) -> tuple:
+    """(bytes ms, operations ms, what the operations bound counts) of one
+    attention forward: q, k, v read and the output written once; bf16 at
+    the dense bf16 rate, f32 as three TF32 products per product at the
+    dense TF32 rate (f32 accuracy is had two ways on this card, on the f32
+    cores or as 3xTF32 on the tensor cores; the least time is the
+    latter's)."""
+    import torch
+
+    n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+    if q.dtype == torch.bfloat16:
+        return bytes_ms, flops / PEAK_BF16_OPS_PER_S * 1e3, "bf16 tensor cores"
+    return (bytes_ms,
+            TF32_SPLIT_PRODUCTS * flops / PEAK_TF32_OPS_PER_S * 1e3,
+            f"3xTF32: {TF32_SPLIT_PRODUCTS} x operations at the dense TF32 "
+            "rate")
 
 
 def attention_timing(cfg, dev, launches: dict, max_abs: dict,
@@ -2536,21 +2647,9 @@ def attention_timing(cfg, dev, launches: dict, max_abs: dict,
         lib_err = float((sdpa().reshape(q.shape).float()
                          - fak.flash_attention_bhsd_torch(q, k, v).float())
                         .abs().max())
-        n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-        bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
-        if dtype == torch.bfloat16:
-            ops_ms = flops / PEAK_BF16_OPS_PER_S * 1e3
-            ops_of = "bf16 tensor cores"
-            also = ""
-        else:
-            # f32 accuracy is had two ways on this card: on the f32 cores,
-            # or as three TF32 products per product on the tensor cores.
-            # The least time is the latter's.
-            f32_ms = flops / PEAK_F32_OPS_PER_S * 1e3
-            ops_ms = TF32_SPLIT_PRODUCTS * flops / PEAK_TF32_OPS_PER_S * 1e3
-            ops_of = (f"3xTF32: {TF32_SPLIT_PRODUCTS} x operations at the "
-                      "dense TF32 rate")
-            also = f"; on the f32 cores {f32_ms:.4f} ms"
+        bytes_ms, ops_ms, ops_of = attention_bounds(q, k, v, flops)
+        also = ("" if dtype == torch.bfloat16 else "; on the f32 cores "
+                f"{flops / PEAK_F32_OPS_PER_S * 1e3:.4f} ms")
         bound_ms = max(bytes_ms, ops_ms)
         print(f"[attn-time] {dtype} {name}: kernel {ms:.3f} ms "
               f"({flops / ms / 1e9:.2f} TFLOP/s), bound {bound_ms:.4f} ms "
@@ -2592,13 +2691,17 @@ def fan_in_scaled(params, cfg) -> None:
 
     from repro_torch.models import transformer as T
 
+    def scale(tree, defs):
+        for key, d in defs.items():
+            if isinstance(d, dict):       # a MoE's shared experts
+                scale(tree[key], d)
+            else:
+                tree[key].mul_(math.sqrt(cfg.repeats / (d.fan_in
+                                                        or d.shape[0])))
+
     with torch.no_grad():
         for i, sub in enumerate(cfg.pattern):
-            block = params["blocks"][f"sub_{i}"]
-            for name, defs in T._sublayer_defs(cfg, sub).items():
-                for key, d in defs.items():
-                    fan_in = d.fan_in or d.shape[0]
-                    block[name][key].mul_(math.sqrt(cfg.repeats / fan_in))
+            scale(params["blocks"][f"sub_{i}"], T._sublayer_defs(cfg, sub))
 
 
 def train_check(cfg, dev) -> None:
@@ -2896,16 +2999,269 @@ def training(cfg, dev) -> dict:
     q, k, v = attention_operands(cfg, TRAIN_SEQ, torch.bfloat16, dev,
                                  seed=SEED, batch=mb)
     ms = event_ms(lambda: fak.flash_attention_bhsd(q, k, v), ATTN_RUNS)
-    n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    bound_ms = max(n_bytes / PEAK_BYTES_PER_S,
-                   causal_attention_flops(mb, h, TRAIN_SEQ, d)
-                   / PEAK_BF16_OPS_PER_S) * 1e3
+    bound_ms = max(attention_bounds(
+        q, k, v, causal_attention_flops(mb, h, TRAIN_SEQ, d))[:2])
     print(f"[train] fa_fwd_bf16_kernel at the training shape "
           f"{tuple(q.shape)} q, {tuple(k.shape)} k/v: {ms:.3f} ms, bound "
           f"{bound_ms:.4f} ms ({bound_ms / ms:.2%} of bound)")
     print(f"[train] {time.perf_counter() - t_phase:.1f} s")
     return {"launches": count["launches"], "train_shape_ms": ms,
             "train_shape_bound_ms": bound_ms}
+
+
+@contextlib.contextmanager
+def recorded_routing():
+    """Each MoE layer's Routing (the router's own outputs) while the block
+    runs, in call order; the routing itself is unchanged."""
+    from repro_torch.models import moe as M
+
+    inner, calls = M.route, []
+
+    def route(params, cfg, x):
+        r = inner(params, cfg, x)
+        calls.append(r)
+        return r
+
+    M.route = route
+    try:
+        yield calls
+    finally:
+        M.route = inner
+
+
+def entering(tag: str) -> None:
+    """The previous phase's tensors are freed: say what is left."""
+    import torch
+
+    torch.cuda.empty_cache()
+    print(f"{tag} device memory allocated on entry: "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+
+
+def init_on_card(tag: str, cfg, dev, what: str):
+    """init_params(seed 0) with the peak device memory of the draw."""
+    import torch
+
+    from repro_torch.models import config as C
+    from repro_torch.models import transformer as T
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    n = T.param_count(params)
+    if n != C.count_params(cfg):
+        fail(f"{tag} {n} parameters, count_params says {C.count_params(cfg)}")
+    print(f"{tag} {cfg.name} {what}: {n} parameters ({cfg.param_dtype}, "
+          f"{n * 4 / 1e9:.2f} GB; active per token "
+          f"{C.count_active_params(cfg)}), drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s, peak device memory during the "
+          f"draw {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return params
+
+
+def no_drop(cfg):
+    """A copy whose capacity holds every token: c >= S for any S once the
+    factor is at least E / k, since an expert takes at most one choice a
+    token."""
+    m = cfg.moe
+    return cfg.scaled(moe=dataclasses.replace(
+        m, capacity_factor=max(m.capacity_factor, m.num_experts / m.top_k)))
+
+
+def moe_serve(cfg, dev) -> dict:
+    """Phase 28 [moe-serve] and [moe-check]; returns the attention
+    kernel's launches by path and dtype."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+
+    t_phase = time.perf_counter()
+    entering("[moe-serve]")
+    m = cfg.moe
+    params = init_on_card(
+        "[moe-serve]", cfg, dev,
+        f"({cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads of "
+        f"{cfg.resolved_head_dim}, {m.num_experts} experts top-{m.top_k} "
+        f"of {m.d_ff_expert}, {m.num_shared_experts} shared, capacity "
+        f"factor {m.capacity_factor:g}, vocab {cfg.vocab_size})")
+    tokens = serving_prompts(cfg, dev)
+    prompt = {"tokens": tokens}
+    run = generate("[moe-serve]", cfg, params, prompt)
+    with recorded_routing() as calls:
+        T.prefill(params, cfg, prompt)
+    kept = [float(r.keep.float().mean()) for r in calls]
+    c = M.capacity(cfg, PROMPT)
+    print(f"[moe-serve] capacity {c} slots per expert and row; (token, "
+          f"choice) pairs dropped in the prefill, from the router's "
+          f"outputs: {1 - sum(kept) / len(kept):.4%} over {len(kept)} MoE "
+          f"layers (per layer {1 - max(kept):.4%} to {1 - min(kept):.4%})")
+    del calls
+    profile(lambda: T.prefill(params, cfg, prompt), "moe bf16 prefill",
+            top=14)
+    nxt = run["logits"].argmax(-1)[:, None]
+    full = T.extend_cache(cfg, run["cache"], PROMPT + 1)
+    profile(lambda: T.decode_step(params, cfg, full, nxt, PROMPT),
+            "moe bf16 decode_step", top=8)
+    mha_timing(cfg, dev)
+    launches = run["launches"]
+    del params, run, full
+    print(f"[moe-serve] {time.perf_counter() - t_phase:.1f} s")
+
+    # The kernel-vs-plain and decode-vs-prefill checks at full width and
+    # MOE_CHECK_LAYERS layers, block weights at 1 / sqrt(fan_in).
+    t_phase = time.perf_counter()
+    entering("[moe-check]")
+    cut = cfg.scaled(num_layers=MOE_CHECK_LAYERS)
+    params = init_on_card("[moe-check]", cut, dev,
+                          f"at full width, {MOE_CHECK_LAYERS} layers")
+    fan_in_scaled(params, cut)
+    for dt in ("bfloat16", "float32"):
+        c = cut.scaled(dtype=dt)
+        with recorded_routing() as kernel_path:
+            T.prefill(params, c, prompt)
+        with recorded_routing() as plain_path, plain_attention_step(L):
+            T.prefill(params, c, prompt)
+        differ = [float((k.gate_idx.sort(-1).values
+                         != p.gate_idx.sort(-1).values).any(-1)
+                        .float().mean())
+                  for k, p in zip(kernel_path, plain_path)]
+        print(f"[moe-check] {dt} routing, kernel path vs plain attention "
+              f"step: share of tokens whose top-{m.top_k} set differs, "
+              f"per MoE layer: {[f'{x:.4%}' for x in differ]}")
+        del kernel_path, plain_path
+    logits_k, cache = T.prefill(params, cut, prompt)
+    nd = no_drop(cut)
+    print(f"[moe-check] decode vs prefill on a copy at capacity factor "
+          f"{nd.moe.capacity_factor:g} (>= E / k): capacity "
+          f"{M.capacity(nd, PROMPT + 1)} slots >= {PROMPT + 1} tokens, so "
+          f"nothing drops; at the published factor a prefill (which may "
+          f"drop) and decode (capacity {M.capacity(cut, 1)} a step, never "
+          f"dropping) are different computations")
+    f32 = logit_checks(cut, params, tokens, logits_k, cache, "[moe-check]",
+                       decode_cfg=nd)
+    print(f"[moe-check] {time.perf_counter() - t_phase:.1f} s")
+    return {"bf16": launches, "f32": f32}
+
+
+def mha_timing(cfg, dev) -> None:
+    """Both attention kernels at the MoE prefill's shape, group 1 (MHA),
+    beside their bounds."""
+    import torch
+
+    from repro_torch.kernels.attention import kernel as fak
+
+    h, d = cfg.num_heads, cfg.resolved_head_dim
+    flops = causal_attention_flops(BATCH, h, PROMPT, d)
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = attention_operands(cfg, PROMPT, dtype, dev, seed=SEED)
+        ms = event_ms(lambda: fak.flash_attention_bhsd(q, k, v), ATTN_RUNS)
+        bytes_ms, ops_ms, _ = attention_bounds(q, k, v, flops)
+        bound_ms = max(bytes_ms, ops_ms)
+        print(f"[moe-serve] attention kernel {dtype} at {tuple(q.shape)} q, "
+              f"{tuple(k.shape)} k/v (group 1): {ms:.3f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_ms / ms:.2%} of bound)")
+        del q, k, v
+
+
+def ssm_serve(cfg, dev) -> int:
+    """Phase 29 [ssm-serve]: Mamba-2 at full width and depth."""
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    t_phase = time.perf_counter()
+    entering("[ssm-serve]")
+    s = cfg.ssm
+    params = init_on_card(
+        "[ssm-serve]", cfg, dev,
+        f"({cfg.num_layers} layers, d_model {cfg.d_model}, SSD d_state "
+        f"{s.d_state}, head_dim {s.head_dim}, expand {s.expand}, chunk "
+        f"{s.chunk}, vocab {cfg.vocab_size}, attention-free: "
+        f"{cfg.attention_free})")
+    tokens = serving_prompts(cfg, dev)
+    prompt = {"tokens": tokens}
+    run = generate("[ssm-serve]", cfg, params, prompt)
+    profile(lambda: T.prefill(params, cfg, prompt), "ssm bf16 prefill",
+            top=10)
+
+    # Decode continues the prefill, in f32.
+    c32 = cfg.scaled(dtype="float32")
+    logits, cache = T.prefill(params, c32, prompt)
+    nxt = logits.argmax(-1)[:, None]
+    full = T.extend_cache(c32, cache, PROMPT + 1)
+    dec, _ = T.decode_step(params, c32, full, nxt, PROMPT)
+    ref, _ = T.prefill(params, c32, {"tokens": torch.cat([tokens, nxt], 1)})
+    err = (dec - ref).abs()
+    bound = SSM_RTOL * ref.abs() + SSM_ATOL * float(ref.abs().max())
+    worst = float((err - bound).max())
+    print(f"[ssm-serve] f32 decode_step at {PROMPT} vs prefill over "
+          f"{PROMPT + 1} tokens: max |decode - prefill| {float(err.max()):.3e}"
+          f" of max |logit| {float(ref.abs().max()):.3e}; bound rtol "
+          f"{SSM_RTOL:g} + atol {SSM_ATOL:g} x max (the reference's SSM "
+          f"tolerance): {'held' if worst <= 0 else 'exceeded'}; argmax "
+          f"agrees for {int((dec.argmax(-1) == ref.argmax(-1)).sum())}/"
+          f"{BATCH}")
+    if worst > 0:
+        fail("[ssm-serve] decode does not continue the prefill")
+    print(f"[ssm-serve] {time.perf_counter() - t_phase:.1f} s")
+    return run["launches"]
+
+
+def hybrid_config(base):
+    """Jamba-1.5-Large's pattern on one card: one repeat, d_ff and
+    d_ff_expert cut to HYBRID_D_FF, every other width as published."""
+    return base.scaled(num_layers=len(base.pattern), d_ff=HYBRID_D_FF,
+                       moe=dataclasses.replace(base.moe,
+                                               d_ff_expert=HYBRID_D_FF))
+
+
+def hybrid(base, dev) -> dict:
+    """Phase 30 [hybrid]: Jamba-1.5-Large's pattern at the listed cuts;
+    returns the attention kernel's launches by dtype."""
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    t_phase = time.perf_counter()
+    entering("[hybrid]")
+    cfg = hybrid_config(base)
+    m, s = cfg.moe, cfg.ssm
+    kinds = "".join("A" if x.kind == "attn" else "S" for x in cfg.pattern)
+    ffns = "".join({"moe": "E", "mlp": "M", "none": "-"}[x.ffn]
+                   for x in cfg.pattern)
+    params = init_on_card(
+        "[hybrid]", cfg, dev,
+        f"kept as published: one repeat of the {len(cfg.pattern)}-sub-layer "
+        f"pattern (mixers {kinds}, FFNs {ffns}), d_model {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads of "
+        f"{cfg.resolved_head_dim}, {m.num_experts} experts top-{m.top_k}, "
+        f"SSD d_state {s.d_state} head_dim {s.head_dim} expand {s.expand} "
+        f"chunk {s.chunk}, vocab {cfg.vocab_size}; cut: {base.num_layers} "
+        f"-> {cfg.num_layers} layers, d_ff {base.d_ff} -> {cfg.d_ff}, "
+        f"d_ff_expert {base.moe.d_ff_expert} -> {m.d_ff_expert} (the "
+        f"published FFN widths do not fit one card; no other width cut)")
+    tokens = serving_prompts(cfg, dev)
+    prompt = {"tokens": tokens}
+    run = generate("[hybrid]", cfg, params, prompt)
+    profile(lambda: T.prefill(params, cfg, prompt), "hybrid bf16 prefill",
+            top=12)
+    # The checks on the same weights at 1 / sqrt(fan_in): one repeat draws
+    # every stacked block weight at std 1 (a one-hot softmax).
+    del run["cache"]
+    fan_in_scaled(params, cfg)
+    print("[hybrid] checks below on the same weights rescaled to std "
+          "1 / sqrt(fan_in)")
+    torch.cuda.reset_peak_memory_stats()
+    logits_k, cache = T.prefill(params, cfg, prompt)
+    f32 = logit_checks(cfg, params, tokens, logits_k, cache, "[hybrid]",
+                       decode_cfg=no_drop(cfg))
+    print(f"[hybrid] peak device memory over the checks (f32 prefills at "
+          f"the no-drop capacity): "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    print(f"[hybrid] {time.perf_counter() - t_phase:.1f} s")
+    return {"bf16": run["launches"], "f32": f32}
 
 
 def flat_leaves(tree, prefix: str = "") -> list:
@@ -2939,7 +3295,7 @@ def main() -> int:
 
 
 def run(work: str) -> int:
-    """Phases 1-27 (see the module's docstring); stores and checkpoints
+    """Phases 1-31 (see the module's docstring); stores and checkpoints
     go under `work`."""
     import torch
 
@@ -3031,7 +3387,10 @@ def run(work: str) -> int:
 
     # 22-24. Serving --------------------------------------------------------
     cfg = get_config("qwen2_1_5b")
-    max_abs, stressed = attention_checks(cfg, dev)
+    moe_cfg = get_config("qwen2_moe_a2_7b")
+    hybrid_cfg = get_config("jamba_1_5_large")
+    max_abs, stressed = attention_checks(cfg, dev, moe_cfg,
+                                         hybrid_config(hybrid_cfg))
     launches = serving(cfg, dev)
     torch.cuda.empty_cache()
     attn = attention_timing(cfg, dev, launches, max_abs, stressed)
@@ -3045,10 +3404,27 @@ def run(work: str) -> int:
         trains = entry["name"] == "fa_fwd_bf16_kernel"  # cfg.dtype bf16
         entry["launches_by_path"]["training"] = (
             trained["launches"] if trains else 0)
-        entry["launches"] = sum(entry["launches_by_path"].values())
         if trains:
             entry["train_shape_ms"] = trained["train_shape_ms"]
             entry["train_shape_bound_ms"] = trained["train_shape_bound_ms"]
+    del trained
+    torch.cuda.empty_cache()
+
+    # 28-30. MoE, SSM and hybrid serving (the training state is freed) ----
+    moe = moe_serve(moe_cfg, dev)
+    ssm = ssm_serve(get_config("mamba2_130m"), dev)
+    hyb = hybrid(hybrid_cfg, dev)
+    for entry in attn:
+        if entry["name"] == "fa_fwd_bf16_kernel":
+            entry["launches_by_path"].update({
+                "moe serving prefill": moe["bf16"],
+                "ssm serving prefill": ssm,
+                "hybrid serving prefill": hyb["bf16"]})
+        else:
+            entry["launches_by_path"].update({
+                "moe f32 prefill": moe["f32"],
+                "hybrid f32 prefill": hyb["f32"]})
+        entry["launches"] = sum(entry["launches_by_path"].values())
         print(f"[kernels] {entry['name']} launches: {entry['launches']} = "
               f"{entry['launches_by_path']}")
     entries += attn
@@ -3059,7 +3435,7 @@ def run(work: str) -> int:
     if leaked:
         fail(f"the port imported {leaked}")
 
-    # 27. Result -----------------------------------------------------------
+    # 31. Result -----------------------------------------------------------
     print(json.dumps({"kernels": entries}))
     print(f"[device] {smi}")
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """Architecture configs of the LM substrate.
 
-Port of `repro/configs/__init__.py` over the dense configs the port serves:
+Port of `repro/configs/__init__.py` over the configs the port serves:
 each module exposes CONFIG (the published configuration) and
 smoke_config() (a reduced same-family config for CPU tests).
 `get_config(name)` / `get_smoke_config(name)` / `list_archs()` are the
@@ -12,22 +12,21 @@ from __future__ import annotations
 import importlib
 from typing import List
 
-from ..models.config import (CONFIGS, FRONTENDS, MOE, SSM,
-                                       ModelConfig, not_ported)
+from ..models.config import CONFIGS, FRONTENDS, ModelConfig, not_ported
 
 ARCHS = [
     "qwen2_1_5b",
     "yi_6b",
+    "qwen2_moe_a2_7b",
+    "jamba_1_5_large",
+    "mamba2_130m",
 ]
 
 # The reference's other architectures -> what brings each back.
 _NOT_PORTED = {
     "deepseek_coder_33b": CONFIGS,
     "internlm2_20b": CONFIGS,
-    "qwen2_moe_a2_7b": MOE,
-    "mixtral_8x7b": f"{MOE} and {CONFIGS}",
-    "jamba_1_5_large": SSM,
-    "mamba2_130m": SSM,
+    "mixtral_8x7b": CONFIGS,
     "internvl2_26b": FRONTENDS,
     "musicgen_large": FRONTENDS,
 }

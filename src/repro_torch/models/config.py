@@ -3,9 +3,10 @@
 Port of `repro/models/config.py`: the same frozen dataclasses, so that the
 reference's configs load unchanged. A model is `num_layers` sub-layers
 arranged as repeats of a block pattern (tuple of SubLayer descriptors).
-The port serves and trains dense attention + MLP patterns; the MoE, SSM
-and frontend dataclasses are data only here, and the layers that use them
-raise NotImplementedError naming their ROADMAP.md item (`not_ported`).
+The port serves and trains attention, MoE and Mamba-2 (SSD) patterns, the
+hybrid Jamba stack included; the frontend dataclass is data only here, and
+the layers that use it raise NotImplementedError naming its ROADMAP.md item
+(`not_ported`).
 """
 from __future__ import annotations
 
@@ -16,11 +17,9 @@ Kind = Literal["attn", "ssm"]
 Ffn = Literal["mlp", "moe", "none"]
 
 # ROADMAP.md Queue 1 items that bring back what the LM slice leaves out.
-MOE = "ROADMAP.md Queue 1 item 15 (MoE layers)"
-SSM = "ROADMAP.md Queue 1 item 16 (SSM and hybrid layers)"
 FRONTENDS = "ROADMAP.md Queue 1 item 17 (vision and audio frontends)"
-CONFIGS = ("ROADMAP.md Queue 1 item 18 (sliding-window and other dense "
-           "configs)")
+CONFIGS = ("ROADMAP.md Queue 1 item 18 (Mixtral's windowed prefill in the "
+           "kernel, and the other dense configs)")
 PARALLEL = "ROADMAP.md Queue 1 item 19 (parallel/: sharding rules)"
 
 
@@ -113,6 +112,17 @@ class ModelConfig:
             return self.head_dim
         return self.d_model // self.num_heads if self.num_heads else 0
 
+    @property
+    def attention_free(self) -> bool:
+        return all(s.kind != "attn" for s in self.pattern)
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """Eligible for the reference's long_500k cell."""
+        return self.attention_free or self.family == "hybrid" or (
+            self.sliding_window is not None
+        )
+
     def scaled(self, **overrides) -> "ModelConfig":
         """A reduced config of the same family (smoke tests)."""
         return dataclasses.replace(self, **overrides)
@@ -166,3 +176,23 @@ def count_params(cfg: ModelConfig) -> int:
     total += cfg.repeats * per_pattern
     total += d  # final norm
     return int(total)
+
+
+def count_moe_expert_params(cfg: ModelConfig) -> int:
+    """Routed-expert params only."""
+    if cfg.moe is None:
+        return 0
+    m = cfg.moe
+    n_moe_layers = cfg.repeats * sum(1 for s in cfg.pattern if s.ffn == "moe")
+    return int(n_moe_layers * m.num_experts * 3 * cfg.d_model * m.d_ff_expert)
+
+
+def count_active_params(cfg: ModelConfig) -> int:
+    """Per-token active params (MoE: only top_k + shared experts)."""
+    if cfg.moe is None:
+        return count_params(cfg)
+    m = cfg.moe
+    d = cfg.d_model
+    inactive_per_moe = (m.num_experts - m.top_k) * 3 * d * m.d_ff_expert
+    n_moe_layers = cfg.repeats * sum(1 for s in cfg.pattern if s.ffn == "moe")
+    return int(count_params(cfg) - n_moe_layers * inactive_per_moe)

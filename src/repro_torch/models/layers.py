@@ -57,8 +57,10 @@ def init_param(generator: torch.Generator, d: ParamDef) -> torch.Tensor:
         return torch.zeros(d.shape, dtype=torch_dtype(d.dtype), device=dev)
     fan_in = d.fan_in or d.shape[0]
     std = d.scale / math.sqrt(max(fan_in, 1))
-    return (torch.randn(d.shape, generator=generator, dtype=torch.float32,
-                        device=dev) * std).to(torch_dtype(d.dtype))
+    # Scaled in place: an out-of-place product would hold two copies of the
+    # largest leaf at once (16.6 GB for Qwen2-MoE's expert stacks).
+    return torch.randn(d.shape, generator=generator, dtype=torch.float32,
+                       device=dev).mul_(std).to(torch_dtype(d.dtype))
 
 
 def init_tree(generator: torch.Generator, defs):

@@ -1,5 +1,5 @@
-"""Full model, dense subset: embeddings + block stack + tied or untied head;
-the training loss, and prefill and decode with KV caches.
+"""Full model: embeddings + block stack + tied or untied head; the
+training loss, and prefill and decode with KV and SSM caches.
 
 Port of `repro/models/transformer.py`. Parameters keep the reference's dict
 keys, with each pattern-repeat's weights stacked on a leading `repeats`
@@ -9,8 +9,10 @@ Python loop walks it, one layer's views at a time. `loss_fn` rematerialises
 each repeat's block in the backward (`torch.utils.checkpoint`, the
 counterpart of the reference's `jax.checkpoint(..., nothing_saveable)`).
 
-Not in this slice: MoE and SSM sub-layers, vision/audio frontends and
-sharding rules raise NotImplementedError naming their ROADMAP.md item.
+A block is the config's pattern of sub-layers: attention or Mamba-2 (SSD)
+mixing, then an MLP, a MoE or no FFN (the hybrid Jamba stack repeats 8 of
+them). Not in this port yet: vision/audio frontends and sharding rules
+raise NotImplementedError naming their ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -22,8 +24,9 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from . import layers as L
-from .config import (FRONTENDS, MOE, PARALLEL, SSM, ModelConfig, SubLayer,
-                     not_ported)
+from .config import FRONTENDS, PARALLEL, ModelConfig, SubLayer, not_ported
+from .moe import moe, moe_defs
+from .ssm import SSMCache, ssm_block, ssm_cache_defs, ssm_defs
 
 PyTree = Any
 
@@ -33,22 +36,24 @@ PyTree = Any
 # ---------------------------------------------------------------------------
 
 def _check_supported(cfg: ModelConfig) -> None:
-    """Raises for what the dense slice leaves out."""
+    """Raises for what the port leaves out."""
     if cfg.frontend is not None:
         raise not_ported(f"{cfg.name}: the {cfg.frontend.modality} frontend",
                          FRONTENDS)
-    if any(sub.kind != "attn" for sub in cfg.pattern):
-        raise not_ported(f"{cfg.name}: SSM sub-layers", SSM)
-    if any(sub.ffn == "moe" for sub in cfg.pattern):
-        raise not_ported(f"{cfg.name}: MoE sub-layers", MOE)
 
 
 def _sublayer_defs(cfg: ModelConfig, sub: SubLayer) -> Dict:
-    defs: Dict[str, Any] = {"norm_mix": L.rmsnorm_defs(cfg.d_model),
-                            "attn": L.attention_defs(cfg)}
-    if sub.ffn == "mlp":
+    defs: Dict[str, Any] = {"norm_mix": L.rmsnorm_defs(cfg.d_model)}
+    if sub.kind == "attn":
+        defs["attn"] = L.attention_defs(cfg)
+    else:
+        defs["ssm"] = ssm_defs(cfg)
+    if sub.ffn != "none":
         defs["norm_ffn"] = L.rmsnorm_defs(cfg.d_model)
-        defs["mlp"] = L.mlp_defs(cfg)
+        if sub.ffn == "mlp":
+            defs["mlp"] = L.mlp_defs(cfg)
+        else:
+            defs["moe"] = moe_defs(cfg)
     return defs
 
 
@@ -158,11 +163,18 @@ def _logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return x @ head.to(x.dtype)
 
 
-def _ffn(p, cfg: ModelConfig, sub: SubLayer, h: torch.Tensor) -> torch.Tensor:
+def _ffn(p, cfg: ModelConfig, sub: SubLayer, x: torch.Tensor
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The sub-layer's FFN half, (x + ffn(norm(x)), aux): aux is the MoE
+    router loss, a 0-d f32 zero for an MLP or no FFN."""
+    aux = x.new_zeros((), dtype=torch.float32)
     if sub.ffn == "none":
-        return h
-    hn = L.rmsnorm(p["norm_ffn"], h, cfg.rms_eps)
-    return h + L.mlp(p["mlp"], cfg, hn)
+        return x, aux
+    h = L.rmsnorm(p["norm_ffn"], x, cfg.rms_eps)
+    if sub.ffn == "mlp":
+        return x + L.mlp(p["mlp"], cfg, h), aux
+    out, aux = moe(p["moe"], cfg, h)
+    return x + out, aux
 
 
 # ---------------------------------------------------------------------------
@@ -173,11 +185,16 @@ def _apply_sublayer(p, cfg: ModelConfig, sub: SubLayer, x: torch.Tensor,
                     positions: torch.Tensor, rules,
                     check_positions: bool = True
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One attention sub-layer and its FFN; returns (x, aux), aux being the
-    MoE router loss, 0 in the dense slice."""
+    """One sub-layer, its mixer (attention or SSM) and its FFN; returns
+    (x, aux), aux being the MoE router loss (0 without a MoE)."""
     h = L.rmsnorm(p["norm_mix"], x, cfg.rms_eps)
-    x = x + L.attention(p["attn"], cfg, h, positions, rules, check_positions)
-    return _ffn(p, cfg, sub, x), x.new_zeros((), dtype=torch.float32)
+    if sub.kind == "attn":
+        x = x + L.attention(p["attn"], cfg, h, positions, rules,
+                            check_positions)
+    else:
+        out, _ = ssm_block(p["ssm"], cfg, h, rules)
+        x = x + out
+    return _ffn(p, cfg, sub, x)
 
 
 def _block(p_block, cfg: ModelConfig, x: torch.Tensor,
@@ -217,8 +234,8 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross entropy, mean(logsumexp(logits) - logit[label])
     over every position in f32. batch: tokens (B, S) and labels (B, S)
-    ids. Returns (ce + aux, {"ce": ce, "aux": aux}), aux a 0-d f32 zero
-    (the router loss of the MoE layers this slice leaves out).
+    ids. Returns (ce + aux, {"ce": ce, "aux": aux}), aux the MoE layers'
+    summed router loss (a 0-d f32 zero without them).
 
     The positions are 0..S-1 in every row by construction, so the kernel's
     attention step skips its check (and its host sync)."""
@@ -242,8 +259,10 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
 # ---------------------------------------------------------------------------
 
 class DecodeCache(NamedTuple):
-    """Stacked (repeats, B, S_alloc, K, hd) caches per attention sub-layer
-    (keys "sub_<i>"); `ssm` stays empty in the dense slice."""
+    """Per sub-layer key "sub_<i>": stacked (repeats, B, S_alloc, K, hd)
+    k and v caches of each attention sub-layer in cfg.dtype, and an
+    SSMCache of each SSM sub-layer, conv (repeats, B, d_conv-1, C) in
+    cfg.dtype and state (repeats, B, H, P, N) in f32."""
     attn_k: Dict
     attn_v: Dict
     ssm: Dict
@@ -261,24 +280,55 @@ def _zero_cache(cfg: ModelConfig, batch: int, s: int,
     _check_supported(cfg)
     shape = (cfg.repeats, batch, s, cfg.num_kv_heads, cfg.resolved_head_dim)
     dtype = L.torch_dtype(cfg.dtype)
-    keys = [f"sub_{i}" for i in range(len(cfg.pattern))]
-    return DecodeCache(
-        {k: torch.zeros(shape, dtype=dtype, device=device) for k in keys},
-        {k: torch.zeros(shape, dtype=dtype, device=device) for k in keys},
-        {})
+    cache = DecodeCache({}, {}, {})
+    for i, sub in enumerate(cfg.pattern):
+        key = f"sub_{i}"
+        if sub.kind == "attn":
+            for side in (cache.attn_k, cache.attn_v):
+                side[key] = torch.zeros(shape, dtype=dtype, device=device)
+        else:
+            one = ssm_cache_defs(cfg, batch, device)
+            cache.ssm[key] = SSMCache(
+                *(t.new_zeros((cfg.repeats, *t.shape)) for t in one))
+    return cache
 
 
 def init_cache(cfg: ModelConfig, batch: int, s_max: int,
                device="cuda") -> DecodeCache:
-    """Zeroed decode caches in cfg.dtype for a decode up to `s_max`."""
+    """Zeroed decode caches for a decode up to `s_max`: KV caches and SSM
+    conv buffers in cfg.dtype, SSM states in f32."""
     return _zero_cache(cfg, batch, cache_alloc_len(cfg, s_max),
                        resolve_device(device))
+
+
+def extend_cache(cfg: ModelConfig, cache: DecodeCache,
+                 s_max: int) -> DecodeCache:
+    """The decode cache up to `s_max` that continues a prefill's `cache`.
+
+    Each attention sub-layer's k and v over the prompt go into the first
+    positions of a zeroed (repeats, B, s_max, K, hd) cache; a ring buffer
+    (cache_alloc_len < s_max) is kept as it is, as the reference's `place`
+    keeps it. The SSM caches do not grow with the sequence and carry over
+    as they are."""
+    grows = cache_alloc_len(cfg, s_max) == s_max
+
+    def grown(small: torch.Tensor) -> torch.Tensor:
+        if not grows:
+            return small
+        big = small.new_zeros((*small.shape[:2], s_max, *small.shape[3:]))
+        big[:, :, :small.shape[2]] = small
+        return big
+
+    return DecodeCache({k: grown(t) for k, t in cache.attn_k.items()},
+                       {k: grown(t) for k, t in cache.attn_v.items()},
+                       cache.ssm)
 
 
 def decode_step(params, cfg: ModelConfig, cache: DecodeCache,
                 tokens: torch.Tensor, cur_len: int, rules=None):
     """One decode step. tokens: (B, 1); cur_len: the position of `tokens`
-    (a Python int). Writes the new k, v into `cache` in place.
+    (a Python int). Writes the new k, v and the SSM states into `cache` in
+    place.
 
     Returns (logits (B, V), cache)."""
     x = embed_inputs(params, cfg, {"tokens": tokens}, rules)
@@ -288,10 +338,20 @@ def decode_step(params, cfg: ModelConfig, cache: DecodeCache,
             key = f"sub_{i}"
             p = p_block[key]
             hn = L.rmsnorm(p["norm_mix"], x, cfg.rms_eps)
-            out, _, _ = L.attention_decode(
-                p["attn"], cfg, hn, cache.attn_k[key][r],
-                cache.attn_v[key][r], cur_len)
-            x = _ffn(p, cfg, sub, x + out)
+            if sub.kind == "attn":
+                out, _, _ = L.attention_decode(
+                    p["attn"], cfg, hn, cache.attn_k[key][r],
+                    cache.attn_v[key][r], cur_len)
+            else:
+                stacked = cache.ssm[key]
+                out, new = ssm_block(
+                    p["ssm"], cfg, hn,
+                    cache=SSMCache(stacked.conv[r], stacked.state[r]))
+                # ssm_block built the shifted conv buffer and the state as
+                # new tensors, so these copies never overlap their source.
+                stacked.conv[r].copy_(new.conv)
+                stacked.state[r].copy_(new.state)
+            x, _ = _ffn(p, cfg, sub, x + out)
     x = L.rmsnorm(params["final_norm"], x, cfg.rms_eps)
     logits = _logits(params, cfg, x)
     return logits[:, 0], cache
@@ -302,7 +362,8 @@ def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     """Process a full prompt; returns (last-position logits, cache).
 
     The cache covers the prompt span, (repeats, B, S, K, hd) in cfg.dtype
-    per attention sub-layer; decode extends its own cache.
+    per attention sub-layer (decode extends its own cache), and holds each
+    SSM sub-layer's state and conv tail after the prompt.
     """
     x = embed_inputs(params, cfg, batch, rules)
     b, s = x.shape[0], x.shape[1]
@@ -315,10 +376,16 @@ def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             key = f"sub_{i}"
             p = p_block[key]
             hn = L.rmsnorm(p["norm_mix"], x, cfg.rms_eps)
-            out, k, v = L.attention_with_kv(p["attn"], cfg, hn, positions)
-            cache.attn_k[key][r] = k
-            cache.attn_v[key][r] = v
-            x = _ffn(p, cfg, sub, x + out)
+            if sub.kind == "attn":
+                out, k, v = L.attention_with_kv(p["attn"], cfg, hn,
+                                                positions)
+                cache.attn_k[key][r] = k
+                cache.attn_v[key][r] = v
+            else:
+                out, new = ssm_block(p["ssm"], cfg, hn, return_cache=True)
+                cache.ssm[key].conv[r] = new.conv
+                cache.ssm[key].state[r] = new.state
+            x, _ = _ffn(p, cfg, sub, x + out)
     x = L.rmsnorm(params["final_norm"], x[:, -1:], cfg.rms_eps)
     logits = _logits(params, cfg, x)
     return logits[:, -1], cache

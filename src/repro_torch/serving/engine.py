@@ -1,9 +1,10 @@
 """Serving: batched prefill + single-token decode over a KV cache.
 
-Port of `repro/serving/engine.py` for the dense slice. Everything runs on
-the device the parameters live on (`init_params` / `params_from_reference`
-put them on the card unless asked for the CPU); there, every prefill
-attention layer runs the flash-attention kernel.
+Port of `repro/serving/engine.py`. Everything runs on the device the
+parameters live on (`init_params` / `params_from_reference` put them on
+the card unless asked for the CPU); there, every prefill attention layer
+runs the flash-attention kernel. SSM sub-layers carry a fixed-size
+recurrent state from the prefill into the decode instead of a KV cache.
 """
 from __future__ import annotations
 
@@ -41,20 +42,12 @@ def greedy_generate(cfg: ModelConfig, params, prompt: Dict[str, torch.Tensor],
     if rules is not None:
         raise not_ported("rules=", PARALLEL)
     tokens = prompt["tokens"]
-    b, s0 = tokens.shape
+    s0 = tokens.shape[1]
     logits, cache = T.prefill(params, cfg, prompt)
 
-    # Re-home the prefill cache into a larger decode cache.
-    full = T.init_cache(cfg, b, s_max, device=logits.device)
-    for big_tree, small_tree in ((full.attn_k, cache.attn_k),
-                                 (full.attn_v, cache.attn_v)):
-        for key, small in small_tree.items():
-            big = big_tree[key]
-            if small.shape[2] == s0 and big.shape[2] == s_max:
-                big[:, :, :s0] = small
-            else:
-                big_tree[key] = small.to(big.dtype)
-    cache = full
+    # Re-home the prefill's KV caches into larger decode caches; the SSM
+    # caches carry over as they are.
+    cache = T.extend_cache(cfg, cache, s_max)
 
     out = []
     cur = torch.argmax(logits, dim=-1)  # (B,)

@@ -36,13 +36,16 @@ class TrainState(NamedTuple):
 
 def _like(tree: PyTree, leaves: List[torch.Tensor]) -> PyTree:
     """`leaves` (in `_leaves(tree)`'s order) put back under tree's keys."""
-    it = iter(leaves)
+    return _build(tree, iter(leaves))
 
-    def build(t):
-        if isinstance(t, torch.Tensor):
-            return next(it)
-        return {k: build(t[k]) for k in sorted(t)}
-    return build(tree)
+
+def _build(tree: PyTree, it) -> PyTree:
+    # Not a closure over `it`: a nested function that calls itself is a
+    # reference cycle, and would keep `leaves` (a step's gradients) on the
+    # device until the garbage collector ran.
+    if isinstance(tree, torch.Tensor):
+        return next(it)
+    return {k: _build(tree[k], it) for k in sorted(tree)}
 
 
 def init_train_state(cfg: ModelConfig, seed: int, device="cuda") -> TrainState:

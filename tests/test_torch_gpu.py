@@ -374,13 +374,16 @@ def _qkv(bh, kvh, sq, sk, d, dtype, device, seed=0):
 # (48 query heads over 8), and S ragged around one and many 64-row tiles;
 # then head dims that are not a multiple of 8, one query and one key, GQA
 # groups of 6, and the serving head dim ragged around the f32 kernel's
-# 128-row tile.
+# 128-row tile; last Qwen2-MoE's prefill shape, 4 requests x 16 heads over
+# 16 (group 1), and the Jamba pattern's, 4 x 64 heads over 8 (group 8), at
+# S = 2048.
 ATTN_SHAPES = [(4, 4, 128, 128, 64), (8, 2, 200, 200, 128),
                (6, 1, 77, 77, 16), (4, 2, 96, 160, 32), (2, 2, 64, 64, 128),
                (48, 8, 2048, 2048, 128), (6, 2, 65, 65, 128),
                (6, 2, 2047, 2047, 128), (4, 2, 100, 100, 12),
                (6, 1, 130, 130, 36), (12, 2, 200, 200, 100),
-               (4, 4, 1, 1, 64), (6, 1, 1, 1, 128), (12, 2, 70, 70, 128)]
+               (4, 4, 1, 1, 64), (6, 1, 1, 1, 128), (12, 2, 70, 70, 128),
+               (64, 64, 2048, 2048, 128), (256, 32, 2048, 2048, 128)]
 
 
 @pytest.mark.parametrize("shape", ATTN_SHAPES)
@@ -534,6 +537,92 @@ def test_kernel_step_refuses_what_its_mask_cannot_express(cuda):
         layers.prefill_attention(cfg.scaled(sliding_window=4), q, k, k, pos)
     with pytest.raises(ValueError, match="0..S-1"):
         layers.prefill_attention(cfg, q, k, k, pos + 3)
+
+
+# -- MoE, SSM and hybrid layers on the card ----------------------------------
+
+def _family(arch):
+    cfg = get_smoke_config(arch).scaled(dtype="float32")
+    return cfg, init_params(cfg, seed=0, device="cpu")
+
+
+def _close_to(got, want, rel=1e-5):
+    """Plain torch on both devices: only the summation order differs."""
+    got = got.detach().cpu()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert float((got - want).abs().max()) <= rel * max(
+        1.0, float(want.abs().max()))
+
+
+@pytest.mark.parametrize("arch", ["qwen2_moe_a2_7b", "jamba_1_5_large"])
+@pytest.mark.parametrize("capacity_factor", [None, 0.25])
+def test_moe_on_the_card_matches_the_cpu(cuda, arch, capacity_factor):
+    """f32 routing stays f32 on the card (the same experts and drops) and
+    the output and aux within 1e-5 of the max of the CPU's."""
+    from repro_torch.models.moe import moe, route
+    cfg, params = _family(arch)
+    if capacity_factor is not None:
+        cfg = cfg.scaled(moe=dataclasses.replace(
+            cfg.moe, capacity_factor=capacity_factor))
+    p = params["blocks"]["sub_1" if arch == "jamba_1_5_large"
+                         else "sub_0"]["moe"]
+    p = {k: (v[0] if isinstance(v, torch.Tensor) else
+             {kk: vv[0] for kk, vv in v.items()}) for k, v in p.items()}
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (2, 40, cfg.d_model), dtype=np.float32))
+    want, want_aux = moe(p, cfg, x)
+    got, aux = moe(_to(p, cuda), cfg, x.to(cuda))
+    r_cpu, r_card = route(p, cfg, x), route(_to(p, cuda), cfg, x.to(cuda))
+    assert torch.equal(r_card.gate_idx.cpu(), r_cpu.gate_idx)
+    assert torch.equal(r_card.keep.cpu(), r_cpu.keep)
+    _close_to(got, want)
+    _close_to(aux, want_aux)
+
+
+def test_ssm_block_on_the_card_matches_the_cpu(cuda):
+    """Chunked over 40 tokens (a padded tail), the prefill's cache, and a
+    decode step from it: within 1e-5 of the max of the CPU's."""
+    from repro_torch.models.ssm import ssm_block
+    cfg, params = _family("mamba2_130m")
+    p = {k: v[0] for k, v in params["blocks"]["sub_0"]["ssm"].items()}
+    rng = np.random.default_rng(3)
+    for name in ("conv_b", "a_log", "d_skip", "dt_bias", "norm"):
+        p[name] = torch.from_numpy(0.5 * rng.standard_normal(
+            p[name].shape, dtype=np.float32))
+    u = torch.from_numpy(rng.standard_normal((2, 41, cfg.d_model),
+                                             dtype=np.float32))
+    want, want_c = ssm_block(p, cfg, u[:, :40], return_cache=True)
+    got, got_c = ssm_block(_to(p, cuda), cfg, u[:, :40].to(cuda),
+                           return_cache=True)
+    for g, w in ((got, want), (got_c.conv, want_c.conv),
+                 (got_c.state, want_c.state)):
+        _close_to(g, w)
+    want, want_c = ssm_block(p, cfg, u[:, 40:], cache=want_c)
+    got, got_c = ssm_block(_to(p, cuda), cfg, u[:, 40:].to(cuda),
+                           cache=got_c)
+    for g, w in ((got, want), (got_c.conv, want_c.conv),
+                 (got_c.state, want_c.state)):
+        _close_to(g, w)
+
+
+@pytest.mark.parametrize("arch,per_prefill", [("qwen2_moe_a2_7b", 2),
+                                              ("mamba2_130m", 0),
+                                              ("jamba_1_5_large", 1)])
+def test_family_greedy_generate_on_the_card(cuda, arch, per_prefill):
+    """Each attention sub-layer of a prefill launches the kernel once (the
+    Mamba-2 stack has none); the ids match the CPU's plain step."""
+    cfg, params = _family(arch)
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (3, 37)))
+    want = greedy_generate(cfg, params, {"tokens": tokens}, steps=5,
+                           s_max=48)
+    before = fak.launches
+    got = greedy_generate(cfg, _to(params, cuda), {"tokens": tokens.to(cuda)},
+                          steps=5, s_max=48)
+    torch.cuda.synchronize()
+    assert fak.launches == before + per_prefill
+    assert got.device.type == "cuda"
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
 
 
 # -- training on the card -------------------------------------------------

@@ -1,6 +1,7 @@
 """Port parity for the LM substrate's configs and layers:
 `repro_torch.configs` and `repro_torch.models` against `repro`'s, on the
-CPU (the whole serving slice is held in test_torch_serving.py).
+CPU (the whole serving slice is held in test_torch_serving.py, the MoE and
+SSM layers in test_torch_moe.py and test_torch_ssm.py).
 
 Both packages get the same numpy inputs and the same weights: the
 reference draws them with jax.random and the port takes a copy. The
@@ -26,11 +27,13 @@ from repro_torch import configs as tconfigs
 from repro_torch.models import config as tconfig
 from repro_torch.models import layers as TL
 from repro_torch.models import transformer as TT
-from repro_torch.training import make_abstract_state
+from repro_torch.training import make_abstract_state, state_shardings
 
 torch.set_num_threads(1)
 
-ARCHS = ["qwen2_1_5b", "yi_6b"]
+ARCHS = ["qwen2_1_5b", "yi_6b"]           # dense: the attention layer tests
+FAMILIES = ["qwen2_moe_a2_7b", "jamba_1_5_large", "mamba2_130m"]
+PORTED = ARCHS + FAMILIES
 LAYER_TOL = 1e-5
 
 
@@ -76,7 +79,9 @@ def _flat_defs(defs, prefix=()):
 
 # -- configs -----------------------------------------------------------------
 
-@pytest.mark.parametrize("name", ARCHS + ["qwen2-1.5b", "yi-6b"])
+@pytest.mark.parametrize("name", PORTED + [
+    "qwen2-1.5b", "yi-6b", "qwen2-moe-a2.7b", "jamba-1.5-large-398b",
+    "mamba2-130m"])
 def test_configs_match_the_reference(name):
     for get in ("get_config", "get_smoke_config"):
         want = getattr(jconfigs, get)(name)
@@ -84,34 +89,59 @@ def test_configs_match_the_reference(name):
         assert dataclasses.asdict(got) == dataclasses.asdict(want)
         assert got.repeats == want.repeats
         assert got.resolved_head_dim == want.resolved_head_dim
+        assert got.attention_free == want.attention_free
+        assert got.sub_quadratic == want.sub_quadratic
         assert tconfig.count_params(got) == jconfig.count_params(want)
+
+
+def _as_port_config(want):
+    """A reference ModelConfig rebuilt from the port's dataclasses."""
+    fields = dataclasses.asdict(want)
+    fields["pattern"] = tuple(tconfig.SubLayer(**s) for s in fields["pattern"])
+    for key, cls in (("moe", tconfig.MoEConfig), ("ssm", tconfig.SSMConfig),
+                     ("frontend", tconfig.FrontendConfig)):
+        if fields[key] is not None:
+            fields[key] = cls(**fields[key])
+    return tconfig.ModelConfig(**fields)
+
+
+@pytest.mark.parametrize("name", jconfigs.list_archs())
+def test_counts_and_properties_every_family(name):
+    """count_active_params, count_moe_expert_params, attention_free and
+    sub_quadratic over each of the reference's ten configs."""
+    want = jconfigs.get_config(name)
+    got = _as_port_config(want)
+    assert tconfig.count_active_params(got) == \
+        jconfig.count_active_params(want)
+    assert tconfig.count_moe_expert_params(got) == \
+        jconfig.count_moe_expert_params(want)
+    assert got.attention_free == want.attention_free
+    assert got.sub_quadratic == want.sub_quadratic
 
 
 def test_count_params_every_family():
     """count_params is pure arithmetic over any reference config."""
     for name in jconfigs.list_archs():
         want = jconfigs.get_config(name)
-        fields = dataclasses.asdict(want)
-        fields["pattern"] = tuple(tconfig.SubLayer(**s)
-                                  for s in fields["pattern"])
-        for key, cls in (("moe", tconfig.MoEConfig), ("ssm", tconfig.SSMConfig),
-                         ("frontend", tconfig.FrontendConfig)):
-            if fields[key] is not None:
-                fields[key] = cls(**fields[key])
-        got = tconfig.ModelConfig(**fields)
+        got = _as_port_config(want)
         assert tconfig.count_params(got) == jconfig.count_params(want), name
 
 
 def test_registry_lists_ported_and_names_the_rest():
-    assert tconfigs.list_archs() == ARCHS
-    for name in set(jconfigs.list_archs()) - set(ARCHS):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
+    assert tconfigs.list_archs() == PORTED
+    rest = {"mixtral_8x7b": "item 18", "deepseek_coder_33b": "item 18",
+            "internlm2_20b": "item 18", "internvl2_26b": "item 17",
+            "musicgen_large": "item 17"}
+    assert set(jconfigs.list_archs()) - set(PORTED) == set(rest)
+    for name, item in rest.items():
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP.md Queue 1 {item}"):
             tconfigs.get_config(name)
     with pytest.raises(ValueError, match="unknown architecture"):
         tconfigs.get_config("gpt-17")
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", PORTED)
 def test_model_defs_match_the_reference(arch):
     """Same keys, shapes, specs, init scales, dtypes and fan_in (the stacked
     defs keep none, as in the reference)."""
@@ -265,16 +295,24 @@ def test_entry_points_default_to_the_card():
 
 
 def test_what_the_slice_leaves_out_raises():
+    """MoE and SSM patterns build; the frontends raise naming item 17,
+    Mixtral item 18, sharding rules item 19."""
     _, tc = cfgs("qwen2_1_5b")
     moe = tc.scaled(pattern=(tconfig.SubLayer(ffn="moe"),),
                     moe=tconfig.MoEConfig(num_experts=2, top_k=1,
                                           d_ff_expert=8))
     ssm = tc.scaled(pattern=(tconfig.SubLayer(kind="ssm"),),
                     ssm=tconfig.SSMConfig())
-    vlm = tc.scaled(frontend=tconfig.FrontendConfig(modality="vision"))
-    for cfg in (moe, ssm, vlm):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
+    for cfg in (moe, ssm):
+        assert TT.param_count(TT.init_params(cfg, seed=0, device="cpu")) \
+            == tconfig.count_params(cfg)
+    for modality in ("vision", "audio"):
+        cfg = tc.scaled(frontend=tconfig.FrontendConfig(modality=modality))
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.md Queue 1 item 17"):
             TT.model_defs(cfg)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 18"):
+        tconfigs.get_config("mixtral_8x7b")
     tp = TT.init_params(tc, seed=0, device="cpu")
     toks = torch.zeros((1, 4), dtype=torch.int64)
     with pytest.raises(NotImplementedError, match="item 19"):
@@ -283,3 +321,28 @@ def test_what_the_slice_leaves_out_raises():
         TT.loss_fn(tp, tc, {"tokens": toks, "labels": toks}, rules=object())
     with pytest.raises(NotImplementedError, match="item 19"):
         make_abstract_state(tc)
+    with pytest.raises(NotImplementedError, match="item 19"):
+        state_shardings(tc, object())
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_params_from_reference_carries_moe_ssm_and_hybrid_trees(arch):
+    """The reference's MoE, SSM and hybrid parameter trees carry across
+    unchanged: every leaf equal, under the same keys."""
+    jc, tc = cfgs(arch)
+    tree = jax.tree.map(np.asarray, ref_params(jc))
+    got = TT.params_from_reference(tree, tc, device="cpu")
+    want = _flat_leaves(tree)
+    have = _flat_leaves(got)
+    assert set(have) == set(want) == set(_flat_defs(TT.model_defs(tc)))
+    for path, leaf in have.items():
+        np.testing.assert_array_equal(as_np(leaf), want[path])
+
+
+def _flat_leaves(tree, prefix=()):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat_leaves(v, prefix + (k,)))
+        return out
+    return {prefix: tree}

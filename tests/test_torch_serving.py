@@ -1,12 +1,15 @@
 """Port parity for the LM serving slice as a whole: `repro_torch`'s
 prefill, decode_step and greedy_generate against `repro`'s, on the CPU,
-for the qwen2_1_5b and yi_6b smoke configs.
+for the dense (qwen2_1_5b, yi_6b), MoE (qwen2_moe_a2_7b), SSM
+(mamba2_130m) and hybrid (jamba_1_5_large) smoke configs.
 
 The reference's weights are carried across with `params_from_reference`;
 prompts come from numpy. The reference's prefill and decode_step run under
 jax.jit (compiled once; the engine looks them up on the module at each
 call). On the CPU every prefill attention step runs the reference's own
-code, so in f32 the packages differ only by summation order.
+code, so in f32 the packages differ only by summation order. The caches
+compared are every attention sub-layer's k and v and every SSM
+sub-layer's conv tail and state.
 
 Tolerances. f32: logits and caches within 2e-5 of the largest |value|
 (the smoke models' stacked weights have std 1/sqrt(2), so activations are
@@ -29,7 +32,8 @@ from test_torch_models import as_np, cfgs, close, ref_params
 
 torch.set_num_threads(1)
 
-ARCHS = ["qwen2_1_5b", "yi_6b"]
+ARCHS = ["qwen2_1_5b", "yi_6b", "qwen2_moe_a2_7b", "mamba2_130m",
+         "jamba_1_5_large"]
 MODEL_TOL = 2e-5
 BF16_LOGITS = 0.1
 BF16_CACHE = 0.05
@@ -50,6 +54,29 @@ def _tokens(cfg, b=2, s=12, seed=0):
         0, cfg.vocab_size, (b, s)).astype(np.int32)
 
 
+def _cache_leaves(cache):
+    """{(field, sub-layer, part): leaf} of either package's DecodeCache."""
+    out = {}
+    for field in ("attn_k", "attn_v"):
+        for key, leaf in getattr(cache, field).items():
+            out[field, key, ""] = leaf
+    for key, c in cache.ssm.items():
+        out["ssm", key, "conv"] = c.conv
+        out["ssm", key, "state"] = c.state
+    return out
+
+
+def _close_caches(got, want, tol):
+    """Every leaf of the port's cache against the reference's: the same
+    keys and shapes, f32, within `tol` of the largest |value|."""
+    got, want = _cache_leaves(got), _cache_leaves(want)
+    assert set(got) == set(want) and got
+    for path, w in want.items():
+        assert tuple(got[path].shape) == w.shape, path
+        assert got[path].dtype == torch.float32, path
+        close(as_np(got[path]), w, tol)
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_and_decode_match_the_reference(arch):
     jc, tc = cfgs(arch)
@@ -58,27 +85,24 @@ def test_prefill_and_decode_match_the_reference(arch):
     jl, jcache = ref_prefill(jp, jc, {"tokens": jnp.asarray(toks)})
     tl, tcache = TT.prefill(tp, tc, {"tokens": torch.from_numpy(toks)})
     close(as_np(tl), jl, MODEL_TOL)
-    for side in ("attn_k", "attn_v"):
-        want = getattr(jcache, side)["sub_0"]
-        got = getattr(tcache, side)["sub_0"]
-        assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
-        close(as_np(got), want, MODEL_TOL)
+    _close_caches(tcache, jcache, MODEL_TOL)
 
-    # one decode step at position 12 against a 16-deep cache
+    # one decode step at position 12 against a 16-deep KV cache; the SSM
+    # caches carry over as they are, as the engine carries them
     s_max = 16
-    jfull = jax.tree.map(lambda big, small: big.at[:, :, :12].set(small),
-                         JT.init_cache(jc, 2, s_max), jcache)
-    tfull = TT.init_cache(tc, 2, s_max, device="cpu")
-    for side in ("attn_k", "attn_v"):
-        getattr(tfull, side)["sub_0"][:, :, :12] = \
-            getattr(tcache, side)["sub_0"]
+    jfull = JT.init_cache(jc, 2, s_max)
+    jfull = jfull._replace(ssm=jcache.ssm, **{
+        f: jax.tree.map(lambda big, small: big.at[:, :, :12].set(small),
+                        getattr(jfull, f), getattr(jcache, f))
+        for f in ("attn_k", "attn_v")})
+    tfull = TT.extend_cache(tc, tcache, s_max)
     nxt = np.argmax(np.asarray(jl), -1).astype(np.int32)[:, None]
     jl2, jc2 = ref_decode_step(jp, jc, jfull, jnp.asarray(nxt),
                                jnp.int32(12))
     tl2, tc2 = TT.decode_step(tp, tc, tfull, torch.from_numpy(nxt), 12)
     close(as_np(tl2), jl2, MODEL_TOL)
-    close(as_np(tc2.attn_k["sub_0"]), jc2.attn_k["sub_0"], MODEL_TOL)
-    close(as_np(tc2.attn_v["sub_0"]), jc2.attn_v["sub_0"], MODEL_TOL)
+    assert tc2 is tfull
+    _close_caches(tc2, jc2, MODEL_TOL)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -107,6 +131,58 @@ def test_prefill_bf16_within_the_looser_bound():
     close(as_np(tl), np.asarray(jl, dtype=np.float32), BF16_LOGITS)
     close(as_np(tcache.attn_v["sub_0"]),
           np.asarray(jcache.attn_v["sub_0"], dtype=np.float32), BF16_CACHE)
+
+
+@pytest.mark.parametrize("arch", ["qwen2_moe_a2_7b", "mamba2_130m",
+                                  "jamba_1_5_large"])
+def test_prefill_bf16_within_twice_the_reference_bf16_distance(arch):
+    """bf16 logits, KV caches and SSM conv tails (the SSD state stays f32):
+    each no farther from the reference's f32 prefill than twice the
+    reference's own bf16 prefill is. A fixed bound does not fit these
+    stacks: Jamba's smoke model is 8 sub-layers of one repeat, whose
+    stacked weights draw at std 1, so its bf16 caches reach |25| and
+    round at 1/8."""
+    jc, tc = cfgs(arch, dtype="bfloat16")
+    jp, tp = _params(jc, tc)
+    toks = {"tokens": _tokens(jc)}
+    f32_logits, f32_cache = ref_prefill(jp, jc.scaled(dtype="float32"),
+                                        toks)
+    ref_logits, ref_cache = ref_prefill(jp, jc, toks)
+    tl, tcache = TT.prefill(tp, tc, {"tokens": torch.from_numpy(
+        toks["tokens"])})
+    assert tl.dtype == torch.bfloat16
+    got = {"logits": tl, **_cache_leaves(tcache)}
+    ref = {"logits": ref_logits, **_cache_leaves(ref_cache)}
+    f32 = {"logits": f32_logits, **_cache_leaves(f32_cache)}
+    for path, want in f32.items():
+        want = np.asarray(want, dtype=np.float32)
+        assert got[path].dtype == (torch.float32 if path[-1] == "state"
+                                   else torch.bfloat16), path
+        ref_err = np.abs(np.asarray(ref[path], np.float32) - want).max()
+        got_err = np.abs(as_np(got[path]) - want).max()
+        assert got_err <= 2 * ref_err, (path, got_err, ref_err)
+
+
+@pytest.mark.parametrize("arch", ["qwen2_1_5b", "mamba2_130m",
+                                  "jamba_1_5_large"])
+def test_extend_cache_grows_kv_and_carries_ssm_state(arch):
+    _, tc = cfgs(arch)
+    tp = TT.init_params(tc, seed=0, device="cpu")
+    _, small = TT.prefill(tp, tc, {"tokens": torch.from_numpy(_tokens(tc))})
+    big = TT.extend_cache(tc, small, 20)
+    want = TT.init_cache(tc, 2, 20, device="cpu")
+    for field in ("attn_k", "attn_v"):
+        got_tree, small_tree = getattr(big, field), getattr(small, field)
+        assert got_tree.keys() == getattr(want, field).keys()
+        for key, leaf in got_tree.items():
+            assert leaf.shape == getattr(want, field)[key].shape
+            assert leaf.dtype == small_tree[key].dtype
+            assert torch.equal(leaf[:, :, :12], small_tree[key])
+            assert not leaf[:, :, 12:].any()
+    assert big.ssm.keys() == want.ssm.keys()
+    for key, c in big.ssm.items():
+        assert c.conv is small.ssm[key].conv
+        assert c.state is small.ssm[key].state
 
 
 def test_make_prefill_and_decode_step_wrap_the_model():
