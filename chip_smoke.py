@@ -179,7 +179,19 @@ Phases, in order; any failure exits non-zero:
    and k scaled by 3 (a peaked softmax), where the plain version's own f32
    sums sit ~3e-5 from the exact function: the kernel within rtol = atol
    = 2e-5 of the f64 evaluation, and no farther from it than the plain
-   version.
+   version. Also DeepSeek-Coder-33B's group 7 (4 x 56 heads
+   over 8 at S = 2048, D = 128) in both dtypes, and its time beside the
+   bound and SDPA's. Then [window-check], the sliding window: the kernel
+   against its plain version at Mixtral's attention shape (32 heads over
+   8, S = 8192, D = 128, window 4096) and with S = 5000 and a window of
+   1500 (neither a multiple of the 64-key tile), both dtypes at the bounds
+   above, and each against the f64 function: f32 within rtol = atol =
+   2e-5, bf16 with its max error and relative RMSE within twice the
+   plain version's (both round f32 sums once to bf16; 0.02 is about a
+   typical output there, too loose for an edge tile); then its time at
+   Mixtral's shape beside the operations bound, 4 D sum_i min(i + 1, W)
+   per head, the plain version and SDPA with the window as a boolean
+   mask.
 23. Serving path: greedy_generate on full-width Qwen2-1.5B (28 layers,
    random weights from a seeded generator) for 4 requests x 2048-token
    prompts and 32 greedy steps, s_max = 2080. Prefill seconds, decode ms per
@@ -250,13 +262,52 @@ Phases, in order; any failure exits non-zero:
    1 launch per prefill (gated); then, on the same
    weights rescaled to 1 / sqrt(fan_in), phase 23's logit checks with the
    decode check on a no-drop copy as in [moe-check].
-31. The `kernels` JSON line (each kernel with the PR of its design and
+31. [mixtral] Mixtral-8x7B at every published width (d_model 4096, 32/8
+   heads of 128, 8 experts top-2 of 14336, capacity factor 1.25, window
+   4096, vocab 32 000) with its depth cut to 8 of 32 layers (47.49 GB of
+   f32 weights; the phase prints the cut): greedy_generate over 4 x
+   2048-token prompts (S <= window: the causal kernel) and 1 x 8192 tokens
+   (S > window: the windowed kernel, and a decode ring of 4096 slots that
+   the 32 steps wrap), each with 8 launches a prefill gated, windowed ones
+   exactly for the long prompt; the drop share from the router's outputs;
+   a traced long prefill. Then [mixtral-check] at full width and 2
+   layers, block weights at 1 / sqrt(fan_in): phase 23's logit checks at
+   both prompt lengths, all on a copy at capacity factor E / k, where
+   nothing drops (with token-major capacity counting, a bf16 rounding
+   that moves one early token's top-2 set could otherwise drop a choice
+   of the last token, a different computation); the long prompt's decode
+   step wraps the ring.
+32. [musicgen] MusicGen-Large at full width and depth (48 layers, d_model
+   2048, 32/32 heads of 64, 4 codebooks of 2048; 9.8 GB f32): 4 x 4 x
+   2048-code prompts, 32 steps of (B, 4, 1) codes, 48 launches a prefill;
+   a traced prefill; the kernel's DP = 64 instantiation at this shape
+   against its plain version, and its time beside the bound and SDPA's,
+   and the stressed f32 case of phase 22 (q, k x 3 against f64) at DP =
+   64; then, after printing (not gating) at the stacked init the f32
+   kernel and plain paths' distances from each other and from the f32
+   model with its attention step in f64, phase 23's logit checks with
+   decode at position 2048 on the weights rescaled to 1 / sqrt(fan_in),
+   as [hybrid] runs them: 48 layers of near-one-hot softmax amplify f32
+   summation order.
+33. [vlm] InternVL2-26B at every published width (d_model 6144, 48/8
+   heads, d_ff 16384, vocab 92 553, projector 3200 -> 6144) with its depth
+   cut to 12 of 48 layers: 4 x (256 image + 1792 text)-position prompts,
+   32 steps, 12 launches a prefill; a traced prefill; phase 23's logit
+   checks on the served weights, with decode at position 256 + 1792,
+   behind the image positions; then, as [musicgen] runs them, the same
+   checks on the weights rescaled to 1 / sqrt(fan_in), where the bf16
+   bounds are tight.
+   Each of 31-33 prints the device memory still allocated on entry and
+   its seconds.
+34. The `kernels` JSON line (each kernel with the PR of its design and
    its launches by path; the back-projector's launches sum every path
    that runs it: phases 4, 7-10, 12, 14-18, 19 and 20's ranks, the
-   attention kernel's the serving prefills (phases 23, 28-30) and the
+   attention kernel's the serving prefills (phases 23, 28-33) and the
    training steps, each counted from 0 just before the path; a path on
    another wire type's instantiation, such as the auto plan's, is printed
-   beside it), the card's name and power limit, and last
+   beside it; the attention entries also carry the windowed kernel's,
+   the DP = 64 instantiation's and group 7's times and bounds), the
+   card's name and power limit, and last
    `{"ok": true, "device": {...}}`.
 
 The RabbitCT geometry is the public back-projection benchmark's size (496
@@ -357,6 +408,22 @@ TRAIN_CHECK_LAYERS = 4
 MOE_CHECK_LAYERS = 2
 HYBRID_D_FF = 4096
 SSM_RTOL, SSM_ATOL = 1e-4, 1e-5   # the reference's SSM test tolerance
+# The last five configs. [window-check] holds the windowed kernel at
+# Mixtral's attention shape (32 over 8 heads of 128, one request of
+# WINDOW_SEQ tokens, its window 4096) and at an edge case where neither S
+# nor the window is a multiple of the 64-key tile. [mixtral] serves
+# Mixtral-8x7B at every published width with its depth cut to
+# MIXTRAL_LAYERS of 32 (5.8 GB of f32 weights a layer), the serving
+# traffic and one request of WINDOW_SEQ tokens (longer than the window:
+# the windowed kernel, and a decode ring of 4096 slots that wraps); its
+# checks cut the depth to MIXTRAL_CHECK_LAYERS. [musicgen] serves
+# MusicGen-Large whole; [vlm] InternVL2-26B at every published width with
+# its depth cut to VLM_LAYERS of 48, 256 image positions first.
+WINDOW_SEQ = 8192
+WINDOW_EDGE = (5000, 1500)        # (S, window), both ragged for the tile
+MIXTRAL_LAYERS = 8
+MIXTRAL_CHECK_LAYERS = 2
+VLM_LAYERS = 12
 
 # Mesh phases: the (pod, data, model) engine of core/plan.py at RabbitCT.
 MESH_AXES = ("pod", "data", "model")
@@ -2342,15 +2409,12 @@ def f32_excess(got, want) -> float:
     return float((err - ATTN_F32_TOL * want.double().abs()).max())
 
 
-def attention_checks(cfg, dev, mha_cfg, gqa8_cfg) -> dict:
+def attention_checks(cfg, dev, mha_cfg, gqa8_cfg, gqa7_cfg) -> dict:
     """Phase 22; returns the max |kernel - plain| per dtype, and the
     stressed f32 case's max distances from the f64 evaluation. `mha_cfg`
     gives the group-1 (MHA) cases their heads, `gqa8_cfg` the group-8
-    ones."""
+    ones, `gqa7_cfg` the group-7 ones (56 heads over 8)."""
     import torch
-
-    from repro_torch.kernels.attention import kernel as fak
-    from repro_torch.kernels.attention.ref import attention_f64
 
     max_abs = {torch.float32: 0.0, torch.bfloat16: 0.0}
     cases = [(cfg, torch.float32, True, PROMPT),
@@ -2362,29 +2426,32 @@ def attention_checks(cfg, dev, mha_cfg, gqa8_cfg) -> dict:
              (mha_cfg, torch.bfloat16, True, PROMPT),
              (gqa8_cfg, torch.float32, True, PROMPT),
              (gqa8_cfg, torch.bfloat16, True, PROMPT)]
-    for i, (c, dtype, causal, s) in enumerate(cases):
-        q, k, v = attention_operands(c, s, dtype, dev, seed=SEED + i)
-        got = fak.flash_attention_bhsd(q, k, v, causal=causal)
-        want = fak.flash_attention_bhsd_torch(q, k, v, causal=causal)
-        torch.cuda.synchronize()
-        worst = float((got.float() - want.float()).abs().max())
+    # The group-7 cases take seeds after the stressed case's, which keeps
+    # the seeds of the cases above.
+    group7 = [(gqa7_cfg, torch.float32, True, PROMPT),
+              (gqa7_cfg, torch.bfloat16, True, PROMPT)]
+    seeds = [SEED + i for i in range(len(cases))] + [
+        SEED + len(cases) + 1 + i for i in range(len(group7))]
+    for seed, (c, dtype, causal, s) in zip(seeds, cases + group7):
+        q, k, v = attention_operands(c, s, dtype, dev, seed=seed)
+        worst = kernel_vs_plain("[attn-check]", q, k, v, causal=causal)
         max_abs[dtype] = max(max_abs[dtype], worst)
-        if dtype == torch.float32:
-            ok = f32_excess(got, want) <= ATTN_F32_TOL
-            bound = f"rtol = atol = {ATTN_F32_TOL:.0e}"
-        else:
-            ok = worst < ATTN_BF16_MAX_ABS
-            bound = f"max abs < {ATTN_BF16_MAX_ABS}"
-        label = (f"{tuple(q.shape)} q, {tuple(k.shape)} k/v, {dtype}, "
-                 f"{'causal' if causal else 'non-causal'}")
-        print(f"[attn-check] {label}: max|kernel-plain| {worst:.3e} "
-              f"({bound})")
-        if not ok:
-            fail(f"attention kernel disagrees with its plain version: "
-                 f"{label}: max abs {worst:.3e}")
 
-    q, k, v = attention_operands(cfg, PROMPT, torch.float32, dev,
-                                 seed=SEED + len(cases))
+    stressed = stressed_check("[attn-check]", cfg, dev, SEED + len(cases))
+    return max_abs, stressed
+
+
+def stressed_check(tag: str, cfg, dev, seed: int) -> dict:
+    """The stressed f32 case at `cfg`'s serving shape: q and k x
+    ATTN_STRESS, the kernel within rtol = atol = ATTN_F32_TOL of the f64
+    evaluation and no farther from it than the plain version. Returns both
+    max distances from f64."""
+    import torch
+
+    from repro_torch.kernels.attention import kernel as fak
+    from repro_torch.kernels.attention.ref import attention_f64
+
+    q, k, v = attention_operands(cfg, PROMPT, torch.float32, dev, seed=seed)
     q, k = q * ATTN_STRESS, k * ATTN_STRESS
     got = fak.flash_attention_bhsd(q, k, v)
     want = fak.flash_attention_bhsd_torch(q, k, v)
@@ -2394,15 +2461,40 @@ def attention_checks(cfg, dev, mha_cfg, gqa8_cfg) -> dict:
                 for name, x in (("kernel", got), ("plain", want))}
     label = (f"{tuple(q.shape)} q, {tuple(k.shape)} k/v, float32, causal, "
              f"q and k x {ATTN_STRESS:g}")
-    print(f"[attn-check] {label}: max|kernel-f64| {stressed['kernel']:.3e}, "
+    print(f"{tag} {label}: max|kernel-f64| {stressed['kernel']:.3e}, "
           f"max|plain-f64| {stressed['plain']:.3e}, max|kernel-plain| "
           f"{float((got - want).abs().max()):.3e} (kernel vs f64: rtol = "
           f"atol = {ATTN_F32_TOL:.0e}, and no farther than plain)")
     if (f32_excess(got, exact) > ATTN_F32_TOL
             or stressed["kernel"] > stressed["plain"]):
-        fail(f"attention kernel off the exact function: {label}: "
-             f"max abs {stressed['kernel']:.3e} (plain {stressed['plain']:.3e})")
-    return max_abs, stressed
+        fail(f"attention kernel off the exact function: {label}: max abs "
+             f"{stressed['kernel']:.3e} (plain {stressed['plain']:.3e})")
+    return stressed
+
+
+@contextlib.contextmanager
+def f64_attention_step(layers):
+    """The prefill's attention step evaluated in f64 (`attention_f64`),
+    rounded once to the step's dtype: the exact attention function, for a
+    witness of how far f32 summation order alone moves a model's logits."""
+    from repro_torch.kernels.attention.ref import attention_f64
+
+    def step(cfg, q, k, v, positions, check_positions=True):
+        b, s, h, d = q.shape
+
+        def fold(t):
+            return t.permute(0, 2, 1, 3).reshape(-1, s, d)
+
+        out = attention_f64(fold(q), fold(k), fold(v),
+                            window=layers.kernel_window(cfg, s))
+        return out.reshape(b, h, s, d).permute(0, 2, 1, 3).to(q.dtype)
+
+    kernel_step = layers.prefill_attention
+    layers.prefill_attention = step
+    try:
+        yield
+    finally:
+        layers.prefill_attention = kernel_step
 
 
 @contextlib.contextmanager
@@ -2430,57 +2522,77 @@ def attention_layers(cfg) -> int:
     return cfg.repeats * sum(s.kind == "attn" for s in cfg.pattern)
 
 
-def generate(tag: str, cfg, params, prompt) -> dict:
-    """The serving traffic: greedy_generate over `prompt` for STEPS steps
-    up to S_MAX after a warm-up prefill, with the kernels' counts at 0 just
-    before it; then a prefill alone, timed. Gates the ids and one kernel
-    launch per attention layer of the prefill. Returns the launches, the
+def generate(tag: str, cfg, params, prompt, s_max=None) -> dict:
+    """The serving traffic: greedy_generate over `prompt` (B x S tokens, B x
+    K x S codes for audio, a vision prompt's images first) for STEPS steps
+    up to `s_max` positions (default S_MAX) after a warm-up prefill, with
+    the kernels' counts at 0 just before it; then a prefill alone, timed.
+    Gates the ids,
+    one kernel launch per attention layer of the prefill, and that those
+    launches were windowed exactly when the prompt is longer than the
+    config's window. Returns the launches (and the windowed ones), the
     timed prefill's logits and cache, prefill seconds, decode ms per step
     and the peak device memory of the greedy run."""
     import torch
 
     from repro_torch.kernels.attention import kernel as fak
     from repro_torch.kernels.backproject import kernel as bpk
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import kernel_window
     from repro_torch.serving import greedy_generate, make_prefill
 
     sync = torch.cuda.synchronize
+    s_max = S_MAX if s_max is None else s_max
+    tokens = prompt["tokens"]
+    b, s, n_pos = tokens.shape[0], tokens.shape[-1], T.prompt_len(cfg, prompt)
     prefill = make_prefill(cfg)
     prefill(params, prompt)   # warm-up: cuBLAS handles, the allocator
     sync()
     n_attn = attention_layers(cfg)
+    n_window = n_attn if kernel_window(cfg, n_pos) else 0
     torch.cuda.reset_peak_memory_stats()
-    bpk.launches = fak.launches = 0
+    bpk.launches = fak.launches = fak.window_launches = 0
     t0 = time.perf_counter()
-    ids = greedy_generate(cfg, params, prompt, steps=STEPS, s_max=S_MAX)
+    ids = greedy_generate(cfg, params, prompt, steps=STEPS, s_max=s_max)
     sync()
     total_s = time.perf_counter() - t0
-    launches = fak.launches
+    launches, window_launches = fak.launches, fak.window_launches
     peak = torch.cuda.max_memory_allocated()
-    if tuple(ids.shape) != (BATCH, STEPS + 1) or not (
+    if tuple(ids.shape) != (*tokens.shape[:-1], STEPS + 1) or not (
             0 <= int(ids.min()) and int(ids.max()) < cfg.vocab_size):
         fail(f"{tag} greedy_generate gave ids of shape {tuple(ids.shape)} "
              f"outside [0, {cfg.vocab_size})")
     if launches != n_attn:
         fail(f"{tag} one prefill launched the attention kernel {launches} "
              f"times, not {n_attn}")
+    if window_launches != n_window:
+        fail(f"{tag} {window_launches} windowed launches in a prefill of "
+             f"{n_pos} positions, not {n_window}")
     t0 = time.perf_counter()
     logits, cache = prefill(params, prompt)
     sync()
     prefill_s = time.perf_counter() - t0
     decode_ms = (total_s - prefill_s) / STEPS * 1e3
-    print(f"{tag} greedy_generate {BATCH} x {PROMPT}-token prompts, "
-          f"{STEPS} steps, s_max {S_MAX}: {total_s:.4f} s, "
-          f"{BATCH * (STEPS + 1) / total_s:.1f} generated tokens/s; prefill "
-          f"{prefill_s:.4f} s ({BATCH * PROMPT / prefill_s:.0f} prompt "
+    what = f"{s}-token prompts" if n_pos == s else (
+        f"({n_pos - s} image + {s} text)-position prompts")
+    if tokens.dim() == 3:
+        what = f"{tokens.shape[1]} x {s}-code prompts"
+    print(f"{tag} greedy_generate {b} x {what}, "
+          f"{STEPS} steps, s_max {s_max}: {total_s:.4f} s, "
+          f"{b * (STEPS + 1) / total_s:.1f} generated tokens/s; prefill "
+          f"{prefill_s:.4f} s ({b * n_pos / prefill_s:.0f} prompt "
           f"tokens/s); decode {decode_ms:.3f} ms/step "
-          f"({BATCH * 1e3 / decode_ms:.1f} tokens/s); peak "
+          f"({b * 1e3 / decode_ms:.1f} tokens/s); peak "
           f"{peak / 2**30:.2f} GiB; attention-kernel launches {launches} "
-          f"(one prefill of {n_attn} attention layers)")
-    print(f"{tag} first request's ids: {ids[0, :12].tolist()} ...")
+          f"(one prefill of {n_attn} attention layers"
+          + (f", {window_launches} of them windowed" if n_window else "")
+          + ")")
+    print(f"{tag} first request's ids: {ids[0].flatten()[:12].tolist()} ...")
     if not torch.isfinite(logits.float()).all():
         fail(f"{tag} prefill gave non-finite logits")
-    return {"launches": launches, "logits": logits, "cache": cache,
-            "prefill_s": prefill_s, "decode_ms": decode_ms, "peak": peak}
+    return {"launches": launches, "window_launches": window_launches,
+            "logits": logits, "cache": cache, "prefill_s": prefill_s,
+            "decode_ms": decode_ms, "peak": peak}
 
 
 def serving(cfg, dev) -> dict:
@@ -2513,18 +2625,18 @@ def serving(cfg, dev) -> dict:
     profile(lambda: greedy_generate(cfg, params, prompt, steps=STEPS,
                                     s_max=S_MAX),
             f"bf16 greedy_generate ({STEPS} steps)", top=10)
-    launches[torch.float32] = logit_checks(cfg, params, tokens, logits_k,
+    launches[torch.float32] = logit_checks(cfg, params, prompt, logits_k,
                                            cache)
     return launches
 
 
-def logit_checks(cfg, params, tokens, logits_k, cache,
+def logit_checks(cfg, params, prompt, logits_k, cache,
                  tag: str = "[serve-check]", decode_cfg=None) -> int:
     """The serving checks on the card, from the bf16 prefill's last-position
-    logits and cache; returns the f32 prefill's kernel launches. With
-    `decode_cfg` (a MoE model's copy whose capacity drops nothing) the
-    decode check runs on that copy, from its own prefill, under a bound
-    computed on it."""
+    logits and cache over `prompt`; returns the f32 prefill's kernel
+    launches (windowed ones gated as in `generate`). With `decode_cfg` (a
+    MoE model's copy whose capacity drops nothing) the decode check runs on
+    that copy, from its own prefill, under a bound computed on it."""
     import torch
 
     from repro_torch.kernels.attention import kernel as fak
@@ -2532,8 +2644,10 @@ def logit_checks(cfg, params, tokens, logits_k, cache,
     from repro_torch.models import transformer as T
 
     sync = torch.cuda.synchronize
-    prompt = {"tokens": tokens}
+    tokens = prompt["tokens"]
+    b, n_pos = tokens.shape[0], T.prompt_len(cfg, prompt)
     n_attn = attention_layers(cfg)
+    n_window = n_attn if L.kernel_window(cfg, n_pos) else 0
 
     # The kernel path against the plain attention step, on the card. In
     # bf16 the plain step rounds the scores to bf16 and the kernel keeps
@@ -2549,13 +2663,14 @@ def logit_checks(cfg, params, tokens, logits_k, cache,
     sync()
     if fak.launches != before:
         fail("the plain attention step launched the kernel")
-    fak.launches = 0
+    fak.launches = fak.window_launches = 0
     logits_32k, _ = T.prefill(params, cfg32, prompt)
     sync()
     f32_launches = fak.launches
-    if f32_launches != n_attn:
+    if f32_launches != n_attn or fak.window_launches != n_window:
         fail(f"{tag} the f32 prefill launched the kernel {f32_launches} "
-             f"times, not {n_attn}")
+             f"times ({fak.window_launches} windowed), not {n_attn} "
+             f"({n_window})")
     e_plain = rel_rmse(logits_p, logits_32p)
     bf16_bound = 2 * e_plain
     d_bf16 = rel_rmse(logits_k, logits_p)
@@ -2571,29 +2686,34 @@ def logit_checks(cfg, params, tokens, logits_k, cache,
         fail(f"{tag} f32 kernel path off the plain path by {d_f32:.3e}")
     del logits_p, logits_32p, logits_32k
 
-    # Decode self-consistency: decode_step at position PROMPT against a
-    # prefill over the prompt plus that token (S = PROMPT + 1, a ragged
-    # tail for the kernel). Decode runs the plain step on a bf16 cache,
-    # the prefill the kernel: the same bf16 bound.
+    # Decode self-consistency: decode_step at position n_pos (behind a
+    # vision prompt's images) against a prefill over the prompt plus that
+    # token (n_pos + 1 positions, a ragged tail for the kernel; with a
+    # window shorter than the prompt the decode cache is a ring that this
+    # step wraps). Decode runs the plain step on a bf16 cache, the prefill
+    # the kernel: the same bf16 bound.
     if decode_cfg is not None:
         cfg = decode_cfg
         logits_k, cache = T.prefill(params, cfg, prompt)
-    nxt = logits_k.argmax(-1)[:, None]
-    longer = {"tokens": torch.cat([tokens, nxt], dim=1)}
+    nxt = logits_k.argmax(-1)[..., None]
+    longer = dict(prompt, tokens=torch.cat([tokens, nxt], dim=-1))
     if decode_cfg is not None:
         # Each bf16 path within e of f32 puts them within 2 e of each other.
         with plain_attention_step(L):
-            bf16_bound = 2 * rel_rmse(
-                T.prefill(params, cfg, longer)[0],
-                T.prefill(params, cfg.scaled(dtype="float32"), longer)[0])
-    full = T.extend_cache(cfg, cache, PROMPT + 1)
-    dec, _ = T.decode_step(params, cfg, full, nxt, PROMPT)
+            plain_bf16 = T.prefill(params, cfg, longer)[0]
+            plain_f32 = T.prefill(params, cfg.scaled(dtype="float32"),
+                                  longer)[0]
+            bf16_bound = 2 * rel_rmse(plain_bf16, plain_f32)
+            del plain_bf16, plain_f32
+    full = T.extend_cache(cfg, cache, n_pos + 1)
+    dec, _ = T.decode_step(params, cfg, full, nxt, n_pos)
     ref, _ = T.prefill(params, cfg, longer)
     d_dec = rel_rmse(dec, ref)
-    print(f"{tag} decode_step at {PROMPT} vs prefill over "
-          f"{PROMPT + 1} tokens: relative RMSE {d_dec:.3e} (bound "
+    agree = dec.argmax(-1) == ref.argmax(-1)
+    print(f"{tag} decode_step at {n_pos} vs prefill over "
+          f"{n_pos + 1} positions: relative RMSE {d_dec:.3e} (bound "
           f"{bf16_bound:.3e}); argmax agrees for "
-          f"{int((dec.argmax(-1) == ref.argmax(-1)).sum())}/{BATCH}")
+          f"{int(agree.sum())}/{agree.numel()}")
     if not d_dec <= bf16_bound:
         fail(f"{tag} decode_step off prefill by {d_dec:.3e}")
     return f32_launches
@@ -2623,40 +2743,14 @@ def attention_timing(cfg, dev, launches: dict, max_abs: dict,
     """Phase 24; returns the attention kernel's entries of the `kernels`
     line."""
     import torch
-    import torch.nn.functional as F
 
-    from repro_torch.kernels.attention import kernel as fak
-
-    h, kh, d, s = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, PROMPT
+    h, d, s = cfg.num_heads, cfg.resolved_head_dim, PROMPT
     flops = causal_attention_flops(BATCH, h, s, d)
     entries = []
     for dtype, name in ((torch.bfloat16, "fa_fwd_bf16_kernel"),
                         (torch.float32, "fa_fwd_f32_kernel")):
         q, k, v = attention_operands(cfg, s, dtype, dev, seed=SEED)
-        ms = event_ms(lambda: fak.flash_attention_bhsd(q, k, v), ATTN_RUNS)
-        plain_ms = event_ms(lambda: fak.flash_attention_bhsd_torch(q, k, v),
-                            PLAIN_RUNS)
-        # The library yardstick on the same tensors, KV heads repeated to
-        # the query heads outside the timed calls.
-        q4 = q.view(BATCH, h, s, d)
-        k4 = k.view(BATCH, kh, s, d).repeat_interleave(h // kh, dim=1)
-        v4 = v.view(BATCH, kh, s, d).repeat_interleave(h // kh, dim=1)
-        sdpa = lambda: F.scaled_dot_product_attention(q4, k4, v4,
-                                                      is_causal=True)
-        lib_ms = event_ms(sdpa, ATTN_RUNS)
-        lib_err = float((sdpa().reshape(q.shape).float()
-                         - fak.flash_attention_bhsd_torch(q, k, v).float())
-                        .abs().max())
-        bytes_ms, ops_ms, ops_of = attention_bounds(q, k, v, flops)
-        also = ("" if dtype == torch.bfloat16 else "; on the f32 cores "
-                f"{flops / PEAK_F32_OPS_PER_S * 1e3:.4f} ms")
-        bound_ms = max(bytes_ms, ops_ms)
-        print(f"[attn-time] {dtype} {name}: kernel {ms:.3f} ms "
-              f"({flops / ms / 1e9:.2f} TFLOP/s), bound {bound_ms:.4f} ms "
-              f"(operations {ops_ms:.4f} ms, {ops_of}; bytes "
-              f"{bytes_ms:.4f} ms{also}), {bound_ms / ms:.2%} of bound; "
-              f"plain {plain_ms:.3f} ms; scaled_dot_product_attention "
-              f"{lib_ms:.3f} ms, max|sdpa-plain| {lib_err:.3e}")
+        t = variant_timing(f"[attn-time] {name}", q, k, v, BATCH, flops)
         entry = {
             "name": name,
             "route": "cuda",
@@ -2665,19 +2759,17 @@ def attention_timing(cfg, dev, launches: dict, max_abs: dict,
             "launches": launches[dtype],
             "launches_by_path": {"serving prefill": launches[dtype]},
             "max_abs_err": max_abs[dtype],
-            "ms": ms,
-            "plain_ms": plain_ms,
-            "bound_ms": bound_ms,
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "operations_bound_of": ops_of,
-            "library_ms": lib_ms,
-            "library_max_abs_err": lib_err,
+            **{key: t[key] for key in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by")},
+            "operations_bound_of": attention_bounds(q, k, v, flops)[2],
+            "library_ms": t["library_ms"],
+            "library_max_abs_err": t["library_max_abs_err"],
             "design": DESIGN[name],
         }
         if dtype == torch.float32:
             entry["stressed_max_abs_vs_f64"] = stressed
         entries.append(entry)
-        del q, k, v, q4, k4, v4
+        del q, k, v
     return entries
 
 
@@ -3139,7 +3231,7 @@ def moe_serve(cfg, dev) -> dict:
           f"nothing drops; at the published factor a prefill (which may "
           f"drop) and decode (capacity {M.capacity(cut, 1)} a step, never "
           f"dropping) are different computations")
-    f32 = logit_checks(cut, params, tokens, logits_k, cache, "[moe-check]",
+    f32 = logit_checks(cut, params, prompt, logits_k, cache, "[moe-check]",
                        decode_cfg=nd)
     print(f"[moe-check] {time.perf_counter() - t_phase:.1f} s")
     return {"bf16": launches, "f32": f32}
@@ -3255,13 +3347,381 @@ def hybrid(base, dev) -> dict:
           "1 / sqrt(fan_in)")
     torch.cuda.reset_peak_memory_stats()
     logits_k, cache = T.prefill(params, cfg, prompt)
-    f32 = logit_checks(cfg, params, tokens, logits_k, cache, "[hybrid]",
+    f32 = logit_checks(cfg, params, prompt, logits_k, cache, "[hybrid]",
                        decode_cfg=no_drop(cfg))
     print(f"[hybrid] peak device memory over the checks (f32 prefills at "
           f"the no-drop capacity): "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     print(f"[hybrid] {time.perf_counter() - t_phase:.1f} s")
     return {"bf16": run["launches"], "f32": f32}
+
+
+def windowed_flops(bh: int, s: int, d: int, window: int) -> float:
+    """Query i meets keys max(0, i - W + 1)..i: 4 D min(i + 1, W) operations
+    per row, over BH folded rows."""
+    w = min(window, s)
+    return 4.0 * d * (w * (w + 1) // 2 + (s - w) * w) * bh
+
+
+def variant_timing(tag: str, q, k, v, batch: int, flops: float,
+                   window=None) -> dict:
+    """The attention kernel (CUDA events, ATTN_RUNS launches), its plain
+    version and torch's scaled_dot_product_attention (the library
+    yardstick: causal, or with the window as a boolean mask; KV heads
+    repeated to the query heads outside the timed calls) on folded q
+    (B*H, S, D), k, v (B*K, S, D), beside the bound (for f32 also the
+    f32 cores' time for the same operations)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.attention import kernel as fak
+
+    bh, s, d = q.shape
+    h, kh = bh // batch, k.shape[0] // batch
+    ms = event_ms(lambda: fak.flash_attention_bhsd(q, k, v, window=window),
+                  ATTN_RUNS)
+    plain = lambda: fak.flash_attention_bhsd_torch(q, k, v, window=window)
+    plain_ms = event_ms(plain, PLAIN_RUNS)
+    q4 = q.view(batch, h, s, d)
+    k4 = k.view(batch, kh, s, d).repeat_interleave(h // kh, dim=1)
+    v4 = v.view(batch, kh, s, d).repeat_interleave(h // kh, dim=1)
+    if window is None:
+        sdpa = lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                      is_causal=True)
+    else:
+        i = torch.arange(s, device=q.device)
+        mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+        sdpa = lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                      attn_mask=mask)
+    lib_ms = event_ms(sdpa, ATTN_RUNS)
+    lib_err = float((sdpa().reshape(q.shape).float() - plain().float())
+                    .abs().max())
+    bytes_ms, ops_ms, ops_of = attention_bounds(q, k, v, flops)
+    bound_ms = max(bytes_ms, ops_ms)
+    also = ("" if q.dtype == torch.bfloat16 else "; on the f32 cores "
+            f"{flops / PEAK_F32_OPS_PER_S * 1e3:.4f} ms")
+    label = (f"{tuple(q.shape)} q, {tuple(k.shape)} k/v, {q.dtype}"
+             + (f", window {window}" if window else ", causal"))
+    print(f"{tag} {label}: kernel {ms:.3f} ms ({flops / ms / 1e9:.2f} "
+          f"TFLOP/s), bound {bound_ms:.4f} ms (operations {ops_ms:.4f} ms, "
+          f"{ops_of}; bytes {bytes_ms:.4f} ms{also}), {bound_ms / ms:.2%} of "
+          f"bound; plain {plain_ms:.3f} ms; scaled_dot_product_attention "
+          f"{lib_ms:.3f} ms, max|sdpa-plain| {lib_err:.3e}")
+    return {"shape": label, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": lib_ms, "library_max_abs_err": lib_err}
+
+
+def kernel_vs_plain(tag: str, q, k, v, causal: bool = True,
+                    window=None) -> float:
+    """The kernel against its plain version at the phase-22 bounds; returns
+    max |kernel - plain|."""
+    import torch
+
+    from repro_torch.kernels.attention import kernel as fak
+
+    got = fak.flash_attention_bhsd(q, k, v, causal=causal, window=window)
+    want = fak.flash_attention_bhsd_torch(q, k, v, causal=causal,
+                                          window=window)
+    torch.cuda.synchronize()
+    worst = float((got.float() - want.float()).abs().max())
+    if q.dtype == torch.float32:
+        ok = f32_excess(got, want) <= ATTN_F32_TOL
+        bound = f"rtol = atol = {ATTN_F32_TOL:.0e}"
+    else:
+        ok = worst < ATTN_BF16_MAX_ABS
+        bound = f"max abs < {ATTN_BF16_MAX_ABS}"
+    mask = (f"window {window}" if window else
+            "causal" if causal else "non-causal")
+    label = f"{tuple(q.shape)} q, {tuple(k.shape)} k/v, {q.dtype}, {mask}"
+    print(f"{tag} {label}: max|kernel-plain| {worst:.3e} ({bound})")
+    if not ok:
+        fail(f"{tag} attention kernel disagrees with its plain version: "
+             f"{label}: max abs {worst:.3e}")
+    return worst
+
+
+def group7_timing(cfg, dev) -> dict:
+    """The kernel at DeepSeek-Coder-33B's group 7 (56 heads over 8), the
+    serving batch and prompt, beside its bound (checked in phase 22)."""
+    import torch
+
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = attention_operands(cfg, PROMPT, dtype, dev, seed=SEED)
+        out[dtype] = variant_timing(
+            "[attn-time] group 7", q, k, v, BATCH,
+            causal_attention_flops(BATCH, cfg.num_heads, PROMPT,
+                                   cfg.resolved_head_dim))
+        del q, k, v
+    return out
+
+
+def window_vs_f64(q, k, v, window: int) -> None:
+    """The windowed kernel and its plain version against the f64 function.
+    f32: the kernel within rtol = atol = ATTN_F32_TOL. bf16:
+    `within_plain_rounding`, the kernel's max error and relative RMSE
+    within twice the plain version's. A key missed or let in at the
+    window's lower edge moves the rows it touches far past that, where
+    ATTN_BF16_MAX_ABS is about a typical output at Mixtral's window."""
+    import torch
+
+    from repro_torch.kernels.attention import kernel as fak
+    from repro_torch.kernels.attention.ref import (attention_f64,
+                                                   f64_distances,
+                                                   within_plain_rounding)
+
+    got = fak.flash_attention_bhsd(q, k, v, window=window)
+    plain = fak.flash_attention_bhsd_torch(q, k, v, window=window)
+    exact = attention_f64(q, k, v, window=window)
+    torch.cuda.synchronize()
+    (d_k, r_k), (d_p, r_p) = (f64_distances(got, exact),
+                              f64_distances(plain, exact))
+    label = (f"{tuple(q.shape)} q, {tuple(k.shape)} k/v, {q.dtype}, "
+             f"window {window}")
+    if q.dtype == torch.float32:
+        ok = f32_excess(got, exact) <= ATTN_F32_TOL
+        bound = f"kernel: rtol = atol = {ATTN_F32_TOL:.0e}"
+    else:
+        ok = within_plain_rounding(got, plain, exact)
+        bound = (f"kernel within 2 x plain in both: max {2 * d_p:.3e}, "
+                 f"relative RMSE {2 * r_p:.3e}")
+    print(f"[window-check] {label} against the f64 function: max|kernel-"
+          f"f64| {d_k:.3e}, max|plain-f64| {d_p:.3e}; relative RMSE kernel "
+          f"{r_k:.3e}, plain {r_p:.3e} ({bound}); outputs: RMS "
+          f"{float(exact.pow(2).mean().sqrt()):.3e}, max "
+          f"{float(exact.abs().max()):.3e}")
+    if not ok:
+        fail(f"[window-check] windowed kernel off the f64 function: {label}: "
+             f"max abs {d_k:.3e} (plain {d_p:.3e}), relative RMSE {r_k:.3e} "
+             f"(plain {r_p:.3e})")
+
+
+def window_check(cfg, dev) -> tuple:
+    """[window-check]: the windowed kernel against its plain version and
+    the f64 function (`window_vs_f64`) at Mixtral's attention shape and at
+    WINDOW_EDGE, both dtypes; then its times. Returns the max |kernel -
+    plain| per dtype and the times per dtype."""
+    import torch
+
+    t_phase = time.perf_counter()
+    entering("[window-check]")
+    w = cfg.sliding_window
+    max_abs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    cases = [(WINDOW_SEQ, w, torch.float32), (WINDOW_SEQ, w, torch.bfloat16),
+             (*WINDOW_EDGE, torch.float32), (*WINDOW_EDGE, torch.bfloat16)]
+    for i, (s, win, dtype) in enumerate(cases):
+        q, k, v = attention_operands(cfg, s, dtype, dev, seed=SEED + i,
+                                     batch=1)
+        worst = kernel_vs_plain("[window-check]", q, k, v, window=win)
+        max_abs[dtype] = max(max_abs[dtype], worst)
+        window_vs_f64(q, k, v, win)
+        del q, k, v
+    times = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = attention_operands(cfg, WINDOW_SEQ, dtype, dev, seed=SEED,
+                                     batch=1)
+        times[dtype] = variant_timing(
+            "[window-check]", q, k, v, 1,
+            windowed_flops(q.shape[0], WINDOW_SEQ, q.shape[2], w), window=w)
+        del q, k, v
+    print(f"[window-check] {time.perf_counter() - t_phase:.1f} s")
+    return max_abs, times
+
+
+def token_prompt(cfg, dev, b: int, s: int) -> dict:
+    """{tokens: (b, s) ids from numpy}."""
+    import torch
+
+    rng = np.random.default_rng(SEED)
+    return {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (b, s))).to(dev)}
+
+
+def mixtral(base, dev) -> dict:
+    """[mixtral] and [mixtral-check]: Mixtral-8x7B at every published width
+    with its depth cut; returns the attention kernel's launches by path."""
+    from repro_torch.models import transformer as T
+
+    t_phase = time.perf_counter()
+    entering("[mixtral]")
+    cfg = base.scaled(num_layers=MIXTRAL_LAYERS)
+    m, w = cfg.moe, cfg.sliding_window
+    params = init_on_card(
+        "[mixtral]", cfg, dev,
+        f"kept as published: d_model {cfg.d_model}, {cfg.num_heads}/"
+        f"{cfg.num_kv_heads} heads of {cfg.resolved_head_dim}, "
+        f"{m.num_experts} experts top-{m.top_k} of {m.d_ff_expert}, "
+        f"capacity factor {m.capacity_factor:g}, window {w}, vocab "
+        f"{cfg.vocab_size}; cut: {base.num_layers} -> {cfg.num_layers} "
+        f"layers (the published depth is 186.8 GB of f32 weights)")
+    prompts = {"causal": (BATCH, PROMPT), "windowed": (1, WINDOW_SEQ)}
+    runs = {}
+    for name, (b, s) in prompts.items():
+        prompt = token_prompt(cfg, dev, b, s)
+        s_alloc = T.cache_alloc_len(cfg, s + STEPS)
+        print(f"[mixtral] {b} x {s} tokens: S {'>' if s > w else '<='} window "
+              f"{w}, so the {'windowed' if s > w else 'causal'} kernel; a "
+              f"decode cache of {s_alloc} slots"
+              + (" (a ring that decode wraps)" if s_alloc < s + STEPS
+                 else ""))
+        run = generate("[mixtral]", cfg, params, prompt, s_max=s + STEPS)
+        with recorded_routing() as calls:
+            T.prefill(params, cfg, prompt)
+        kept = [float(r.keep.float().mean()) for r in calls]
+        print(f"[mixtral] {b} x {s}: (token, choice) pairs dropped in the "
+              f"prefill, from the router's outputs: "
+              f"{1 - sum(kept) / len(kept):.4%} over {len(kept)} MoE layers "
+              f"(per layer {1 - max(kept):.4%} to {1 - min(kept):.4%})")
+        del calls
+        if s > w:
+            profile(lambda: T.prefill(params, cfg, prompt),
+                    f"mixtral bf16 prefill, {b} x {s} (windowed)", top=12)
+        runs[name] = {k: run[k] for k in ("launches", "window_launches")}
+        del run, prompt
+    del params
+    print(f"[mixtral] {time.perf_counter() - t_phase:.1f} s")
+
+    # Kernel path vs plain step and decode vs prefill, at full width and
+    # MIXTRAL_CHECK_LAYERS layers, block weights at 1 / sqrt(fan_in).
+    t_phase = time.perf_counter()
+    entering("[mixtral-check]")
+    cut = base.scaled(num_layers=MIXTRAL_CHECK_LAYERS)
+    params = init_on_card("[mixtral-check]", cut, dev,
+                          f"at full width, {MIXTRAL_CHECK_LAYERS} layers")
+    fan_in_scaled(params, cut)
+    nd = no_drop(cut)
+    f32 = {}
+    for name, (b, s) in prompts.items():
+        prompt = token_prompt(nd, dev, b, s)
+        logits_k, cache = T.prefill(params, nd, prompt)
+        print(f"[mixtral-check] {b} x {s} tokens, every check on a copy at "
+              f"capacity factor {nd.moe.capacity_factor:g} (>= E / k, "
+              f"nothing drops)")
+        f32[name] = logit_checks(nd, params, prompt, logits_k, cache,
+                                 "[mixtral-check]")
+        del logits_k, cache, prompt
+    del params
+    print(f"[mixtral-check] {time.perf_counter() - t_phase:.1f} s")
+    return {"bf16": runs, "f32": f32}
+
+
+def fan_in_checks(tag: str, cfg, params, prompt, run: dict) -> int:
+    """Phase 23's logit checks on the served weights rescaled in place to
+    1 / sqrt(fan_in), as [hybrid] runs them: at the stacked init's
+    1 / sqrt(repeats) every layer's softmax is near one-hot, and a deep
+    stack of them turns f32 summation order into O(1) logit differences.
+    Drops `run`'s logits and cache first. At the stacked init it prints
+    (not gated) the f32 kernel path's and the f32 plain path's distances
+    from each other and from the f32 model whose attention step is
+    evaluated in f64 (`f64_attention_step`): the witness that either
+    order of f32 sums lands that far from the exact step. Returns the f32
+    launches."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    run.pop("logits")
+    run.pop("cache")
+    cfg32 = cfg.scaled(dtype="float32")
+    kernel_32, _ = T.prefill(params, cfg32, prompt)
+    with plain_attention_step(L):
+        plain_32, _ = T.prefill(params, cfg32, prompt)
+    with f64_attention_step(L):
+        exact_32, _ = T.prefill(params, cfg32, prompt)
+    print(f"{tag} at the stacked init (block weights at std 1 / sqrt("
+          f"{cfg.repeats})), not gated, relative RMSE of the last-position "
+          f"logits: f32 kernel path vs f32 plain path "
+          f"{rel_rmse(kernel_32, plain_32):.3e}; vs the f32 model with its "
+          f"attention step in f64: kernel path "
+          f"{rel_rmse(kernel_32, exact_32):.3e}, plain path "
+          f"{rel_rmse(plain_32, exact_32):.3e}")
+    del kernel_32, plain_32, exact_32
+    fan_in_scaled(params, cfg)
+    print(f"{tag} checks below on the same weights rescaled to std "
+          f"1 / sqrt(fan_in)")
+    logits_k, cache = T.prefill(params, cfg, prompt)
+    return logit_checks(cfg, params, prompt, logits_k, cache, tag)
+
+
+def musicgen(cfg, dev) -> dict:
+    """[musicgen]: MusicGen-Large at full width and depth; the kernel's
+    DP = 64 instantiation at its shape. Returns the launches and times."""
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    t_phase = time.perf_counter()
+    entering("[musicgen]")
+    n_cb = cfg.frontend.num_positions
+    params = init_on_card(
+        "[musicgen]", cfg, dev,
+        f"at full width and depth: {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+        f"{cfg.resolved_head_dim}, {cfg.mlp_type} d_ff {cfg.d_ff}, {n_cb} "
+        f"codebooks of {cfg.vocab_size}")
+    rng = np.random.default_rng(SEED)
+    prompt = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (BATCH, n_cb, PROMPT))).to(dev)}
+    run = generate("[musicgen]", cfg, params, prompt)
+    profile(lambda: T.prefill(params, cfg, prompt), "musicgen bf16 prefill",
+            top=10)
+    dp64 = {}
+    for i, dtype in enumerate((torch.bfloat16, torch.float32)):
+        q, k, v = attention_operands(cfg, PROMPT, dtype, dev, seed=SEED + i)
+        worst = kernel_vs_plain("[musicgen] DP = 64:", q, k, v)
+        dp64[dtype] = dict(variant_timing(
+            "[musicgen] DP = 64:", q, k, v, BATCH,
+            causal_attention_flops(BATCH, cfg.num_heads, PROMPT,
+                                   cfg.resolved_head_dim)),
+            max_abs_err=worst)
+        del q, k, v
+    dp64[torch.float32]["stressed_max_abs_vs_f64"] = stressed_check(
+        "[musicgen] DP = 64:", cfg, dev, SEED + 2)
+    launches = run["launches"]
+    f32 = fan_in_checks("[musicgen]", cfg, params, prompt, run)
+    del params
+    print(f"[musicgen] {time.perf_counter() - t_phase:.1f} s")
+    return {"bf16": launches, "f32": f32, "dp64": dp64}
+
+
+def vlm(base, dev) -> dict:
+    """[vlm]: InternVL2-26B at every published width with its depth cut,
+    256 image positions before 1792 text tokens; decode vs a full prefill
+    at position 256 + 1792. Returns the launches."""
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    t_phase = time.perf_counter()
+    entering("[vlm]")
+    cfg = base.scaled(num_layers=VLM_LAYERS)
+    fe = cfg.frontend
+    params = init_on_card(
+        "[vlm]", cfg, dev,
+        f"kept as published: d_model {cfg.d_model}, {cfg.num_heads}/"
+        f"{cfg.num_kv_heads} heads of {cfg.resolved_head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}, projector {fe.d_frontend} -> "
+        f"{cfg.d_model}, {fe.num_positions} image positions; cut: "
+        f"{base.num_layers} -> {cfg.num_layers} layers")
+    prompt = token_prompt(cfg, dev, BATCH, PROMPT - fe.num_positions)
+    prompt["patch_embeds"] = torch.from_numpy(
+        np.random.default_rng(SEED + 1).standard_normal(
+            (BATCH, fe.num_positions, fe.d_frontend), dtype=np.float32)
+    ).to(dev)
+    run = generate("[vlm]", cfg, params, prompt)
+    profile(lambda: T.prefill(params, cfg, prompt), "vlm bf16 prefill",
+            top=8)
+    launches = run["launches"]
+    # On the served weights bf16 rounding alone moves the logits far (the
+    # stacked init's near-one-hot softmax), which leaves the bf16 bounds
+    # loose there: the checks run again on fan-in-rescaled weights.
+    f32 = logit_checks(cfg, params, prompt, run["logits"], run["cache"],
+                       "[vlm]")
+    fan_in_checks("[vlm]", cfg, params, prompt, run)
+    del params
+    print(f"[vlm] {time.perf_counter() - t_phase:.1f} s")
+    return {"bf16": launches, "f32": f32}
 
 
 def flat_leaves(tree, prefix: str = "") -> list:
@@ -3295,7 +3755,7 @@ def main() -> int:
 
 
 def run(work: str) -> int:
-    """Phases 1-31 (see the module's docstring); stores and checkpoints
+    """Phases 1-34 (see the module's docstring); stores and checkpoints
     go under `work`."""
     import torch
 
@@ -3306,6 +3766,7 @@ def run(work: str) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    t_run = time.perf_counter()
 
     # 1. Device ------------------------------------------------------------
     smi = nvidia_smi_line()
@@ -3389,8 +3850,13 @@ def run(work: str) -> int:
     cfg = get_config("qwen2_1_5b")
     moe_cfg = get_config("qwen2_moe_a2_7b")
     hybrid_cfg = get_config("jamba_1_5_large")
+    gqa7_cfg = get_config("deepseek_coder_33b")
+    mixtral_cfg = get_config("mixtral_8x7b")
     max_abs, stressed = attention_checks(cfg, dev, moe_cfg,
-                                         hybrid_config(hybrid_cfg))
+                                         hybrid_config(hybrid_cfg), gqa7_cfg)
+    group7 = group7_timing(gqa7_cfg, dev)
+    window_max_abs, window_times = window_check(mixtral_cfg, dev)
+    torch.cuda.empty_cache()
     launches = serving(cfg, dev)
     torch.cuda.empty_cache()
     attn = attention_timing(cfg, dev, launches, max_abs, stressed)
@@ -3414,17 +3880,44 @@ def run(work: str) -> int:
     moe = moe_serve(moe_cfg, dev)
     ssm = ssm_serve(get_config("mamba2_130m"), dev)
     hyb = hybrid(hybrid_cfg, dev)
+
+    # 31-33. The last five configs' paths (Mixtral's window, the frontends)
+    mix = mixtral(mixtral_cfg, dev)
+    mus = musicgen(get_config("musicgen_large"), dev)
+    vl = vlm(get_config("internvl2_26b"), dev)
     for entry in attn:
-        if entry["name"] == "fa_fwd_bf16_kernel":
+        dtype = (torch.bfloat16 if entry["name"] == "fa_fwd_bf16_kernel"
+                 else torch.float32)
+        if dtype == torch.bfloat16:
             entry["launches_by_path"].update({
                 "moe serving prefill": moe["bf16"],
                 "ssm serving prefill": ssm,
-                "hybrid serving prefill": hyb["bf16"]})
+                "hybrid serving prefill": hyb["bf16"],
+                "mixtral serving prefill, 4 x 2048":
+                    mix["bf16"]["causal"]["launches"],
+                "mixtral serving prefill, 1 x 8192 (windowed)":
+                    mix["bf16"]["windowed"]["launches"],
+                "musicgen serving prefill": mus["bf16"],
+                "vlm serving prefill": vl["bf16"]})
+            windowed = mix["bf16"]["windowed"]["window_launches"]
         else:
             entry["launches_by_path"].update({
                 "moe f32 prefill": moe["f32"],
-                "hybrid f32 prefill": hyb["f32"]})
+                "hybrid f32 prefill": hyb["f32"],
+                "mixtral f32 prefill, 4 x 2048": mix["f32"]["causal"],
+                "mixtral f32 prefill, 1 x 8192 (windowed)":
+                    mix["f32"]["windowed"],
+                "musicgen f32 prefill": mus["f32"],
+                "vlm f32 prefill": vl["f32"]})
+            windowed = mix["f32"]["windowed"]
         entry["launches"] = sum(entry["launches_by_path"].values())
+        entry["max_abs_err"] = max(entry["max_abs_err"],
+                                   window_max_abs[dtype],
+                                   mus["dp64"][dtype]["max_abs_err"])
+        entry["windowed"] = dict(window_times[dtype], launches=windowed,
+                                 max_abs_err=window_max_abs[dtype])
+        entry["dp64"] = mus["dp64"][dtype]
+        entry["group7"] = group7[dtype]
         print(f"[kernels] {entry['name']} launches: {entry['launches']} = "
               f"{entry['launches_by_path']}")
     entries += attn
@@ -3435,7 +3928,8 @@ def run(work: str) -> int:
     if leaked:
         fail(f"the port imported {leaked}")
 
-    # 31. Result -----------------------------------------------------------
+    # 34. Result -----------------------------------------------------------
+    print(f"[run] phases 1-33 in {time.perf_counter() - t_run:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(f"[device] {smi}")
     print(json.dumps({"ok": True, "device": {

@@ -1,35 +1,30 @@
 """Architecture configs of the LM substrate.
 
-Port of `repro/configs/__init__.py` over the configs the port serves:
-each module exposes CONFIG (the published configuration) and
-smoke_config() (a reduced same-family config for CPU tests).
-`get_config(name)` / `get_smoke_config(name)` / `list_archs()` are the
-registry, with the reference's aliases. The reference's other
-architectures raise NotImplementedError naming their ROADMAP.md item.
+Port of `repro/configs/__init__.py`: each module exposes CONFIG (the
+published configuration) and smoke_config() (a reduced same-family config
+for CPU tests). `get_config(name)` / `get_smoke_config(name)` /
+`list_archs()` are the registry, with the reference's aliases, over all
+ten of the reference's architectures.
 """
 from __future__ import annotations
 
 import importlib
 from typing import List
 
-from ..models.config import CONFIGS, FRONTENDS, ModelConfig, not_ported
+from ..models.config import ModelConfig
 
 ARCHS = [
     "qwen2_1_5b",
+    "deepseek_coder_33b",
     "yi_6b",
+    "internlm2_20b",
     "qwen2_moe_a2_7b",
+    "mixtral_8x7b",
     "jamba_1_5_large",
     "mamba2_130m",
+    "internvl2_26b",
+    "musicgen_large",
 ]
-
-# The reference's other architectures -> what brings each back.
-_NOT_PORTED = {
-    "deepseek_coder_33b": CONFIGS,
-    "internlm2_20b": CONFIGS,
-    "mixtral_8x7b": CONFIGS,
-    "internvl2_26b": FRONTENDS,
-    "musicgen_large": FRONTENDS,
-}
 
 _ALIASES = {
     "qwen2-1.5b": "qwen2_1_5b",
@@ -47,8 +42,6 @@ _ALIASES = {
 
 def _module(name: str):
     mod_name = _ALIASES.get(name, name.replace("-", "_").replace(".", "_"))
-    if mod_name in _NOT_PORTED:
-        raise not_ported(f"the {name!r} config", _NOT_PORTED[mod_name])
     if mod_name not in ARCHS:
         raise ValueError(f"unknown architecture {name!r}; the port has "
                          f"{ARCHS}")

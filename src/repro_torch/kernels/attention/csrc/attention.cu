@@ -11,7 +11,11 @@
 // (key j visible to query i iff j <= i) or absent, masked scores set to
 // -1e30 as in the TPU kernel, the running max m, the normaliser l and the
 // output accumulator in f32, l clamped at 1e-30, and the output rounded
-// once to the input dtype.
+// once to the input dtype. A causal call may also take a sliding window W
+// (`window` > 0; 0 is none): key j is then visible to query i iff
+// i - W < j <= i, the mask of the reference model's plain attention step
+// with `sliding_window` (src/repro/models/layers.py, `_mask_bias`), which
+// the TPU kernel does not have.
 //
 // What bounds it on an H100: at the serving shape (4 x 12 heads over 2 KV
 // heads, S = 2048, D = 128, causal) the function needs 4 D S (S + 1) / 2
@@ -28,7 +32,13 @@
 // owns 16 query rows. A causal block stops at the last key tile that
 // touches its diagonal (the TPU kernel's `pl.when` skips the tiles above
 // it), only that tile and a ragged last tile are masked, and the query
-// tiles are scheduled heaviest first. Tails where S is not a multiple of
+// tiles are scheduled heaviest first. With a window a block also starts at
+// the key tile that holds its lowest row's first visible key, q0 - W + 1,
+// and masks the tiles that reach below its highest row's, in the same
+// predicates. Every row sees its own key, so no row is wholly masked; a
+// tile that is wholly masked for some rows of a block (only ever before
+// their first visible key) leaves finite m, l and accumulator that the
+// next tile's rescale, exp(-1e30 - m), multiplies by exactly 0. Tails where S is not a multiple of
 // 64 are zero-filled in shared memory and masked, and D up to 128 (a
 // multiple of 4) is zero-padded to 64 or 128.
 //
@@ -205,7 +215,8 @@ template <int DP>
 __global__ void __launch_bounds__(kMmaThreads)
 fa_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, bf16* __restrict__ o, int sq,
-                   int sk, int d, int group, float scale, int causal) {
+                   int sk, int d, int group, float scale, int causal,
+                   int window) {
   constexpr int kTile = kBK * DP;  // elements of one K or V tile
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // [2][64][DP]
@@ -225,11 +236,13 @@ fa_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   int n_kt = (sk + kBK - 1) / kBK;
   if (causal) n_kt = min(n_kt, (q0 + kBQ - 1) / kBK + 1);
+  // The window's first key tile: the one holding q0 - W + 1.
+  const int kt0 = window > 0 ? max(0, q0 - window + 1) / kBK : 0;
 
-  // Prologue: Q through the second K stage, key tile 0 into the first.
+  // Prologue: Q through the second K stage, key tile kt0 into the first.
   load_tile_async<DP>(ks + kTile, qb, q0, sq, d);
-  load_tile_async<DP>(ks, kb, 0, sk, d);
-  load_tile_async<DP>(vs, vb, 0, sk, d);
+  load_tile_async<DP>(ks, kb, kt0 * kBK, sk, d);
+  load_tile_async<DP>(vs, vb, kt0 * kBK, sk, d);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
@@ -252,8 +265,8 @@ fa_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int iq_lo = q0 + warp * 16 + g;
   const int iq_hi = iq_lo + 8;
 
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int st = kt & 1;
+  for (int kt = kt0; kt < n_kt; ++kt) {
+    const int st = (kt - kt0) & 1;
     if (kt + 1 < n_kt) {  // the next tile loads while this one is multiplied
       load_tile_async<DP>(ks + (st ^ 1) * kTile, kb, (kt + 1) * kBK, sk, d);
       load_tile_async<DP>(vs + (st ^ 1) * kTile, vb, (kt + 1) * kBK, sk, d);
@@ -286,7 +299,10 @@ fa_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // Online softmax on the fragments: lane holds keys 8j + 2t + {0, 1} of
     // rows g (s[j][0..1]) and g + 8 (s[j][2..3]).
     const int k0 = kt * kBK;
-    const bool masked = k0 + kBK > sk || (causal && k0 + kBK - 1 > q0);
+    // Masked: a ragged last tile, the diagonal's, or one reaching below the
+    // window of the block's highest row, q0 + kBQ - 1.
+    const bool masked = k0 + kBK > sk || (causal && k0 + kBK - 1 > q0) ||
+                        (window > 0 && k0 < q0 + kBQ - window);
     float mx_lo = kNegInf, mx_hi = kNegInf;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -296,8 +312,14 @@ fa_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         float b = s[j][2 + e] * scale;
         if (masked) {
           const int ik = k0 + 8 * j + 2 * t + e;
-          a = (ik < sk && (!causal || ik <= iq_lo)) ? a : kNegInf;
-          b = (ik < sk && (!causal || ik <= iq_hi)) ? b : kNegInf;
+          a = (ik < sk && (!causal || ik <= iq_lo) &&
+               (window == 0 || ik > iq_lo - window))
+                  ? a
+                  : kNegInf;
+          b = (ik < sk && (!causal || ik <= iq_hi) &&
+               (window == 0 || ik > iq_hi - window))
+                  ? b
+                  : kNegInf;
         }
         s[j][e] = a;
         s[j][2 + e] = b;
@@ -470,7 +492,8 @@ template <int DP>
 __global__ void __launch_bounds__(kF32Threads, 1)
 fa_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ o, int sq,
-                  int sk, int d, int group, float scale, int causal) {
+                  int sk, int d, int group, float scale, int causal,
+                  int window) {
   using L = F32Tile<DP>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   float* qs = reinterpret_cast<float*>(smem_raw);  // [128][DP + 8]
@@ -492,10 +515,12 @@ fa_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   int n_kt = (sk + kBK - 1) / kBK;
   if (causal) n_kt = min(n_kt, (q0 + kBQ32 - 1) / kBK + 1);
+  // The window's first key tile: the one holding q0 - W + 1.
+  const int kt0 = window > 0 ? max(0, q0 - window + 1) / kBK : 0;
 
   load_rows_async<DP, kBQ32>(qs, L::kQKStride, qb, q0, sq, d);
-  load_rows_async<DP, kBK>(ks, L::kQKStride, kb, 0, sk, d);
-  load_rows_async<DP, kBK>(vs, L::kVStride, vb, 0, sk, d);
+  load_rows_async<DP, kBK>(ks, L::kQKStride, kb, kt0 * kBK, sk, d);
+  load_rows_async<DP, kBK>(vs, L::kVStride, vb, kt0 * kBK, sk, d);
   cp_async_commit();
 
   float acc[DP / 8][4];
@@ -510,8 +535,8 @@ fa_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // The warp's Q rows g and g + 8, at column 2t of each 8-column block.
   const float* qw = qs + (warp * 16 + g) * L::kQKStride + 2 * t;
 
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int st = kt & 1;
+  for (int kt = kt0; kt < n_kt; ++kt) {
+    const int st = (kt - kt0) & 1;
     if (kt + 1 < n_kt) {  // the next tile loads while this one is multiplied
       load_rows_async<DP, kBK>(ks + (st ^ 1) * L::kK, L::kQKStride, kb,
                                (kt + 1) * kBK, sk, d);
@@ -522,8 +547,11 @@ fa_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     cp_async_wait<1>();
     __syncthreads();
     const int k0 = kt * kBK;
-    // Warp-uniform: causal tiles wholly above the warp's rows are skipped.
-    if (!causal || k0 <= r0 + 15) {
+    // Warp-uniform: causal tiles wholly above the warp's rows are skipped,
+    // and so are tiles wholly below the window of its lowest row, r0 (so
+    // below every row's).
+    if ((!causal || k0 <= r0 + 15) &&
+        (window == 0 || k0 + kBK > r0 - window + 1)) {
       const float* kst = ks + st * L::kK;
       const float* vst = vs + st * L::kV;
 
@@ -570,7 +598,10 @@ fa_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
       // Online softmax on the fragments: lane holds keys 8j + 2t + {0, 1}
       // of rows g (s[j][0..1]) and g + 8 (s[j][2..3]).
-      const bool masked = k0 + kBK > sk || (causal && k0 + kBK - 1 > r0);
+      // Masked: a ragged last tile, the warp's diagonal, or one reaching
+      // below the window of the warp's highest row, r0 + 15.
+      const bool masked = k0 + kBK > sk || (causal && k0 + kBK - 1 > r0) ||
+                          (window > 0 && k0 < r0 + 16 - window);
       float mx_lo = kNegInf, mx_hi = kNegInf;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
@@ -580,8 +611,14 @@ fa_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
           float b = s[j][2 + e] * scale;
           if (masked) {
             const int ik = k0 + 8 * j + 2 * t + e;
-            a = (ik < sk && (!causal || ik <= iq_lo)) ? a : kNegInf;
-            b = (ik < sk && (!causal || ik <= iq_hi)) ? b : kNegInf;
+            a = (ik < sk && (!causal || ik <= iq_lo) &&
+                 (window == 0 || ik > iq_lo - window))
+                    ? a
+                    : kNegInf;
+            b = (ik < sk && (!causal || ik <= iq_hi) &&
+                 (window == 0 || ik > iq_hi - window))
+                    ? b
+                    : kNegInf;
           }
           s[j][e] = a;
           s[j][2 + e] = b;
@@ -679,10 +716,11 @@ fa_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <typename T>
 cudaError_t start(void (*kernel)(const T*, const T*, const T*, T*, int, int,
-                                 int, int, float, int),
+                                 int, int, float, int, int),
                   int threads, int bq, int smem, const void* q, const void* k,
                   const void* v, void* o, int bh, int group, int sq, int sk,
-                  int d, float scale, int causal, cudaStream_t stream) {
+                  int d, float scale, int causal, int window,
+                  cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -691,38 +729,40 @@ cudaError_t start(void (*kernel)(const T*, const T*, const T*, T*, int, int,
   kernel<<<dim3(bh, n_qt), threads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), sq, sk, d, group, scale,
-      causal);
+      causal, window);
   return cudaGetLastError();
 }
 
 template <int DP>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
                        int bh, int group, int sq, int sk, int d, float scale,
-                       int causal, cudaStream_t stream) {
+                       int causal, int window, cudaStream_t stream) {
   return start<float>(fa_fwd_f32_kernel<DP>, kF32Threads, kBQ32,
                       F32Tile<DP>::kSmemBytes, q, k, v, o, bh, group, sq, sk,
-                      d, scale, causal, stream);
+                      d, scale, causal, window, stream);
 }
 
 template <int DP>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
                         int bh, int group, int sq, int sk, int d, float scale,
-                        int causal, cudaStream_t stream) {
+                        int causal, int window, cudaStream_t stream) {
   const int smem = 4 * kBK * DP * sizeof(bf16);  // K and V, two stages each
   return start<bf16>(fa_fwd_bf16_kernel<DP>, kMmaThreads, kBQ, smem, q, k, v,
-                     o, bh, group, sq, sk, d, scale, causal, stream);
+                     o, bh, group, sq, sk, d, scale, causal, window, stream);
 }
 
 }  // namespace
 
 // dtype codes: 0 f32, 1 bf16. q, o: (bh, sq, d); k, v: (bh / group, sk, d),
-// contiguous, 16-byte aligned, d a multiple of 4 in [4, 128].
+// contiguous, 16-byte aligned, d a multiple of 4 in [4, 128]. window: 0 for
+// none, else W >= 1 on a causal call with sq == sk.
 extern "C" int fa_fwd_launch(const void* q, const void* k, const void* v,
                              void* o, int bh, int group, int sq, int sk,
-                             int d, float scale, int causal, int dtype,
-                             void* stream) {
+                             int d, float scale, int causal, int window,
+                             int dtype, void* stream) {
   if (bh < 1 || group < 1 || bh % group || sq < 1 || sk < 1 || d < 4 ||
-      d > 128 || d % 4) {
+      d > 128 || d % 4 || window < 0 ||
+      (window > 0 && (!causal || sq != sk))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -731,15 +771,15 @@ extern "C" int fa_fwd_launch(const void* q, const void* k, const void* v,
     case 0:
       return static_cast<int>(
           narrow ? launch_f32<64>(q, k, v, o, bh, group, sq, sk, d, scale,
-                                  causal, st)
+                                  causal, window, st)
                  : launch_f32<128>(q, k, v, o, bh, group, sq, sk, d, scale,
-                                   causal, st));
+                                   causal, window, st));
     case 1:
       return static_cast<int>(
           narrow ? launch_bf16<64>(q, k, v, o, bh, group, sq, sk, d, scale,
-                                   causal, st)
+                                   causal, window, st)
                  : launch_bf16<128>(q, k, v, o, bh, group, sq, sk, d, scale,
-                                    causal, st));
+                                    causal, window, st));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

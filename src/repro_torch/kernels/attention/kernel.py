@@ -7,6 +7,10 @@ Replaces the Pallas TPU kernel `_fa_kernel` of
 (batch*head, S, D) arrays, with the running max, the normaliser and the
 output accumulator in f32, causal masking by ``ik <= iq`` (masked scores
 -1e30), key blocks above the diagonal skipped, and the output in q's dtype.
+Beyond the reference kernel, a causal call may take a sliding window W:
+key j is visible to query i iff ``i - W < j <= i`` (the mask of the
+reference model's plain attention step with `sliding_window`), and key
+blocks wholly below a block's window are skipped too.
 
 The kernel is `csrc/attention.cu` (CUDA C++ for sm_90a, plain C interface,
 loaded with ctypes). What bounds it on an H100 and what its design does
@@ -22,7 +26,7 @@ interpret mode runs); `flash_attention_bhsd` takes it only for tensors on
 the CPU. For a CUDA tensor it launches the kernel, whose tiles (64 queries
 for bf16, 128 for f32, by 64 keys) are fixed in its source, or raises;
 `bq` and `bk` only block the plain version. `launches` counts kernel
-launches.
+launches, `window_launches` those with a window.
 
 The kernel's output is written through ctypes, outside autograd. So on the
 card the wrapper raises when grad is enabled and q, k or v requires grad:
@@ -34,6 +38,7 @@ from __future__ import annotations
 import ctypes
 import math
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -49,21 +54,24 @@ MAX_HEAD_DIM = 128
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0  # kernel launches by flash_attention_bhsd (never the plain path)
+window_launches = 0  # those of them with a sliding window
 
 
 def _bound_library() -> ctypes.CDLL:
     lib = LIBRARY.load()
     lib.fa_fwd_launch.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float]
-        + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     lib.fa_fwd_launch.restype = ctypes.c_int
     lib.fa_error_string.argtypes = [ctypes.c_int]
     lib.fa_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
-    """Validates the folded operands; returns the GQA group size."""
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           causal: bool = True, window: Optional[int] = None) -> int:
+    """Validates the folded operands and the mask; returns the GQA group
+    size."""
     if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape:
         raise ValueError(
             f"q must be (BH, Sq, D) and k, v (BH/group, Sk, D), got "
@@ -77,16 +85,25 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
         raise ValueError(
             f"head dims {q.shape[2]} vs {k.shape[2]}, or {q.shape[0]} query "
             f"rows not a multiple of {k.shape[0]} key rows")
+    if window is not None and (window < 1 or not causal
+                               or q.shape[1] != k.shape[1]):
+        raise ValueError(
+            f"a sliding window must be >= 1 on causal self-attention (Sq == "
+            f"Sk), got window {window}, causal {causal}, Sq {q.shape[1]}, "
+            f"Sk {k.shape[1]}")
     return q.shape[0] // k.shape[0]
 
 
 def flash_attention_bhsd_torch(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor, bq: int = 128, bk: int = 128,
-                               causal: bool = True) -> torch.Tensor:
+                               causal: bool = True,
+                               window: Optional[int] = None) -> torch.Tensor:
     """Plain torch version: q (BH, Sq, D), k/v (BH/group, Sk, D) -> (BH, Sq,
     D) in q's dtype. The reference kernel's blocked recurrence; the last
-    block of each axis may be short."""
-    group = _check(q, k, v)
+    block of each axis may be short. With a `window`, blocks wholly below
+    the window of a query block's first row are skipped, as the kernel
+    skips them."""
+    group = _check(q, k, v, causal, window)
     bh, sq, d = q.shape
     sk = k.shape[1]
     if group > 1:
@@ -106,11 +123,16 @@ def flash_attention_bhsd_torch(q: torch.Tensor, k: torch.Tensor,
         for k0 in range(0, sk, bk):
             if causal and k0 > q0 + bq - 1:  # block above the diagonal
                 break
+            if window is not None and k0 + bk <= q0 - window + 1:
+                continue                     # block below the window
             kb = kf[:, k0:k0 + bk]
             s = (qb @ kb.transpose(1, 2)) * scale
             if causal:
                 ik = torch.arange(k0, k0 + kb.shape[1], device=q.device)
-                s = torch.where(ik[None, :] <= iq, s, NEG_INF)
+                ok = ik[None, :] <= iq
+                if window is not None:
+                    ok &= ik[None, :] > iq - window
+                s = torch.where(ok, s, NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1))
             p = torch.exp(s - m_new[..., None])
             alpha = torch.exp(m - m_new)
@@ -129,14 +151,15 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         bq: int = 128, bk: int = 128,
-                         causal: bool = True) -> torch.Tensor:
+                         bq: int = 128, bk: int = 128, causal: bool = True,
+                         window: Optional[int] = None) -> torch.Tensor:
     """Fused attention over folded (BH, S, D) arrays: the CUDA kernel for
     tensors on the card, the plain torch version (blocked by bq x bk) for
-    tensors on the CPU."""
-    group = _check(q, k, v)
+    tensors on the CPU. `window` (causal, Sq == Sk): key j visible to query
+    i iff i - window < j <= i; None for the causal mask alone."""
+    group = _check(q, k, v, causal, window)
     if q.device.type == "cpu":
-        return flash_attention_bhsd_torch(q, k, v, bq, bk, causal)
+        return flash_attention_bhsd_torch(q, k, v, bq, bk, causal, window)
     if q.device.type != "cuda":
         raise ValueError(f"no flash-attention kernel for device {q.device}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
@@ -150,7 +173,7 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if d % 4 or not 4 <= d <= MAX_HEAD_DIM:
         raise ValueError(f"the kernel takes head dims that are multiples of "
                          f"4 up to {MAX_HEAD_DIM}, got {d}")
-    global launches
+    global launches, window_launches
     lib = _bound_library()
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty_like(q)
@@ -159,10 +182,11 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         rc = lib.fa_fwd_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                out.data_ptr(), bh, group, sq, k.shape[1], d,
                                1.0 / math.sqrt(d), int(causal),
-                               DTYPES[q.dtype], stream)
+                               int(window or 0), DTYPES[q.dtype], stream)
     if rc != 0:
         raise RuntimeError(
             f"flash-attention kernel launch failed: "
             f"{lib.fa_error_string(rc).decode()} (cudaError {rc})")
     launches += 1
+    window_launches += window is not None
     return out

@@ -24,10 +24,12 @@ from .ref import attention_ref
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True,
-                    bq: int = 128, bk: int = 128) -> torch.Tensor:
+                    bq: int = 128, bk: int = 128,
+                    window: Optional[int] = None) -> torch.Tensor:
     """q: (B, Sq, H, D); k, v: (B, Sk, K, D), H % K == 0. Returns (B, Sq,
     H, D) in q's dtype. bq, bk block the plain version (on the CPU); the
-    kernel's tiles are its own."""
+    kernel's tiles are its own. `window` (causal, Sq == Sk): key j visible
+    to query i iff i - window < j <= i."""
     b, sq, h, d = q.shape
     kh = k.shape[2]
     if h % kh:
@@ -37,16 +39,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qf = q.transpose(1, 2).reshape(b * h, sq, d)
     kf = k.transpose(1, 2).reshape(b * kh, k.shape[1], d)
     vf = v.transpose(1, 2).reshape(b * kh, v.shape[1], d)
-    out = flash_attention_bhsd(qf, kf, vf, bq=bq, bk=bk, causal=causal)
+    out = flash_attention_bhsd(qf, kf, vf, bq=bq, bk=bk, causal=causal,
+                               window=window)
     return out.reshape(b, h, sq, d).transpose(1, 2)
 
 
 class FlashAttention(torch.autograd.Function):
     """The flash-attention forward with the gradient of a plain version.
 
-    forward(q, k, v, causal, plain): `flash_attention` under no_grad (the
-    kernel for CUDA tensors, its blocked plain version for CPU tensors);
-    saves q, k and v.
+    forward(q, k, v, causal, plain, window): `flash_attention` under
+    no_grad (the kernel for CUDA tensors, its blocked plain version for CPU
+    tensors); saves q, k and v.
 
     backward(dO): `plain(q, k, v)` recomputed on detached copies under
     enable_grad, then `torch.autograd.grad` of it with dO. So dq, dk and dv
@@ -57,11 +60,12 @@ class FlashAttention(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, plain: Callable):
+    def forward(ctx, q, k, v, causal: bool, plain: Callable,
+                window: Optional[int] = None):
         ctx.save_for_backward(q, k, v)
         ctx.plain = plain
         with torch.no_grad():
-            return flash_attention(q, k, v, causal=causal)
+            return flash_attention(q, k, v, causal=causal, window=window)
 
     @staticmethod
     def backward(ctx, d_out):
@@ -69,20 +73,23 @@ class FlashAttention(torch.autograd.Function):
         with torch.enable_grad():
             out = ctx.plain(q, k, v)
             dq, dk, dv = torch.autograd.grad(out, (q, k, v), d_out)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention_trainable(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, causal: bool = True,
-                              plain: Optional[Callable] = None
+                              plain: Optional[Callable] = None,
+                              window: Optional[int] = None
                               ) -> torch.Tensor:
     """`flash_attention` under autograd, same layout and dtypes.
 
     `plain(q, k, v)` is the attention math whose gradient the backward
     takes (see `FlashAttention`); by default the dense oracle
-    `attention_ref` with the same `causal`. The model's attention step
-    passes its own plain step, so that its gradients are the reference's.
+    `attention_ref` with the same `causal` and `window`. The model's
+    attention step passes its own plain step, so that its gradients are
+    the reference's.
     """
     if plain is None:
-        plain = functools.partial(attention_ref, causal=causal)
-    return FlashAttention.apply(q, k, v, causal, plain)
+        plain = functools.partial(attention_ref, causal=causal,
+                                  window=window)
+    return FlashAttention.apply(q, k, v, causal, plain, window)

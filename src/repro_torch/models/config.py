@@ -3,10 +3,11 @@
 Port of `repro/models/config.py`: the same frozen dataclasses, so that the
 reference's configs load unchanged. A model is `num_layers` sub-layers
 arranged as repeats of a block pattern (tuple of SubLayer descriptors).
-The port serves and trains attention, MoE and Mamba-2 (SSD) patterns, the
-hybrid Jamba stack included; the frontend dataclass is data only here, and
-the layers that use it raise NotImplementedError naming its ROADMAP.md item
-(`not_ported`).
+The port serves and trains every reference architecture: attention
+(with an optional sliding window), MoE and Mamba-2 (SSD) patterns, the
+hybrid Jamba stack, and the vision and audio frontends. Sharding rules
+are not ported yet and raise NotImplementedError naming their ROADMAP.md
+item (`not_ported`).
 """
 from __future__ import annotations
 
@@ -16,10 +17,7 @@ from typing import Literal, Optional, Tuple
 Kind = Literal["attn", "ssm"]
 Ffn = Literal["mlp", "moe", "none"]
 
-# ROADMAP.md Queue 1 items that bring back what the LM slice leaves out.
-FRONTENDS = "ROADMAP.md Queue 1 item 17 (vision and audio frontends)"
-CONFIGS = ("ROADMAP.md Queue 1 item 18 (Mixtral's windowed prefill in the "
-           "kernel, and the other dense configs)")
+# The ROADMAP.md Queue 1 item that brings back what the port leaves out.
 PARALLEL = "ROADMAP.md Queue 1 item 19 (parallel/: sharding rules)"
 
 

@@ -7,7 +7,9 @@ sharding spec, kept as data) and a forward function.
 The prefill and training attention step (between `_qkv` and the output
 projection) runs the hand-written flash-attention kernel when q is on the
 card, and the reference's own code on the CPU: dense scores up to
-`CHUNK_THRESHOLD`, a query-chunked exact attention beyond it. Under
+`CHUNK_THRESHOLD`, a query-chunked exact attention beyond it. A sliding
+window (Mixtral) is masked in the kernel when the prompt is longer than
+the window; up to the window the causal mask alone is exact. Under
 autograd the card's step is `flash_attention_trainable`: the kernel's
 forward, and the gradient of that plain step recomputed in the backward.
 Decode keeps the plain form on both devices: the kernel's causal mask is
@@ -25,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.attention import flash_attention, flash_attention_trainable
-from .config import CONFIGS, PARALLEL, ModelConfig, not_ported
+from .config import PARALLEL, ModelConfig, not_ported
 
 CHUNK_THRESHOLD = 8192
 QUERY_CHUNK = 1024
@@ -108,7 +110,7 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Attention (GQA; optional sliding window on the plain path)
+# Attention (GQA; optional sliding window)
 # ---------------------------------------------------------------------------
 
 def attention_defs(cfg: ModelConfig):
@@ -191,6 +193,14 @@ def prefill_attention_plain(cfg: ModelConfig, q: torch.Tensor,
     return torch.cat(outs, dim=1)[:, :s]
 
 
+def kernel_window(cfg: ModelConfig, s: int) -> Optional[int]:
+    """The window the kernel masks for an S-token prefill: the config's
+    sliding window when S exceeds it, else None (every key j <= i then lies
+    inside i's window, so the causal mask alone is exact)."""
+    w = cfg.sliding_window
+    return w if w is not None and s > w else None
+
+
 def prefill_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
                       v: torch.Tensor, positions: torch.Tensor,
                       check_positions: bool = True) -> torch.Tensor:
@@ -202,18 +212,16 @@ def prefill_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     its backward: the kernel's output, and dq, dk, dv bit-equal to
     autograd's through `prefill_attention_plain`.
 
-    The kernel masks by index (key j visible to query i iff j <= i), so on
-    the card every row of `positions` must be 0..S-1, as `prefill` and
-    `loss_fn` give them; checking that costs one host sync, which a caller
-    that built them with arange skips with `check_positions=False`.
-    Sliding-window attention is not what the kernel masks and raises there.
+    The kernel masks by index (key j visible to query i iff j <= i, and
+    with a window i - W < j), so on the card every row of `positions` must
+    be 0..S-1, as `prefill` and `loss_fn` give them; checking that costs
+    one host sync, which a caller that built them with arange skips with
+    `check_positions=False`. The window is `kernel_window(cfg, S)`.
     """
     if q.device.type != "cuda":
         return prefill_attention_plain(cfg, q, k, v, positions)
-    if cfg.sliding_window is not None:
-        raise not_ported("sliding-window attention in the flash kernel",
-                         CONFIGS)
     s = q.shape[1]
+    window = kernel_window(cfg, s)
     if check_positions and not bool(
             (positions == torch.arange(s, device=positions.device)).all()):
         raise ValueError("the flash-attention kernel masks by index: "
@@ -223,8 +231,9 @@ def prefill_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
         return flash_attention_trainable(
             q, k, v, causal=True,
             plain=lambda q, k, v: prefill_attention_plain(cfg, q, k, v,
-                                                          positions))
-    return flash_attention(q, k, v, causal=True)
+                                                          positions),
+            window=window)
+    return flash_attention(q, k, v, causal=True, window=window)
 
 
 def attention_with_kv(params, cfg: ModelConfig, x: torch.Tensor,

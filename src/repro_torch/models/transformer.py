@@ -11,20 +11,24 @@ counterpart of the reference's `jax.checkpoint(..., nothing_saveable)`).
 
 A block is the config's pattern of sub-layers: attention or Mamba-2 (SSD)
 mixing, then an MLP, a MoE or no FFN (the hybrid Jamba stack repeats 8 of
-them). Not in this port yet: vision/audio frontends and sharding rules
-raise NotImplementedError naming their ROADMAP.md item.
+them). The modality frontends are the reference's: audio (MusicGen) sums K
+codebook embeddings at the input and predicts K codebooks with K heads;
+vision (InternVL2) maps precomputed patch embeddings through the trained
+2-layer MLP projector and puts them before the text, image tokens first.
+Sharding rules raise NotImplementedError naming their ROADMAP.md item.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, NamedTuple, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from . import layers as L
-from .config import FRONTENDS, PARALLEL, ModelConfig, SubLayer, not_ported
+from .config import PARALLEL, ModelConfig, SubLayer, not_ported
 from .moe import moe, moe_defs
 from .ssm import SSMCache, ssm_block, ssm_cache_defs, ssm_defs
 
@@ -35,11 +39,9 @@ PyTree = Any
 # Parameter definitions
 # ---------------------------------------------------------------------------
 
-def _check_supported(cfg: ModelConfig) -> None:
-    """Raises for what the port leaves out."""
-    if cfg.frontend is not None:
-        raise not_ported(f"{cfg.name}: the {cfg.frontend.modality} frontend",
-                         FRONTENDS)
+def _modality(cfg: ModelConfig) -> Optional[str]:
+    """"vision", "audio" or None."""
+    return None if cfg.frontend is None else cfg.frontend.modality
 
 
 def _sublayer_defs(cfg: ModelConfig, sub: SubLayer) -> Dict:
@@ -68,12 +70,27 @@ def _stack_defs(defs: PyTree, repeats: int) -> PyTree:
 
 
 def model_defs(cfg: ModelConfig) -> PyTree:
-    _check_supported(cfg)
     d = cfg.d_model
-    defs: Dict[str, Any] = {
-        "embed": L.ParamDef((cfg.vocab_size, d), ("tp", "fsdp"), fan_in=d)}
-    if not cfg.tie_embeddings:
-        defs["head"] = L.ParamDef((d, cfg.vocab_size), ("fsdp", "tp"))
+    defs: Dict[str, Any] = {}
+    if _modality(cfg) == "audio":
+        # K codebook embedding tables, summed at the input, and K heads
+        k = cfg.frontend.num_positions
+        defs["embed"] = L.ParamDef((k, cfg.vocab_size, d),
+                                   (None, "tp", "fsdp"), fan_in=d)
+        defs["head"] = L.ParamDef((k, d, cfg.vocab_size),
+                                  (None, "fsdp", "tp"), fan_in=d)
+    else:
+        defs["embed"] = L.ParamDef((cfg.vocab_size, d), ("tp", "fsdp"),
+                                   fan_in=d)
+        if not cfg.tie_embeddings:
+            defs["head"] = L.ParamDef((d, cfg.vocab_size), ("fsdp", "tp"))
+    if _modality(cfg) == "vision":
+        df = cfg.frontend.d_frontend
+        defs["projector"] = {
+            "w1": L.ParamDef((df, d), ("fsdp", "tp")),
+            "norm": L.rmsnorm_defs(df),
+            "w2": L.ParamDef((d, d), ("tp", "fsdp")),
+        }
     block = {
         f"sub_{i}": _sublayer_defs(cfg, s) for i, s in enumerate(cfg.pattern)
     }
@@ -151,14 +168,43 @@ def _unstack(tree: PyTree) -> List[PyTree]:
 
 def embed_inputs(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
                  rules=None) -> torch.Tensor:
-    _check_supported(cfg)
+    """(B, S, d) in cfg.dtype. batch["tokens"]: (B, S) ids, or (B, K, S)
+    for audio, whose K codebook embeddings are summed. With
+    batch["patch_embeds"] (B, S_img, d_frontend) a vision model's projector
+    output comes first: (B, S_img + S, d). Decode batches are text only."""
     if rules is not None:
         raise not_ported("rules=", PARALLEL)
-    tokens = batch["tokens"].to(params["embed"].device)
-    return params["embed"][tokens].to(L.torch_dtype(cfg.dtype))
+    dtype = L.torch_dtype(cfg.dtype)
+    emb = params["embed"]
+    tokens = batch["tokens"].to(emb.device)
+    if _modality(cfg) == "audio":
+        x = sum(emb[i][tokens[:, i]]
+                for i in range(cfg.frontend.num_positions)).to(dtype)
+    else:
+        x = emb[tokens].to(dtype)
+    if _modality(cfg) == "vision" and "patch_embeds" in batch:
+        pe = batch["patch_embeds"].to(device=emb.device, dtype=dtype)
+        pr = params["projector"]
+        h = L.rmsnorm(pr["norm"], pe, cfg.rms_eps)
+        # jax.nn.gelu's default is the tanh approximation
+        h = F.gelu(h @ pr["w1"].to(dtype), approximate="tanh")
+        x = torch.cat([h @ pr["w2"].to(dtype), x], dim=1)
+    return x
+
+
+def prompt_len(cfg: ModelConfig, batch: Dict[str, torch.Tensor]) -> int:
+    """The positions `embed_inputs` gives a prompt: its text (or codes),
+    and a vision prompt's patch_embeds before it."""
+    n = batch["tokens"].shape[-1]
+    if _modality(cfg) == "vision" and "patch_embeds" in batch:
+        n += batch["patch_embeds"].shape[1]
+    return n
 
 
 def _logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """(B, S, V), or (B, S, K, V) from the K heads of an audio model."""
+    if _modality(cfg) == "audio":
+        return torch.einsum("bsd,kdv->bskv", x, params["head"].to(x.dtype))
     head = params["embed"].T if cfg.tie_embeddings else params["head"]
     return x @ head.to(x.dtype)
 
@@ -233,9 +279,12 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             rules=None, remat: bool = True
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross entropy, mean(logsumexp(logits) - logit[label])
-    over every position in f32. batch: tokens (B, S) and labels (B, S)
-    ids. Returns (ce + aux, {"ce": ce, "aux": aux}), aux the MoE layers'
-    summed router loss (a 0-d f32 zero without them).
+    over every text position in f32. batch: tokens and labels, (B, S) ids
+    or (B, K, S) for audio (one label per codebook); a vision model's
+    optional patch_embeds (B, S_img, d_frontend), whose image positions
+    carry no label and are left out. Returns (ce + aux, {"ce": ce, "aux":
+    aux}), aux the MoE layers' summed router loss (a 0-d f32 zero without
+    them).
 
     The positions are 0..S-1 in every row by construction, so the kernel's
     attention step skips its check (and its host sync)."""
@@ -248,6 +297,10 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     x = L.rmsnorm(params["final_norm"], x, cfg.rms_eps)
     logits = _logits(params, cfg, x).to(torch.float32)
     labels = batch["labels"].to(device=logits.device, dtype=torch.int64)
+    if _modality(cfg) == "vision":
+        logits = logits[:, s - labels.shape[-1]:]       # drop the n_img
+    if _modality(cfg) == "audio":
+        labels = labels.movedim(1, 2)                   # (B, S, K)
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels[..., None])[..., 0]
     ce = torch.mean(lse - ll)
@@ -277,7 +330,6 @@ def cache_alloc_len(cfg: ModelConfig, s_max: int) -> int:
 
 def _zero_cache(cfg: ModelConfig, batch: int, s: int,
                 device: torch.device) -> DecodeCache:
-    _check_supported(cfg)
     shape = (cfg.repeats, batch, s, cfg.num_kv_heads, cfg.resolved_head_dim)
     dtype = L.torch_dtype(cfg.dtype)
     cache = DecodeCache({}, {}, {})
@@ -295,8 +347,9 @@ def _zero_cache(cfg: ModelConfig, batch: int, s: int,
 
 def init_cache(cfg: ModelConfig, batch: int, s_max: int,
                device="cuda") -> DecodeCache:
-    """Zeroed decode caches for a decode up to `s_max`: KV caches and SSM
-    conv buffers in cfg.dtype, SSM states in f32."""
+    """Zeroed decode caches for a decode up to `s_max` positions (a vision
+    model's image positions included): KV caches of cache_alloc_len slots
+    and SSM conv buffers in cfg.dtype, SSM states in f32."""
     return _zero_cache(cfg, batch, cache_alloc_len(cfg, s_max),
                        resolve_device(device))
 
@@ -305,19 +358,32 @@ def extend_cache(cfg: ModelConfig, cache: DecodeCache,
                  s_max: int) -> DecodeCache:
     """The decode cache up to `s_max` that continues a prefill's `cache`.
 
-    Each attention sub-layer's k and v over the prompt go into the first
-    positions of a zeroed (repeats, B, s_max, K, hd) cache; a ring buffer
-    (cache_alloc_len < s_max) is kept as it is, as the reference's `place`
-    keeps it. The SSM caches do not grow with the sequence and carry over
+    Each attention sub-layer's k and v over the prompt's s0 positions go
+    into a zeroed (repeats, B, s_alloc, K, hd) cache, s_alloc =
+    cache_alloc_len(cfg, s_max): position p at slot p mod s_alloc, where
+    `attention_decode` looks for it. Without a window s_alloc is s_max and
+    the slots are the positions. With one, s_alloc = min(s_max, window) is a
+    ring, and when s0 > s_alloc only the last s_alloc positions are kept,
+    the ones the window still covers. (The reference's `place` keeps the
+    prefill's s0 slots as the ring whenever s_alloc < s_max, so with s0 <
+    window decode overwrites positions the window still covers; ROADMAP.md
+    Queue 3.) The SSM caches do not grow with the sequence and carry over
     as they are."""
-    grows = cache_alloc_len(cfg, s_max) == s_max
+    s_alloc = cache_alloc_len(cfg, s_max)
+    ring = cfg.sliding_window is not None
 
     def grown(small: torch.Tensor) -> torch.Tensor:
-        if not grows:
-            return small
-        big = small.new_zeros((*small.shape[:2], s_max, *small.shape[3:]))
-        big[:, :, :small.shape[2]] = small
-        return big
+        s0 = small.shape[2]
+        if s0 > s_alloc and not ring:
+            raise ValueError(f"a prefill of {s0} positions does not fit a "
+                             f"decode cache of {s_alloc}")
+        first = max(0, s0 - s_alloc)          # the first position kept
+        big = small.new_zeros((*small.shape[:2], s_alloc, *small.shape[3:]))
+        big[:, :, :s0 - first] = small[:, :, first:]
+        # Position `first` belongs at slot first mod s_alloc: roll the kept
+        # run there.
+        shift = first % s_alloc
+        return big.roll(shift, dims=2) if shift else big
 
     return DecodeCache({k: grown(t) for k, t in cache.attn_k.items()},
                        {k: grown(t) for k, t in cache.attn_v.items()},
@@ -326,11 +392,12 @@ def extend_cache(cfg: ModelConfig, cache: DecodeCache,
 
 def decode_step(params, cfg: ModelConfig, cache: DecodeCache,
                 tokens: torch.Tensor, cur_len: int, rules=None):
-    """One decode step. tokens: (B, 1); cur_len: the position of `tokens`
-    (a Python int). Writes the new k, v and the SSM states into `cache` in
-    place.
+    """One decode step. tokens: (B, 1), or (B, K, 1) for audio; cur_len:
+    the position of `tokens` (a Python int; after a vision prompt, its
+    image positions count). Writes the new k, v and the SSM states into
+    `cache` in place.
 
-    Returns (logits (B, V), cache)."""
+    Returns (logits (B, V) or (B, K, V), cache)."""
     x = embed_inputs(params, cfg, {"tokens": tokens}, rules)
     for r in range(cfg.repeats):
         p_block = _layer(params["blocks"], r)
@@ -362,8 +429,9 @@ def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     """Process a full prompt; returns (last-position logits, cache).
 
     The cache covers the prompt span, (repeats, B, S, K, hd) in cfg.dtype
-    per attention sub-layer (decode extends its own cache), and holds each
-    SSM sub-layer's state and conv tail after the prompt.
+    per attention sub-layer, S counting a vision prompt's image positions
+    (decode extends its own cache, `extend_cache`), and holds each SSM
+    sub-layer's state and conv tail after the prompt.
     """
     x = embed_inputs(params, cfg, batch, rules)
     b, s = x.shape[0], x.shape[1]

@@ -5,6 +5,11 @@ parameters live on (`init_params` / `params_from_reference` put them on
 the card unless asked for the CPU); there, every prefill attention layer
 runs the flash-attention kernel. SSM sub-layers carry a fixed-size
 recurrent state from the prefill into the decode instead of a KV cache.
+
+After a vision prompt decode continues at position n_img + s0, behind the
+image positions the prefill put first. The reference's `greedy_generate`
+decodes from s0 and so writes its first steps over image positions
+(ROADMAP.md Queue 3): it is no oracle for a prompt with images.
 """
 from __future__ import annotations
 
@@ -13,7 +18,7 @@ from typing import Any, Dict
 import torch
 
 from ..models import transformer as T
-from ..models.config import FRONTENDS, PARALLEL, ModelConfig, not_ported
+from ..models.config import PARALLEL, ModelConfig, not_ported
 
 PyTree = Any
 
@@ -34,15 +39,14 @@ def greedy_generate(cfg: ModelConfig, params, prompt: Dict[str, torch.Tensor],
                     steps: int, s_max: int, rules=None) -> torch.Tensor:
     """Prefill the prompt, then greedily decode `steps` tokens.
 
-    prompt["tokens"]: (B, S0) ids. Returns (B, steps + 1) int64 ids: the
-    argmax after the prompt and after each decoded token."""
-    if cfg.frontend is not None:
-        raise not_ported(f"greedy_generate for the {cfg.frontend.modality} "
-                         "frontend", FRONTENDS)
+    prompt["tokens"]: (B, S0) ids, or (B, K, S0) codes for audio; a vision
+    prompt may add patch_embeds (B, S_img, d_frontend), which the prefill
+    puts before the text. `s_max` counts every position, image ones
+    included. Returns (B, steps + 1) int64 ids, or (B, K, steps + 1) for
+    audio: the argmax after the prompt and after each decoded token."""
     if rules is not None:
         raise not_ported("rules=", PARALLEL)
-    tokens = prompt["tokens"]
-    s0 = tokens.shape[1]
+    s0 = T.prompt_len(cfg, prompt)
     logits, cache = T.prefill(params, cfg, prompt)
 
     # Re-home the prefill's KV caches into larger decode caches; the SSM
@@ -50,10 +54,10 @@ def greedy_generate(cfg: ModelConfig, params, prompt: Dict[str, torch.Tensor],
     cache = T.extend_cache(cfg, cache, s_max)
 
     out = []
-    cur = torch.argmax(logits, dim=-1)  # (B,)
+    cur = torch.argmax(logits, dim=-1)  # (B,), or (B, K) for audio
     for t in range(steps):
         out.append(cur)
-        logits, cache = T.decode_step(params, cfg, cache, cur[:, None],
+        logits, cache = T.decode_step(params, cfg, cache, cur[..., None],
                                       s0 + t)
         cur = torch.argmax(logits, dim=-1)
     out.append(cur)

@@ -26,7 +26,8 @@ from repro_torch.io.streams import (
 from repro_torch.kernels.attention import (
     attention_ref, flash_attention, flash_attention_trainable)
 from repro_torch.kernels.attention import kernel as fak
-from repro_torch.kernels.attention.ref import attention_f64
+from repro_torch.kernels.attention.ref import (attention_f64, f64_distances,
+                                               within_plain_rounding)
 from repro_torch.kernels.backproject import kernel as bpk
 from repro_torch.kernels.backproject import tune
 from repro_torch.kernels.backproject.ops import kernel_operands
@@ -374,16 +375,18 @@ def _qkv(bh, kvh, sq, sk, d, dtype, device, seed=0):
 # (48 query heads over 8), and S ragged around one and many 64-row tiles;
 # then head dims that are not a multiple of 8, one query and one key, GQA
 # groups of 6, and the serving head dim ragged around the f32 kernel's
-# 128-row tile; last Qwen2-MoE's prefill shape, 4 requests x 16 heads over
+# 128-row tile; then Qwen2-MoE's prefill shape, 4 requests x 16 heads over
 # 16 (group 1), and the Jamba pattern's, 4 x 64 heads over 8 (group 8), at
-# S = 2048.
+# S = 2048; last DeepSeek-Coder-33B's 56 heads over 8 (group 7) with a
+# ragged S.
 ATTN_SHAPES = [(4, 4, 128, 128, 64), (8, 2, 200, 200, 128),
                (6, 1, 77, 77, 16), (4, 2, 96, 160, 32), (2, 2, 64, 64, 128),
                (48, 8, 2048, 2048, 128), (6, 2, 65, 65, 128),
                (6, 2, 2047, 2047, 128), (4, 2, 100, 100, 12),
                (6, 1, 130, 130, 36), (12, 2, 200, 200, 100),
                (4, 4, 1, 1, 64), (6, 1, 1, 1, 128), (12, 2, 70, 70, 128),
-               (64, 64, 2048, 2048, 128), (256, 32, 2048, 2048, 128)]
+               (64, 64, 2048, 2048, 128), (256, 32, 2048, 2048, 128),
+               (56, 8, 300, 300, 128)]
 
 
 @pytest.mark.parametrize("shape", ATTN_SHAPES)
@@ -527,16 +530,86 @@ def test_prefill_kernel_path_matches_the_plain_step_on_the_card(
 
 
 def test_kernel_step_refuses_what_its_mask_cannot_express(cuda):
-    """On the card the prefill step masks by index: a sliding window or
-    positions other than 0..S-1 raise instead of computing another mask."""
+    """On the card the prefill step masks by index: positions other than
+    0..S-1 raise instead of computing another mask (with or without a
+    window)."""
     cfg = get_smoke_config("qwen2_1_5b").scaled(dtype="float32")
     q = torch.zeros((1, 8, cfg.num_heads, 16), device=cuda)
     k = torch.zeros((1, 8, cfg.num_kv_heads, 16), device=cuda)
     pos = torch.arange(8, device=cuda)[None]
-    with pytest.raises(NotImplementedError, match="item 18"):
-        layers.prefill_attention(cfg.scaled(sliding_window=4), q, k, k, pos)
-    with pytest.raises(ValueError, match="0..S-1"):
-        layers.prefill_attention(cfg, q, k, k, pos + 3)
+    for c in (cfg, cfg.scaled(sliding_window=4)):
+        with pytest.raises(ValueError, match="0..S-1"):
+            layers.prefill_attention(c, q, k, k, pos + 3)
+
+
+# (query rows, KV rows, S, D, window): group 4 with S and the window ragged
+# for the 64-key tiles; group 7 (DeepSeek-Coder-33B's 56 over 8); DP = 64
+# (MusicGen's head dim, MHA); a window of 1 (the diagonal alone); a window
+# of exactly one tile; Mixtral's 32 over 8 at S = 2 x its window.
+WINDOW_SHAPES = [(8, 2, 300, 128, 100), (56, 8, 520, 128, 200),
+                 (32, 32, 400, 64, 130), (4, 1, 130, 64, 1),
+                 (8, 2, 256, 128, 64), (32, 8, 8192, 128, 4096)]
+
+
+@pytest.mark.parametrize("shape", WINDOW_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_windowed_kernel_matches_plain_version(cuda, shape, dtype):
+    bh, kvh, s, d, window = shape
+    q, k, v = _qkv(bh, kvh, s, s, d, dtype, cuda, seed=window)
+    before = fak.launches
+    got = fak.flash_attention_bhsd(q, k, v, window=window)
+    assert fak.launches == before + 1
+    want = fak.flash_attention_bhsd_torch(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == dtype and got.shape == want.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=F32_TOL, atol=F32_TOL)
+        exact = attention_f64(q, k, v, window=window)
+        torch.testing.assert_close(got.double(), exact, rtol=F32_TOL,
+                                   atol=F32_TOL)
+    else:
+        assert float((got.float() - want.float()).abs().max()) < BF16_TOL
+        # BF16_TOL is about a typical output at S = 8192, too loose to see
+        # a key missed or let in at the window's lower edge.
+        exact = attention_f64(q, k, v, window=window)
+        assert within_plain_rounding(got, want, exact), (
+            f64_distances(got, exact), f64_distances(want, exact))
+
+
+def test_window_wider_than_s_is_bit_equal_to_causal(cuda):
+    q, k, v = _qkv(8, 2, 300, 300, 128, torch.bfloat16, cuda, seed=9)
+    torch.testing.assert_close(fak.flash_attention_bhsd(q, k, v, window=300),
+                               fak.flash_attention_bhsd(q, k, v),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("arch,s0,s_max", [("mixtral_8x7b", 45, 50),
+                                           ("mixtral_8x7b", 20, 26),
+                                           ("musicgen_large", 37, 42),
+                                           ("internvl2_26b", 37, 50)])
+def test_new_configs_greedy_generate_on_the_card(cuda, arch, s0, s_max):
+    """Mixtral's smoke model (window 32) longer than its window (the
+    windowed kernel, a ring of 32 slots) and shorter; MusicGen's codes and
+    InternVL2's 8 image positions before the text. One launch per layer of
+    the prefill; the ids match the CPU's plain step."""
+    cfg = get_smoke_config(arch).scaled(dtype="float32")
+    params = init_params(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(5)
+    fe = cfg.frontend
+    shape = (3, fe.num_positions, s0) if arch == "musicgen_large" else (3, s0)
+    prompt = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                      shape))}
+    if arch == "internvl2_26b":
+        prompt["patch_embeds"] = torch.from_numpy(rng.standard_normal(
+            (3, fe.num_positions, fe.d_frontend), dtype=np.float32))
+    want = greedy_generate(cfg, params, prompt, steps=5, s_max=s_max)
+    before = fak.launches
+    got = greedy_generate(cfg, _to(params, cuda), _to(prompt, cuda),
+                          steps=5, s_max=s_max)
+    torch.cuda.synchronize()
+    assert fak.launches == before + cfg.num_layers
+    assert got.device.type == "cuda"
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
 
 
 # -- MoE, SSM and hybrid layers on the card ----------------------------------

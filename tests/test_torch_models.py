@@ -31,9 +31,13 @@ from repro_torch.training import make_abstract_state, state_shardings
 
 torch.set_num_threads(1)
 
-ARCHS = ["qwen2_1_5b", "yi_6b"]           # dense: the attention layer tests
+# dense: the attention layer tests (GQA groups 2, 2, 4 and 2)
+ARCHS = ["qwen2_1_5b", "yi_6b", "deepseek_coder_33b", "internlm2_20b"]
 FAMILIES = ["qwen2_moe_a2_7b", "jamba_1_5_large", "mamba2_130m"]
-PORTED = ARCHS + FAMILIES
+# every reference architecture, in the reference's order
+PORTED = ["qwen2_1_5b", "deepseek_coder_33b", "yi_6b", "internlm2_20b",
+          "qwen2_moe_a2_7b", "mixtral_8x7b", "jamba_1_5_large",
+          "mamba2_130m", "internvl2_26b", "musicgen_large"]
 LAYER_TOL = 1e-5
 
 
@@ -81,7 +85,8 @@ def _flat_defs(defs, prefix=()):
 
 @pytest.mark.parametrize("name", PORTED + [
     "qwen2-1.5b", "yi-6b", "qwen2-moe-a2.7b", "jamba-1.5-large-398b",
-    "mamba2-130m"])
+    "mamba2-130m", "deepseek-coder-33b", "internlm2-20b", "mixtral-8x7b",
+    "internvl2-26b", "musicgen-large"])
 def test_configs_match_the_reference(name):
     for get in ("get_config", "get_smoke_config"):
         want = getattr(jconfigs, get)(name)
@@ -128,15 +133,12 @@ def test_count_params_every_family():
 
 
 def test_registry_lists_ported_and_names_the_rest():
-    assert tconfigs.list_archs() == PORTED
-    rest = {"mixtral_8x7b": "item 18", "deepseek_coder_33b": "item 18",
-            "internlm2_20b": "item 18", "internvl2_26b": "item 17",
-            "musicgen_large": "item 17"}
-    assert set(jconfigs.list_archs()) - set(PORTED) == set(rest)
-    for name, item in rest.items():
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP.md Queue 1 {item}"):
-            tconfigs.get_config(name)
+    """The port lists every reference architecture in the reference's order
+    (items 17 and 18 brought the last five), and names nothing else."""
+    assert tconfigs.list_archs() == jconfigs.list_archs() == PORTED
+    for name in PORTED:
+        assert tconfigs.get_config(name) == _as_port_config(
+            jconfigs.get_config(name))
     with pytest.raises(ValueError, match="unknown architecture"):
         tconfigs.get_config("gpt-17")
 
@@ -295,8 +297,8 @@ def test_entry_points_default_to_the_card():
 
 
 def test_what_the_slice_leaves_out_raises():
-    """MoE and SSM patterns build; the frontends raise naming item 17,
-    Mixtral item 18, sharding rules item 19."""
+    """MoE and SSM patterns, the vision and audio frontends and a sliding
+    window build; only sharding rules raise, naming item 19."""
     _, tc = cfgs("qwen2_1_5b")
     moe = tc.scaled(pattern=(tconfig.SubLayer(ffn="moe"),),
                     moe=tconfig.MoEConfig(num_experts=2, top_k=1,
@@ -306,13 +308,15 @@ def test_what_the_slice_leaves_out_raises():
     for cfg in (moe, ssm):
         assert TT.param_count(TT.init_params(cfg, seed=0, device="cpu")) \
             == tconfig.count_params(cfg)
-    for modality in ("vision", "audio"):
-        cfg = tc.scaled(frontend=tconfig.FrontendConfig(modality=modality))
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md Queue 1 item 17"):
-            TT.model_defs(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 18"):
-        tconfigs.get_config("mixtral_8x7b")
+    vision = tc.scaled(frontend=tconfig.FrontendConfig(
+        modality="vision", d_frontend=12, num_positions=3))
+    audio = tc.scaled(frontend=tconfig.FrontendConfig(modality="audio",
+                                                      num_positions=2))
+    window = tc.scaled(sliding_window=4)
+    for cfg in (vision, audio, window):
+        assert TT.param_count(TT.init_params(cfg, seed=0, device="cpu")) \
+            == tconfig.count_params(cfg)
+    assert tconfigs.get_config("mixtral_8x7b").sliding_window == 4096
     tp = TT.init_params(tc, seed=0, device="cpu")
     toks = torch.zeros((1, 4), dtype=torch.int64)
     with pytest.raises(NotImplementedError, match="item 19"):

@@ -1,7 +1,10 @@
 """Port parity for the LM serving slice as a whole: `repro_torch`'s
 prefill, decode_step and greedy_generate against `repro`'s, on the CPU,
-for the dense (qwen2_1_5b, yi_6b), MoE (qwen2_moe_a2_7b), SSM
-(mamba2_130m) and hybrid (jamba_1_5_large) smoke configs.
+for all ten smoke configs: dense (qwen2_1_5b, deepseek_coder_33b, yi_6b,
+internlm2_20b), MoE (qwen2_moe_a2_7b, mixtral_8x7b with its window), SSM
+(mamba2_130m), hybrid (jamba_1_5_large), vision (internvl2_26b, with
+patch embeddings before the text) and audio (musicgen_large, (B, K, S)
+codes).
 
 The reference's weights are carried across with `params_from_reference`;
 prompts come from numpy. The reference's prefill and decode_step run under
@@ -17,6 +20,10 @@ large; measured up to ~2e-6). Greedy ids are compared exactly. bf16: the
 two frameworks round at other places (XLA may keep an elementwise chain
 in f32 where torch rounds each op), so logits are held within 0.1 and
 caches within 0.05 of the largest |value|.
+
+greedy_generate is compared on a text-only prompt for the vision config:
+with images the reference decodes over image positions (ROADMAP.md Queue
+3), and test_torch_frontends.py holds that case against a full prefill.
 """
 import jax
 import jax.numpy as jnp
@@ -32,8 +39,9 @@ from test_torch_models import as_np, cfgs, close, ref_params
 
 torch.set_num_threads(1)
 
-ARCHS = ["qwen2_1_5b", "yi_6b", "qwen2_moe_a2_7b", "mamba2_130m",
-         "jamba_1_5_large"]
+ARCHS = ["qwen2_1_5b", "deepseek_coder_33b", "yi_6b", "internlm2_20b",
+         "qwen2_moe_a2_7b", "mixtral_8x7b", "mamba2_130m", "jamba_1_5_large",
+         "internvl2_26b", "musicgen_large"]
 MODEL_TOL = 2e-5
 BF16_LOGITS = 0.1
 BF16_CACHE = 0.05
@@ -52,6 +60,31 @@ def _params(jc, tc, seed=0):
 def _tokens(cfg, b=2, s=12, seed=0):
     return np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (b, s)).astype(np.int32)
+
+
+def _prompt(cfg, s=12, seed=0, images=True):
+    """{tokens: (2, s) ids, or (2, K, s) codes for audio} with a vision
+    config's patch_embeds (2, n_img, d_frontend) unless `images` is False;
+    and the prompt's positions (s, plus n_img)."""
+    fe = cfg.frontend
+    if fe is not None and fe.modality == "audio":
+        toks = np.stack([_tokens(cfg, s=s, seed=seed + i)
+                         for i in range(fe.num_positions)], axis=1)
+        return {"tokens": toks}, s
+    prompt = {"tokens": _tokens(cfg, s=s, seed=seed)}
+    if fe is not None and fe.modality == "vision" and images:
+        prompt["patch_embeds"] = np.random.default_rng(seed).standard_normal(
+            (2, fe.num_positions, fe.d_frontend), dtype=np.float32)
+        return prompt, s + fe.num_positions
+    return prompt, s
+
+
+def _jax(batch):
+    return {k: jnp.asarray(v) for k, v in batch.items()}
+
+
+def _torch(batch):
+    return {k: torch.from_numpy(v.copy()) for k, v in batch.items()}
 
 
 def _cache_leaves(cache):
@@ -81,25 +114,26 @@ def _close_caches(got, want, tol):
 def test_prefill_and_decode_match_the_reference(arch):
     jc, tc = cfgs(arch)
     jp, tp = _params(jc, tc)
-    toks = _tokens(jc)
-    jl, jcache = ref_prefill(jp, jc, {"tokens": jnp.asarray(toks)})
-    tl, tcache = TT.prefill(tp, tc, {"tokens": torch.from_numpy(toks)})
+    prompt, n = _prompt(jc)
+    jl, jcache = ref_prefill(jp, jc, _jax(prompt))
+    tl, tcache = TT.prefill(tp, tc, _torch(prompt))
     close(as_np(tl), jl, MODEL_TOL)
     _close_caches(tcache, jcache, MODEL_TOL)
 
-    # one decode step at position 12 against a 16-deep KV cache; the SSM
-    # caches carry over as they are, as the engine carries them
-    s_max = 16
+    # one decode step at position n (12, or 20 after a vision prompt's 8
+    # image positions) against an (n + 4)-deep KV cache; the SSM caches
+    # carry over as they are, as the engine carries them
+    s_max = n + 4
     jfull = JT.init_cache(jc, 2, s_max)
     jfull = jfull._replace(ssm=jcache.ssm, **{
-        f: jax.tree.map(lambda big, small: big.at[:, :, :12].set(small),
+        f: jax.tree.map(lambda big, small: big.at[:, :, :n].set(small),
                         getattr(jfull, f), getattr(jcache, f))
         for f in ("attn_k", "attn_v")})
     tfull = TT.extend_cache(tc, tcache, s_max)
-    nxt = np.argmax(np.asarray(jl), -1).astype(np.int32)[:, None]
+    nxt = np.argmax(np.asarray(jl), -1).astype(np.int32)[..., None]
     jl2, jc2 = ref_decode_step(jp, jc, jfull, jnp.asarray(nxt),
-                               jnp.int32(12))
-    tl2, tc2 = TT.decode_step(tp, tc, tfull, torch.from_numpy(nxt), 12)
+                               jnp.int32(n))
+    tl2, tc2 = TT.decode_step(tp, tc, tfull, torch.from_numpy(nxt), n)
     close(as_np(tl2), jl2, MODEL_TOL)
     assert tc2 is tfull
     _close_caches(tc2, jc2, MODEL_TOL)
@@ -111,12 +145,11 @@ def test_greedy_generate_matches_the_reference(arch, monkeypatch):
     monkeypatch.setattr(JT, "decode_step", ref_decode_step)
     jc, tc = cfgs(arch)
     jp, tp = _params(jc, tc, seed=1)
-    toks = _tokens(jc, seed=1)
+    prompt, _ = _prompt(jc, seed=1, images=False)
     want = np.asarray(jengine.greedy_generate(
-        jc, jp, {"tokens": jnp.asarray(toks)}, steps=6, s_max=20))
-    got = tengine.greedy_generate(tc, tp, {"tokens": torch.from_numpy(toks)},
-                                  steps=6, s_max=20)
-    assert got.shape == (2, 7)
+        jc, jp, _jax(prompt), steps=6, s_max=20))
+    got = tengine.greedy_generate(tc, tp, _torch(prompt), steps=6, s_max=20)
+    assert got.shape == prompt["tokens"].shape[:-1] + (7,)
     np.testing.assert_array_equal(got.numpy(), want)
 
 

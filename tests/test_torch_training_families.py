@@ -2,7 +2,9 @@
 `repro_torch`'s loss_fn (ce and the MoE router loss aux) for the
 qwen2_moe_a2_7b, mamba2_130m and jamba_1_5_large smoke configs, and one
 micro-batched train step for the MoE and the SSM ones, against `repro`'s
-on the CPU.
+on the CPU; and loss_fn with its gradients for the deepseek_coder_33b,
+internlm2_20b and mixtral_8x7b smoke configs (the frontends' are in
+test_torch_frontends.py).
 
 The state, batches, bounds and helpers are test_torch_training.py's: the
 reference's init with block weights rescaled to 1 / sqrt(fan_in), batches
@@ -20,8 +22,10 @@ from repro.training import train_step as JTS
 from repro_torch.models import transformer as TT
 from repro_torch.optim import AdamWConfig
 from repro_torch.training import make_train_step, train_state_from_reference
-from test_torch_training import (CPU, LOSS_REL, STEP_REL, TOTAL, WARMUP,
-                                 _batch, _flat, _ref_state, _ref_state_jax,
+from test_torch_training import (CPU, GRAD_ABS, GRAD_REL, LOSS_REL, STEP_REL,
+                                 TOTAL, WARMUP, _batch, _flat,
+                                 _port_value_and_grad, _ref_state,
+                                 _ref_state_jax, _ref_value_and_grad,
                                  _to_jax, _to_torch, as_np, cfgs)
 
 torch.set_num_threads(1)
@@ -70,3 +74,29 @@ def test_train_step_matches_the_reference_moe_and_ssm(arch):
         err = np.abs(as_np(p) - want[path]).max()
         assert err <= move, (path, err, move)
     assert int(new.opt.step) == 1
+
+
+@pytest.mark.parametrize("arch", ["deepseek_coder_33b", "internlm2_20b",
+                                  "mixtral_8x7b"])
+def test_loss_and_grads_match_the_reference_remaining_configs(arch):
+    """GQA groups 4 and 2, and Mixtral's window (32 of the 16 tokens: the
+    mask is causal here; the window's own parity is in
+    test_torch_window.py) with its top-2 MoE, whose router loss is in the
+    loss."""
+    jc, tc = cfgs(arch=arch)
+    state = _ref_state(arch)
+    batch = _batch(jc.vocab_size, seed=8)
+    want_loss, want_g = _ref_value_and_grad(jc, True)(
+        _ref_state_jax(state).params, _to_jax(batch))
+    params = TT.params_from_reference(state.params, tc, device=CPU)
+    loss, aux, grads = _port_value_and_grad(tc, params, _to_torch(batch),
+                                            True)
+    np.testing.assert_allclose(float(loss.detach()), float(want_loss),
+                               rtol=LOSS_REL)
+    assert (float(aux["aux"].detach()) > 0) == (tc.moe is not None)
+    want = _flat(jax.tree.map(np.asarray, want_g))
+    assert set(grads) == set(want)
+    for path, g in grads.items():
+        err = np.abs(as_np(g) - want[path]).max()
+        bound = GRAD_REL * np.abs(want[path]).max() + GRAD_ABS
+        assert err <= bound, (path, err, bound)
