@@ -299,11 +299,41 @@ Phases, in order; any failure exits non-zero:
    bounds are tight.
    Each of 31-33 prints the device memory still allocated on entry and
    its seconds.
-34. The `kernels` JSON line (each kernel with the PR of its design and
+34. [lm-mesh] The sharded LM substrate on a (data 2, model 2) mesh of
+   four ranks sharing the card (gloo over CUDA tensors: NCCL refuses two
+   ranks on one card; the script spawns itself with --lm-mesh-rank after
+   the libraries are built). First the oracles, each the same model run
+   unsharded in this process on the same weights (seed 0), with the
+   kernel: Qwen2-1.5B whole and Qwen2-MoE-A2.7B at every published width
+   with its depth cut from 24 to LM_MESH_MOE_LAYERS, each on the serving
+   prompts (4 x 2048): the f32 copy's prefill logits, 8 decode steps
+   teacher-forced on fixed tokens, the MoE's (token, choice) drops per
+   layer, and in bf16 greedy_generate's ids, the kernel's and the plain
+   step's prefill logits; the MoE through ShardingRules on a shape-only
+   (data 1, model 2) mesh, whose constraints are identities on plain
+   tensors and whose tp_size() 2 selects the grouped dispatch (2 groups
+   of 1024 tokens, 86 slots an expert against 171 in one group). Then
+   one f32 train step of Qwen2-1.5B at 4 of 28 layers, full width, on
+   4 x 2048 tokens in 2 micro-batches. Each rank prints the device
+   memory allocated when it enters and runs the same under
+   ShardingRules(mesh, fsdp=False) for serving (weights over the model
+   axis only: gloo moves ~0.3 GiB/s through the host here, and ZeRO-3
+   would gather every layer's weights at each step) and the default
+   rules (ZeRO-3) for the train step, with the attention kernel on its
+   own heads. Gates: f32 logits, decode steps, the loss and the updated
+   parameter tree within relative RMSE F32_LOGITS_REL of the oracle's
+   (each leaf's own is printed, the farthest first); bf16
+   prefill logits within twice the plain step's distance from the f32
+   oracle; the MoE's drops per layer equal to the oracle's; per rank and
+   prefill 28 (Qwen2) and 4 (MoE) kernel launches, 16 per train step.
+   Prints times, the drop share and the grouped einsums' operations
+   against the expert GEMMs'.
+35. The `kernels` JSON line (each kernel with the PR of its design and
    its launches by path; the back-projector's launches sum every path
    that runs it: phases 4, 7-10, 12, 14-18, 19 and 20's ranks, the
-   attention kernel's the serving prefills (phases 23, 28-33) and the
-   training steps, each counted from 0 just before the path; a path on
+   attention kernel's the serving prefills (phases 23, 28-34, phase 34
+   summed over its ranks) and the training steps, each counted from 0
+   just before the path; a path on
    another wire type's instantiation, such as the auto plan's, is printed
    beside it; the attention entries also carry the windowed kernel's,
    the DP = 64 instantiation's and group 7's times and bounds), the
@@ -424,6 +454,15 @@ WINDOW_EDGE = (5000, 1500)        # (S, window), both ragged for the tile
 MIXTRAL_LAYERS = 8
 MIXTRAL_CHECK_LAYERS = 2
 VLM_LAYERS = 12
+
+# [lm-mesh]: the sharded LM on a (data, model) mesh of four gloo ranks
+# sharing the card; 8 decode steps; Qwen2-MoE's depth and the train
+# step's cut to 4 layers.
+LM_MESH_SHAPE = (2, 2)
+LM_MESH_STEPS = 8
+LM_MESH_MOE_LAYERS = 4
+LM_MESH_TRAIN_LAYERS = 4
+LM_MESH_DEADLINE_S = 400
 
 # Mesh phases: the (pod, data, model) engine of core/plan.py at RabbitCT.
 MESH_AXES = ("pod", "data", "model")
@@ -2073,12 +2112,13 @@ def mesh_traced(g, proj, mesh) -> int:
     return n_launch
 
 
-def spawn_ranks(world: int, work: str, deadline: float) -> list:
-    """Run `world` copies of this script as ranks of the 2 x 2 phase
-    (`--mesh-rank RANK WORLD WORK`); returns (exit code, output tail, report
-    or None) per rank. A rank past the deadline is killed."""
+def spawn_ranks(world: int, work: str, deadline: float,
+                flag: str = "--mesh-rank") -> list:
+    """Run `world` copies of this script as ranks of a mesh phase (`flag
+    RANK WORLD WORK`); returns (exit code, output tail, report or None)
+    per rank. A rank past the deadline is killed."""
     procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--mesh-rank", str(r),
+        [sys.executable, os.path.abspath(__file__), flag, str(r),
          str(world), work],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for r in range(world)]
@@ -3724,6 +3764,387 @@ def vlm(base, dev) -> dict:
     return {"bf16": launches, "f32": f32}
 
 
+# ---------------------------------------------------------------------------
+# 34. [lm-mesh]: the sharded LM substrate on four ranks sharing the card
+# ---------------------------------------------------------------------------
+
+def two_groups():
+    """Sharding rules on a shape-only (data 1, model 2) mesh: tp_size() 2
+    (the MoE's grouped dispatch), identity constraints on plain tensors."""
+    from repro_torch.parallel.sharding import AbstractMesh, ShardingRules
+
+    return ShardingRules(mesh=AbstractMesh((1, 2), ("data", "model")))
+
+
+def lm_mesh_models(cfg, moe_cfg) -> tuple:
+    """(name, config, oracle rules) of the phase's two served models."""
+    return (("qwen2", cfg, None),
+            ("moe", moe_cfg.scaled(num_layers=LM_MESH_MOE_LAYERS),
+             two_groups()))
+
+
+def train_batch(cfg, dev) -> dict:
+    import torch
+
+    rng = np.random.default_rng(SEED + 2)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ))).to(dev)
+    return {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+
+
+def serve_path(cfg, params, prompt, forced, rules, dev) -> dict:
+    """The serving traffic of [lm-mesh], on one process or on each rank:
+    the f32 copy's prefill (kernel launches, logits, the MoE's drops per
+    layer) and its decode teacher-forced on `forced`; greedy_generate in
+    bf16 (launches, ids, seconds) and a timed bf16 prefill. Every tensor
+    returned is whole (gathered) and on the host."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels.attention import kernel as fak
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel.sharding import full
+    from repro_torch.serving import greedy_generate
+
+    sync = torch.cuda.synchronize
+    f32 = cfg.scaled(dtype="float32")
+    mesh = getattr(rules, "mesh", None)
+    sharded = mesh is not None and hasattr(mesh, "get_group")
+    barrier = dist.barrier if sharded else (lambda: None)
+    out = {}
+    barrier()
+    fak.launches = 0
+    t0 = time.perf_counter()
+    with recorded_routing() as calls:
+        logits, cache = T.prefill(params, f32, prompt, rules)
+        sync()
+    out["f32_prefill_s"] = time.perf_counter() - t0
+    out["f32_launches"] = fak.launches
+    drops = torch.tensor([float((~r.keep).sum()) for r in calls],
+                         device=dev)
+    kept = torch.tensor([float(r.keep.numel()) for r in calls], device=dev)
+    if sharded and calls:   # each rank routed its own token groups
+        dist.all_reduce(drops)
+        dist.all_reduce(kept)
+    out["drops"] = drops.cpu()
+    out["choices"] = kept.cpu()
+    out["prefill32"] = full(logits).float().cpu()
+    cache = T.extend_cache(f32, cache, PROMPT + LM_MESH_STEPS)
+    steps = []
+    for t in range(LM_MESH_STEPS):
+        logits, cache = T.decode_step(params, f32, cache, forced[:, t:t + 1],
+                                      PROMPT + t, rules)
+        steps.append(full(logits).float().cpu())
+    out["decode32"] = torch.stack(steps)
+    del cache, logits
+    torch.cuda.empty_cache()
+    barrier()
+    fak.launches = 0
+    t0 = time.perf_counter()
+    ids = greedy_generate(cfg, params, prompt, LM_MESH_STEPS,
+                          PROMPT + LM_MESH_STEPS, rules)
+    sync()
+    out["greedy_s"] = time.perf_counter() - t0
+    out["bf16_launches"] = fak.launches
+    out["ids"] = ids.cpu()
+    barrier()
+    t0 = time.perf_counter()
+    logits, _ = T.prefill(params, cfg, prompt, rules)
+    sync()
+    out["bf16_prefill_s"] = time.perf_counter() - t0
+    out["prefill16"] = full(logits).float().cpu()
+    return out
+
+
+def lm_mesh_oracles(cfg, moe_cfg, dev, out_dir: str) -> dict:
+    """The unsharded oracles of [lm-mesh], saved under `out_dir` for the
+    ranks: per model serve_path() plus the plain step's bf16 prefill
+    logits, and the f32 train step's metrics and updated leaves."""
+    import torch
+
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import _leaves
+    from repro_torch.training.train_step import (
+        init_train_state, make_train_step)
+
+    prompt = {"tokens": serving_prompts(cfg, dev)}
+    forced = torch.from_numpy(np.random.default_rng(SEED + 1).integers(
+        0, cfg.vocab_size, (BATCH, LM_MESH_STEPS))).to(dev)
+    torch.save(forced.cpu(), os.path.join(out_dir, "forced.pt"))
+    seconds = {}
+    for name, mcfg, rules in lm_mesh_models(cfg, moe_cfg):
+        t0 = time.perf_counter()
+        params = T.init_params(mcfg, SEED, dev)
+        oracle = serve_path(mcfg, params, prompt, forced, rules, dev)
+        with plain_attention_step(L):
+            oracle["plain16"] = T.prefill(params, mcfg, prompt,
+                                          rules)[0].float().cpu()
+        torch.save(oracle, os.path.join(out_dir, f"{name}.pt"))
+        seconds[name] = time.perf_counter() - t0
+        del params
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tcfg = cfg.scaled(num_layers=LM_MESH_TRAIN_LAYERS, dtype="float32")
+    state = init_train_state(tcfg, SEED, dev)
+    step = make_train_step(tcfg, microbatches=TRAIN_MICROBATCHES,
+                           warmup=TRAIN_WARMUP, total_steps=TRAIN_TOTAL)
+    new, metrics = step(state, train_batch(tcfg, dev))
+    torch.save({"metrics": {k: float(v) for k, v in metrics.items()},
+                "leaves": [p.detach().cpu() for p in _leaves(new.params)]},
+               os.path.join(out_dir, "train.pt"))
+    seconds["train"] = time.perf_counter() - t0
+    del state, new, step
+    torch.cuda.empty_cache()
+    return seconds
+
+
+def lm_mesh_rank(rank: int, world: int, work: str) -> None:
+    """A rank of [lm-mesh]: gloo over CUDA tensors on the one card, the
+    oracles in WORK/lm-mesh. Rank 0 holds every gathered output against
+    the oracle's; every rank holds its own part of each updated leaf.
+    Writes WORK/rank<R>.json; a collective that raises ends the rank."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, SRC)
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.attention import kernel as fak
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import _leaves
+    from repro_torch.parallel.mesh import make_mesh
+    from repro_torch.parallel.sharding import ShardingRules, local_bounds
+    from repro_torch.training.train_step import (
+        init_train_state, make_train_step)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda")
+    out_dir = os.path.join(work, "lm-mesh")
+    print(f"[lm-mesh] rank {rank} device memory allocated on entry: "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB", flush=True)
+    dist.init_process_group("gloo", init_method=f"file://{work}/pg-lm",
+                            rank=rank, world_size=world, timeout=PG_TIMEOUT)
+    report = {"rank": rank}
+    try:
+        mesh = make_mesh(LM_MESH_SHAPE, ("data", "model"),
+                         device_type="cuda")
+        serve = ShardingRules(mesh=mesh, fsdp=False)
+        cfg, moe_cfg = (get_config("qwen2_1_5b"),
+                        get_config("qwen2_moe_a2_7b"))
+        prompt = {"tokens": serving_prompts(cfg, dev)}
+        forced = torch.load(os.path.join(out_dir, "forced.pt")).to(dev)
+        for name, mcfg, _ in lm_mesh_models(cfg, moe_cfg):
+            t0 = time.perf_counter()
+            params = T.init_params(mcfg, SEED, dev, rules=serve)
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            got = serve_path(mcfg, params, prompt, forced, serve, dev)
+            got["init_s"] = init_s
+            got["local_gib"] = sum(p.to_local().numel() * 4 for p in
+                                   _leaves(params)) / 2**30
+            del params
+            torch.cuda.empty_cache()
+            rep = {k: v for k, v in got.items()
+                   if not isinstance(v, torch.Tensor)}
+            rep["drops"] = got["drops"].tolist()
+            rep["choices"] = got["choices"].tolist()
+            if rank == 0:
+                want = torch.load(os.path.join(out_dir, f"{name}.pt"))
+                rep["f32_prefill_rel"] = rel_rmse(got["prefill32"],
+                                                  want["prefill32"])
+                rep["f32_decode_rel"] = max(
+                    rel_rmse(g, w) for g, w in zip(got["decode32"],
+                                                   want["decode32"]))
+                rep["bf16_rel"] = rel_rmse(got["prefill16"],
+                                           want["prefill32"])
+                rep["plain_bf16_rel"] = rel_rmse(want["plain16"],
+                                                 want["prefill32"])
+                rep["oracle_bf16_rel"] = rel_rmse(want["prefill16"],
+                                                  want["prefill32"])
+                rep["ids_agree"] = float((got["ids"] == want["ids"])
+                                         .float().mean())
+                rep["oracle_drops"] = want["drops"].tolist()
+            report[name] = rep
+        # one f32 train step at LM_MESH_TRAIN_LAYERS, ZeRO-3 rules
+        train = ShardingRules(mesh=mesh)
+        tcfg = get_config("qwen2_1_5b").scaled(
+            num_layers=LM_MESH_TRAIN_LAYERS, dtype="float32")
+        state = init_train_state(tcfg, SEED, dev, rules=train)
+        step = make_train_step(tcfg, rules=train,
+                               microbatches=TRAIN_MICROBATCHES,
+                               warmup=TRAIN_WARMUP, total_steps=TRAIN_TOTAL)
+        batch = train_batch(tcfg, dev)
+        torch.cuda.reset_peak_memory_stats()
+        dist.barrier()
+        fak.launches = 0
+        t0 = time.perf_counter()
+        new, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        rep = {"step_s": time.perf_counter() - t0,
+               "launches": fak.launches,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "metrics": {k: float(v) for k, v in metrics.items()}}
+        want = torch.load(os.path.join(out_dir, "train.pt"), mmap=True)
+        sums = torch.zeros(2, len(want["leaves"]), dtype=torch.float64)
+        for i, (p, ref) in enumerate(zip(_leaves(new.params),
+                                         want["leaves"])):
+            for dim, (off, n) in enumerate(local_bounds(
+                    p.shape, p.device_mesh, p.placements)):
+                ref = ref.narrow(dim, off, n)
+            got = p.to_local().detach().double().cpu()
+            sums[0, i] = ((got - ref.double()) ** 2).sum()
+            sums[1, i] = (ref.double() ** 2).sum()
+        dist.all_reduce(sums)
+        rep["tree_rel"] = float((sums[0].sum() / sums[1].sum()).sqrt())
+        rep["leaf_rel"] = (sums[0] / sums[1]).sqrt().tolist()
+        rep["loss_rel"] = abs(rep["metrics"]["loss"]
+                              / want["metrics"]["loss"] - 1)
+        rep["grad_norm_rel"] = abs(rep["metrics"]["grad_norm"]
+                                   / want["metrics"]["grad_norm"] - 1)
+        report["train"] = rep
+    finally:
+        dist.destroy_process_group()
+        with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+            json.dump(report, f)
+
+
+def grouped_einsum_flops(cfg) -> tuple:
+    """Per MoE layer at the serving shape with 2 groups: operations of
+    the one-hot dispatch einsum (the combine's are the same) and of the
+    three expert GEMMs together, over the capacity buffers."""
+    from repro_torch.models import moe as M
+
+    m = cfg.moe
+    g = LM_MESH_SHAPE[1]
+    sg = PROMPT // g
+    c = M.capacity(cfg, sg)
+    rows = BATCH * g * m.num_experts * c
+    dispatch = 2.0 * BATCH * g * sg * m.top_k * m.num_experts * c \
+        * cfg.d_model
+    experts = 2.0 * 3 * rows * cfg.d_model * m.d_ff_expert
+    return c, dispatch, experts
+
+
+def lm_mesh(cfg, moe_cfg, dev, work: str) -> dict:
+    """Phase 34 [lm-mesh]; returns the attention kernel's launches summed
+    over the ranks: {"f32": ..., "bf16": ...}."""
+    import torch
+
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+
+    entering("[lm-mesh]")
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(work, "lm-mesh")
+    os.makedirs(out_dir)
+    seconds = lm_mesh_oracles(cfg, moe_cfg, dev, out_dir)
+    print(f"[lm-mesh] oracles, one process: {seconds} s; device memory "
+          f"allocated before the ranks: "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    world = math.prod(LM_MESH_SHAPE)
+    for r in range(world):   # the 2 x 2 phase's reports
+        path = os.path.join(work, f"rank{r}.json")
+        if os.path.exists(path):
+            os.remove(path)
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(world, work, LM_MESH_DEADLINE_S, "--lm-mesh-rank")
+    ranks_s = time.perf_counter() - t0
+    for r, (code, tail, report) in enumerate(ranks):
+        for line in tail.splitlines():
+            if line.startswith("[lm-mesh]"):
+                print(line)
+        if code != 0 or report is None or "train" not in report:
+            fail(f"[lm-mesh] rank {r} exited {code}:\n{tail}")
+    reports = [rep for _, _, rep in ranks]
+    lead = reports[0]
+    n_attn = {"qwen2": attention_layers(cfg), "moe": LM_MESH_MOE_LAYERS}
+    launches = {"f32": 0, "bf16": 0}
+    for name, mcfg, _ in lm_mesh_models(cfg, moe_cfg):
+        rep = lead[name]
+        for r, other in enumerate(reports):
+            o = other[name]
+            if o["f32_launches"] != n_attn[name] or \
+                    o["bf16_launches"] != n_attn[name]:
+                fail(f"[lm-mesh] {name} rank {r}: {o['f32_launches']} f32 "
+                     f"and {o['bf16_launches']} bf16 kernel launches a "
+                     f"prefill, not {n_attn[name]}")
+            launches["f32"] += o["f32_launches"]
+            launches["bf16"] += o["bf16_launches"]
+        print(f"[lm-mesh] {mcfg.name} ({mcfg.num_layers} layers), 4 ranks: "
+              f"weights drawn and placed in {rep['init_s']:.2f} s, "
+              f"{rep['local_gib']:.2f} GiB on rank 0; f32 prefill "
+              f"{rep['f32_prefill_s']:.3f} s, relative RMSE vs the oracle "
+              f"{rep['f32_prefill_rel']:.3e}, {LM_MESH_STEPS} teacher-forced "
+              f"f32 decode steps max {rep['f32_decode_rel']:.3e}; bf16 "
+              f"greedy_generate {BATCH} x {PROMPT} + {LM_MESH_STEPS} steps "
+              f"{rep['greedy_s']:.3f} s (ids equal to the oracle's: "
+              f"{rep['ids_agree']:.1%}), bf16 prefill "
+              f"{rep['bf16_prefill_s']:.3f} s, distance from the f32 oracle "
+              f"{rep['bf16_rel']:.3e} (unsharded: kernel "
+              f"{rep['oracle_bf16_rel']:.3e}, plain "
+              f"{rep['plain_bf16_rel']:.3e}); kernel launches per rank and "
+              f"prefill {rep['f32_launches']}")
+        if not (rep["f32_prefill_rel"] <= F32_LOGITS_REL
+                and rep["f32_decode_rel"] <= F32_LOGITS_REL):
+            fail(f"[lm-mesh] {name} f32 logits off the oracle: prefill "
+                 f"{rep['f32_prefill_rel']:.3e}, decode "
+                 f"{rep['f32_decode_rel']:.3e} > {F32_LOGITS_REL}")
+        if rep["bf16_rel"] > 2 * rep["plain_bf16_rel"]:
+            fail(f"[lm-mesh] {name} bf16 logits {rep['bf16_rel']:.3e} from "
+                 f"f32, past twice the plain step's "
+                 f"{rep['plain_bf16_rel']:.3e}")
+        if rep["drops"] != rep["oracle_drops"]:
+            fail(f"[lm-mesh] {name} drops per layer {rep['drops']}, the "
+                 f"oracle's {rep['oracle_drops']}")
+        if rep["drops"]:
+            c, dispatch, experts = grouped_einsum_flops(mcfg)
+            print(f"[lm-mesh] {mcfg.name}: 2 groups of {PROMPT // 2} tokens,"
+                  f" capacity {c} slots an expert (one group: "
+                  f"{M.capacity(mcfg, PROMPT)}); (token, choice) pairs "
+                  f"dropped in the f32 prefill {sum(rep['drops']):.0f} of "
+                  f"{sum(rep['choices']):.0f} "
+                  f"({sum(rep['drops']) / sum(rep['choices']):.4%}; per "
+                  f"layer {rep['drops']}), equal to the oracle's; per layer "
+                  f"the dispatch einsum {dispatch / 1e12:.3f} TFLOP and the "
+                  f"combine's the same, the expert GEMMs "
+                  f"{experts / 1e12:.3f} TFLOP together")
+    tr = lead["train"]
+    print(f"[lm-mesh] train step, Qwen2-1.5B f32 at "
+          f"{LM_MESH_TRAIN_LAYERS} of 28 layers, {TRAIN_BATCH} x {TRAIN_SEQ}"
+          f" tokens in {TRAIN_MICROBATCHES} micro-batches, ZeRO-3 rules: "
+          f"{tr['step_s']:.3f} s, peak {tr['peak_gib']:.2f} GiB on rank 0, "
+          f"{tr['launches']} kernel launches per rank; loss "
+          f"{tr['metrics']['loss']:.6f} (relative to the oracle "
+          f"{tr['loss_rel']:.2e}), grad norm relative "
+          f"{tr['grad_norm_rel']:.2e}, the updated tree's relative RMSE "
+          f"{tr['tree_rel']:.3e}")
+    names = [k for k, _ in flat_leaves(T.abstract_params(cfg.scaled(
+        num_layers=LM_MESH_TRAIN_LAYERS)))]
+    worst = sorted(zip(tr["leaf_rel"], names), reverse=True)[:4]
+    print(f"[lm-mesh] train step, the leaves farthest from the oracle "
+          f"(relative RMSE): " + ", ".join(f"{n} {e:.3e}" for e, n in worst)
+          + " (zero-initialised leaves, biases and norm scales, take "
+          "their first AdamW step as lr x the sign of their gradient, so an "
+          "element whose gradient sits within round-off of zero flips; the "
+          "tree's relative RMSE weighs each leaf by its size)")
+    want_train = 2 * TRAIN_MICROBATCHES * LM_MESH_TRAIN_LAYERS
+    if any(rep["train"]["launches"] != want_train for rep in reports):
+        fail(f"[lm-mesh] train step launches per rank "
+             f"{[rep['train']['launches'] for rep in reports]}, not "
+             f"{want_train} (forward and remat, per micro-batch and layer)")
+    if not (tr["tree_rel"] <= F32_LOGITS_REL
+            and tr["loss_rel"] <= F32_LOGITS_REL):
+        fail(f"[lm-mesh] train step off the oracle: loss "
+             f"{tr['loss_rel']:.3e}, updated tree {tr['tree_rel']:.3e}")
+    print(f"[lm-mesh] ranks {ranks_s:.1f} s (spawn to exit), phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    launches["train"] = sum(rep["train"]["launches"] for rep in reports)
+    return launches
+
+
+
 def flat_leaves(tree, prefix: str = "") -> list:
     """[(key, tensor)] of nested dicts in sorted key order."""
     if isinstance(tree, dict):
@@ -3755,7 +4176,7 @@ def main() -> int:
 
 
 def run(work: str) -> int:
-    """Phases 1-34 (see the module's docstring); stores and checkpoints
+    """Phases 1-35 (see the module's docstring); stores and checkpoints
     go under `work`."""
     import torch
 
@@ -3920,6 +4341,19 @@ def run(work: str) -> int:
         entry["group7"] = group7[dtype]
         print(f"[kernels] {entry['name']} launches: {entry['launches']} = "
               f"{entry['launches_by_path']}")
+    # 34. The sharded LM substrate on four ranks sharing the card --------
+    meshed = lm_mesh(cfg, moe_cfg, dev, work)
+    for entry in attn:
+        if entry["name"] == "fa_fwd_bf16_kernel":
+            entry["launches_by_path"]["lm-mesh bf16 serving prefills, 4 "
+                                      "ranks"] = meshed["bf16"]
+        else:
+            entry["launches_by_path"]["lm-mesh f32 prefills and train "
+                                      "step, 4 ranks"] = (meshed["f32"]
+                                                          + meshed["train"])
+        entry["launches"] = sum(entry["launches_by_path"].values())
+        print(f"[kernels] {entry['name']} launches with [lm-mesh]: "
+              f"{entry['launches']}")
     entries += attn
 
     leaked = sorted(m for m in sys.modules
@@ -3928,8 +4362,8 @@ def run(work: str) -> int:
     if leaked:
         fail(f"the port imported {leaked}")
 
-    # 34. Result -----------------------------------------------------------
-    print(f"[run] phases 1-33 in {time.perf_counter() - t_run:.1f} s")
+    # 35. Result -----------------------------------------------------------
+    print(f"[run] phases 1-34 in {time.perf_counter() - t_run:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(f"[device] {smi}")
     print(json.dumps({"ok": True, "device": {
@@ -3940,5 +4374,8 @@ def run(work: str) -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 5 and sys.argv[1] == "--mesh-rank":
         mesh_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        sys.exit(0)
+    if len(sys.argv) == 5 and sys.argv[1] == "--lm-mesh-rank":
+        lm_mesh_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
         sys.exit(0)
     sys.exit(main())

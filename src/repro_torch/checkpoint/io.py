@@ -40,6 +40,9 @@ Semantics:
     writes on a background thread, keeps the newest K checkpoints, never
     deletes the last committed one, and sweeps `step_*.tmp` directories
     orphaned by a crashed writer.
+  * Sharded LM state (DTensor leaves, `parallel/sharding.py`) has no
+    checkpoint format yet: saving or restoring into it raises, naming
+    ROADMAP.md item 23.
 """
 from __future__ import annotations
 
@@ -54,10 +57,12 @@ from typing import Any, Callable, List, Optional, Tuple
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from ..device import resolve_device
 from ..io import shard_store
 from ..io.shard_store import HostShardedArray, StoreError
+from ..models.config import SHARDED_CHECKPOINTS, not_ported
 
 PyTree = Any
 
@@ -152,6 +157,13 @@ def _writer(flat) -> Tuple[int, int]:
     return 0, 1
 
 
+def _refuse_dtensors(flat) -> None:
+    """Sharded LM state (DTensor leaves) has no checkpoint format yet."""
+    if any(isinstance(leaf, DTensor) for _, leaf in flat):
+        raise not_ported("a checkpoint of DTensor leaves (sharded LM "
+                         "state)", SHARDED_CHECKPOINTS)
+
+
 def _is_rank0() -> bool:
     return not dist.is_initialized() or dist.get_rank() == 0
 
@@ -187,6 +199,7 @@ def save_checkpoint(directory: str, step: int, tree: PyTree) -> str:
     tmp = path + ".tmp"
     leaves_dir = os.path.join(tmp, "leaves")
     flat, treedef = _flatten(tree)
+    _refuse_dtensors(flat)
     rank, world = _writer(flat)
     if rank == 0:
         if os.path.exists(tmp):  # stale writer: do not inherit its files
@@ -252,6 +265,7 @@ def load_checkpoint(directory: str, step: int, like: PyTree, mesh=None,
     whole on every rank.
     """
     dev = resolve_device(device)
+    _refuse_dtensors(_flatten(like)[0])
     path = os.path.join(directory, f"step_{step:08d}")
     mpath = os.path.join(path, "MANIFEST.json")
     if not os.path.exists(mpath):

@@ -5,9 +5,9 @@ reference's configs load unchanged. A model is `num_layers` sub-layers
 arranged as repeats of a block pattern (tuple of SubLayer descriptors).
 The port serves and trains every reference architecture: attention
 (with an optional sliding window), MoE and Mamba-2 (SSD) patterns, the
-hybrid Jamba stack, and the vision and audio frontends. Sharding rules
-are not ported yet and raise NotImplementedError naming their ROADMAP.md
-item (`not_ported`).
+hybrid Jamba stack, and the vision and audio frontends, with or without
+sharding rules. What is not ported yet raises NotImplementedError naming
+its ROADMAP.md item (`not_ported`).
 """
 from __future__ import annotations
 
@@ -18,7 +18,8 @@ Kind = Literal["attn", "ssm"]
 Ffn = Literal["mlp", "moe", "none"]
 
 # The ROADMAP.md Queue 1 item that brings back what the port leaves out.
-PARALLEL = "ROADMAP.md Queue 1 item 19 (parallel/: sharding rules)"
+SHARDED_CHECKPOINTS = ("ROADMAP.md Queue 1 item 23 (checkpoints of "
+                       "sharded LM state)")
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:

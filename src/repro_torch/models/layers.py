@@ -16,18 +16,29 @@ Decode keeps the plain form on both devices: the kernel's causal mask is
 top-left aligned, which is not the mask of one query against a cache. The
 large products around attention (`_qkv`, `wo`, `mlp`) are plain matrix
 products, as in the reference.
+
+Under sharding rules (`parallel/sharding.py`) the weights and activations
+are DTensors and the reference's constraints are redistributions. The
+attention step is not DTensor-aware: it runs on each rank's local shard
+(its batch rows and its share of the query heads, `_local_attention`),
+with the KV heads those query heads read, and its output is put back as a
+DTensor with q's placements. Decode writes the new k, v into each rank's
+own part of the cache.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
 from ..kernels.attention import flash_attention, flash_attention_trainable
-from .config import PARALLEL, ModelConfig, not_ported
+from ..parallel.sharding import local_bounds, reshard, settled, wrap_local
+from .config import ModelConfig
 
 CHUNK_THRESHOLD = 8192
 QUERY_CHUNK = 1024
@@ -97,6 +108,13 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
          theta: float) -> torch.Tensor:
     """x: (..., S, H, hd); positions: broadcastable to (..., S). Rotate-half
     layout, angles in f32."""
+    if isinstance(x, DTensor):
+        # elementwise per (row, position): each rank rotates its own part
+        (b0, bn), (s0, sn) = local_bounds(x.shape, x.device_mesh,
+                                          x.placements)[:2]
+        local = rope(x.to_local(), positions[b0:b0 + bn, s0:s0 + sn]
+                     .to(x.device), theta)
+        return wrap_local(local, x.device_mesh, x.placements, x.shape)
     hd = x.shape[-1]
     half = hd // 2
     exps = torch.arange(half, dtype=torch.float32, device=x.device) / half
@@ -175,7 +193,7 @@ def prefill_attention_plain(cfg: ModelConfig, q: torch.Tensor,
     any positions; `check_positions` is accepted so that it can stand in
     for `prefill_attention`."""
     b, s = q.shape[:2]
-    n_groups = cfg.num_heads // cfg.num_kv_heads
+    n_groups = q.shape[2] // k.shape[2]
     if s <= CHUNK_THRESHOLD:
         bias = _mask_bias(positions, positions, cfg.sliding_window)
         return _sdpa(q, k, v, bias, n_groups)
@@ -236,18 +254,89 @@ def prefill_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     return flash_attention(q, k, v, causal=True, window=window)
 
 
+def kv_heads_for(q_heads: range, n_groups: int
+                 ) -> Tuple[Sequence[int], int]:
+    """The KV heads that query heads `q_heads` (a contiguous run of global
+    heads) read under GQA, where query head h reads KV head h // n_groups,
+    as (KV heads, group): the run's KV heads in order, each read by
+    `group` consecutive query heads of the run. When the run splits a
+    group unevenly the KV heads come one per query head (group 1), with
+    repeats."""
+    kv = [h // n_groups for h in q_heads]
+    first, last = kv[0], kv[-1]
+    span = last - first + 1
+    if len(kv) % span == 0 and all(
+            k == first + i // (len(kv) // span) for i, k in enumerate(kv)):
+        return range(first, last + 1), len(kv) // span
+    return kv, 1
+
+
+def _take_heads(t: torch.Tensor, heads) -> torch.Tensor:
+    """t[:, :, heads] for a range (a view) or a list of heads."""
+    if isinstance(heads, range):
+        return t[:, :, heads.start:heads.stop]
+    return t.index_select(2, torch.tensor(heads, device=t.device))
+
+
+def _local_kv(q: DTensor, k: DTensor, v: DTensor):
+    """k and v as local tensors that line up with q's local query heads.
+
+    q is sharded (dp, -, tp, -); k and v hold the same batch rows, and
+    either the same share of the KV heads or all of them (when the KV
+    heads do not divide the model axis: `spec_for_shape` replicates them).
+    In that case each rank takes the KV heads its query heads read
+    (`kv_heads_for`), and its gradient for them is a partial sum over the
+    ranks."""
+    pl = tuple(q.placements)
+    k = reshard(k, [Replicate() if p == Shard(2) and kp != Shard(2) else p
+                    for p, kp in zip(pl, k.placements)])
+    v = reshard(v, k.placements)
+    if tuple(k.placements) == pl:
+        return k.to_local(), v.to_local()
+    h, kh = q.shape[2], k.shape[2]
+    _, _, (h0, hn), _ = local_bounds(q.shape, q.device_mesh, pl)
+    heads, _ = kv_heads_for(range(h0, h0 + hn), h // kh)
+    grad_pl = [Partial() if p == Shard(2) else kp
+               for p, kp in zip(pl, k.placements)]
+    return (_take_heads(k.to_local(grad_placements=grad_pl), heads),
+            _take_heads(v.to_local(grad_placements=grad_pl), heads))
+
+
+def _local_attention(step, cfg: ModelConfig, q: DTensor, k: DTensor,
+                     v: DTensor, positions: torch.Tensor) -> DTensor:
+    """`step(cfg, q, k, v, positions)` on this rank's batch rows and query
+    heads (`_local_kv`), put back as a DTensor with q's placements."""
+    q = settled(q)
+    k_loc, v_loc = _local_kv(q, k, v)
+    (b0, bn), *_ = local_bounds(q.shape, q.device_mesh, q.placements)
+    out = step(cfg, q.to_local(), k_loc, v_loc,
+               positions[b0:b0 + bn].to(k_loc.device))
+    return wrap_local(out, q.device_mesh, q.placements, q.shape)
+
+
 def attention_with_kv(params, cfg: ModelConfig, x: torch.Tensor,
                       positions: torch.Tensor, rules=None,
                       check_positions: bool = True
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Causal GQA self-attention; returns (out, k, v) so prefill can cache.
-    `check_positions` as in `prefill_attention`."""
-    if rules is not None:
-        raise not_ported("rules=", PARALLEL)
+    `check_positions` as in `prefill_attention`. Under rules q, k, v are
+    constrained to (dp, -, tp, -) and the step runs on local heads."""
     q, k, v = _qkv(params, cfg, x, positions)
-    out = prefill_attention(cfg, q, k, v, positions,
-                            check_positions=check_positions)
+    if rules is not None:
+        q = rules.constrain(q, "dp", None, "tp", None)
+        k = rules.constrain(k, "dp", None, "tp", None)
+        v = rules.constrain(v, "dp", None, "tp", None)
+    if isinstance(q, DTensor):
+        out = _local_attention(
+            lambda c, q, k, v, p: prefill_attention(
+                c, q, k, v, p, check_positions=check_positions),
+            cfg, q, k, v, positions)
+    else:
+        out = prefill_attention(cfg, q, k, v, positions,
+                                check_positions=check_positions)
     out = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
+    if rules is not None:
+        out = rules.constrain(out, "dp", "sp", None)
     return out, k, v
 
 
@@ -273,12 +362,16 @@ def attention_decode(params, cfg: ModelConfig, x: torch.Tensor,
 
     The new k, v are written into `cache_k`, `cache_v` in place (the
     reference returns updated copies). Returns (out, cache_k, cache_v).
+
+    Under rules the cache is a DTensor view (B, S_alloc, K, hd) of a
+    cache laid out by `cache_specs`: each rank writes k, v into its own
+    part (the rank holding the slot, when the sequence is sharded), and
+    attends on its local query heads over the whole sequence. The output
+    is constrained as `attention_with_kv`'s (the reference leaves it to
+    GSPMD), so that no partial sum reaches the residual stream.
     """
-    if rules is not None:
-        raise not_ported("rules=", PARALLEL)
     b = x.shape[0]
     cur = int(cur_len)
-    n_groups = cfg.num_heads // cfg.num_kv_heads
     s_alloc = cache_k.shape[1]
     positions = torch.full((b, 1), cur, dtype=torch.int32, device=x.device)
     q, k, v = _qkv(params, cfg, x, positions)
@@ -287,19 +380,52 @@ def attention_decode(params, cfg: ModelConfig, x: torch.Tensor,
     if not 0 <= slot < s_alloc:
         raise ValueError(f"decode position {cur} outside a cache of "
                          f"{s_alloc} positions")
-    cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
-    cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
     idx = torch.arange(s_alloc, dtype=torch.int32, device=x.device)
     if ring:
         k_pos = cur - torch.remainder(cur - idx, s_alloc)
         valid = (k_pos >= 0) & (k_pos > cur - cfg.sliding_window)
     else:
         valid = idx <= cur
-    valid = valid.expand(b, s_alloc)
-    bias = torch.where(valid, 0.0, -torch.inf).to(torch.float32)[:, None, :]
-    out = _sdpa(q, cache_k.to(x.dtype), cache_v.to(x.dtype), bias, n_groups)
+    bias = torch.where(valid, 0.0, -torch.inf).to(torch.float32)
+
+    if isinstance(cache_k, DTensor):
+        _write_slot(cache_k, k, slot)
+        _write_slot(cache_v, v, slot)
+        if rules is not None:
+            q = rules.constrain(q, "dp", None, "tp", None)
+        # a sequence-sharded cache is gathered for the attention
+        whole = [Replicate() if p == Shard(1) else p
+                 for p in cache_k.placements]
+        out = _local_attention(
+            lambda c, q, k, v, _: _sdpa(
+                q, k.to(q.dtype), v.to(q.dtype),
+                bias.expand(q.shape[0], s_alloc)[:, None, :],
+                q.shape[2] // k.shape[2]),
+            cfg, q, reshard(cache_k, whole), reshard(cache_v, whole),
+            positions)
+    else:
+        cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
+        cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
+        out = _sdpa(q, cache_k.to(x.dtype), cache_v.to(x.dtype),
+                    bias.expand(b, s_alloc)[:, None, :],
+                    cfg.num_heads // cfg.num_kv_heads)
     out = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
+    if rules is not None:
+        out = rules.constrain(out, "dp", "sp", None)
     return out, cache_k, cache_v
+
+
+def _write_slot(cache: DTensor, new: torch.Tensor, slot: int) -> None:
+    """cache[:, slot] = new[:, 0] on this rank's part of a (B, S, K, hd)
+    DTensor cache: `new` (B, 1, K, hd) is laid out like the cache (its
+    sequence dim of one never sharded) and written by the rank whose
+    sequence range holds the slot."""
+    pl = [Replicate() if p == Shard(1) else p for p in cache.placements]
+    local = reshard(new, pl).to_local()
+    _, (s0, sn), _, _ = local_bounds(cache.shape, cache.device_mesh,
+                                     cache.placements)
+    if s0 <= slot < s0 + sn:
+        cache.to_local()[:, slot - s0] = local[:, 0].to(cache.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -321,12 +447,15 @@ def mlp_defs(cfg: ModelConfig, d_ff: Optional[int] = None):
 
 
 def mlp(params, cfg: ModelConfig, x: torch.Tensor, rules=None) -> torch.Tensor:
-    if rules is not None:
-        raise not_ported("rules=", PARALLEL)
     if "w_gate" in params:
         h = F.silu(x @ params["w_gate"].to(x.dtype))
         h = h * (x @ params["w_up"].to(x.dtype))
     else:
         # jax.nn.gelu's default is the tanh approximation
         h = F.gelu(x @ params["w_up"].to(x.dtype), approximate="tanh")
-    return h @ params["w_down"].to(x.dtype)
+    if rules is not None:
+        h = rules.constrain(h, "dp", None, "tp")
+    out = h @ params["w_down"].to(x.dtype)
+    if rules is not None:
+        out = rules.constrain(out, "dp", "sp", None)
+    return out

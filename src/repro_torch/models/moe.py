@@ -1,12 +1,23 @@
 """Mixture-of-Experts layer: top-k routing with capacity-based dispatch.
 
-Port of `repro/models/moe.py`, the single-group path (one dispatch group per
-batch row). Tokens are scattered into a per-expert capacity buffer
-(B, E, C, D); over-capacity tokens are dropped (capacity_factor sets the
-head-room). Shared experts (Qwen2-MoE) run densely on every token.
+Port of `repro/models/moe.py`. Tokens are grouped, B rows x G sequence
+groups of S/G tokens; each group has its own capacity of C slots per
+expert (`capacity(cfg, S/G)`), and over-capacity choices are dropped
+(capacity_factor sets the head-room). Shared experts (Qwen2-MoE) run
+densely on every token.
 
-The reference's grouped one-hot einsum dispatch runs only under sharding
-rules with a model axis; `rules=` raises here, naming ROADMAP.md item 19.
+G = 1 without rules, or when the rules' tensor-parallel size g does not
+divide S: tokens are scattered into a (B, E, C, D) buffer. Otherwise G =
+g and the dispatch is the reference's GShard one-hot einsum: a (Sg*k, E,
+C) one-hot per group, a contraction into (B, G, E, C, D). With a smaller
+group the capacity counts fewer tokens, so the drops differ from G = 1's:
+it is a different function, and the one the reference serves on a mesh.
+
+Under rules the routing, dispatch and combine run on each rank's own
+token groups (the groups are sharded over the model axis, the rows over
+the data axes); the buffer is resharded from token groups to experts for
+the expert FFN and back (`constrain_p`, an all-gather and a local slice),
+and the router's gradient is a partial sum over the token-sharded ranks.
 
 Returns (out, aux) where aux is the Switch load-balancing penalty
 (E * sum_e fraction_e * prob_e).
@@ -19,7 +30,10 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from .config import PARALLEL, ModelConfig, not_ported
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+from ..parallel.sharding import P, reshard, settled, wrap_local
+from .config import ModelConfig
 from .layers import ParamDef
 
 
@@ -88,48 +102,138 @@ def route(params, cfg: ModelConfig, x: torch.Tensor) -> Routing:
     return Routing(probs, gate_vals, gate_idx, slot, keep)
 
 
+def _local(x, grad_placements=None):
+    """A DTensor's local part (differentiable); a tensor unchanged."""
+    if isinstance(x, DTensor):
+        return x.to_local(grad_placements=grad_placements)
+    return x
+
+
+def _token_partial(x, w):
+    """Placements of the gradient of a replicated weight `w` used on the
+    local tokens of `x`: a partial sum over the mesh dims that shard x."""
+    if not isinstance(x, DTensor):
+        return None
+    return [Partial() if p.is_shard() else wp
+            for p, wp in zip(x.placements, w.placements)]
+
+
+def _experts(params, buf):
+    """The expert FFN (swiglu) on a (..., E, C, D) buffer, experts on dim
+    -3. DTensor weights keep only their expert sharding: a dim sharded
+    over the fsdp axes is gathered here, at use, so that the products
+    shard over the experts alone."""
+    def weight(name):
+        w = params[name].to(buf.dtype)
+        if isinstance(w, DTensor):
+            w = reshard(w, [p if p == Shard(0) else Replicate()
+                            for p in w.placements])
+        return w
+
+    wg, wu, wd = weight("w_gate"), weight("w_up"), weight("w_down")
+    h = F.silu(torch.einsum("...ecd,edf->...ecf", buf, wg))
+    h = h * torch.einsum("...ecd,edf->...ecf", buf, wu)
+    return torch.einsum("...ecf,efd->...ecd", h, wd)
+
+
+def _aux(cfg: ModelConfig, r: Routing, like, n_tokens: int):
+    """The Switch load-balancing loss from the local routing `r`: its
+    per-expert sums are partial over the ranks that shard `like`."""
+    m = cfg.moe
+    e = m.num_experts
+    frac = F.one_hot(r.gate_idx[..., 0], e).to(torch.float32)
+    frac = frac.reshape(-1, e).sum(0)
+    psum = r.probs.reshape(-1, e).sum(0)
+    if isinstance(like, DTensor):
+        pl = [Partial() if p.is_shard() else Replicate()
+              for p in like.placements]
+        whole = [Replicate()] * len(pl)
+        frac = reshard(wrap_local(frac, like.device_mesh, pl, (e,)), whole)
+        psum = reshard(wrap_local(psum, like.device_mesh, pl, (e,)), whole)
+    return m.router_aux_weight * e * torch.sum(
+        (frac / n_tokens) * (psum / n_tokens))
+
+
 def moe(params, cfg: ModelConfig, x: torch.Tensor, rules=None):
     """x: (B, S, D) -> (out (B, S, D), aux 0-d f32)."""
-    if rules is not None:
-        raise not_ported("rules=", PARALLEL)
     m = cfg.moe
     b, s, d = x.shape
     e, k = m.num_experts, m.top_k
-    c = capacity(cfg, s)
-    r = route(params, cfg, x)
-    flat_e = r.gate_idx.reshape(b, s * k)
+    g = rules.tp_size() if rules is not None else 1
+    if g <= 1 or s % g:
+        g = 1
+    sg = s // g
+    c = capacity(cfg, sg)
+    dp, tp = ((rules.axes("dp"), rules.axes("tp")) if rules is not None
+              else (None, None))
+    x = settled(x)                 # the local code reads values, not sums
+    xd = x.reshape(b, g, sg, d)
+    if rules is not None and g > 1:
+        xd = rules.constrain_p(xd, P(dp, tp, None, None))
+    xl = _local(xd)                                   # (b, g, sg, d) local
+    bl, gl = xl.shape[:2]
+    router = params["router"]
+    if isinstance(router, DTensor):
+        router = reshard(router, [Replicate()] * router.device_mesh.ndim)
+    r = route({"router": _local(router, _token_partial(xd, router))}, cfg,
+              xl.reshape(bl * gl, sg, d))
+    flat_e = r.gate_idx.reshape(bl * gl, sg * k)
+    x_rep = torch.repeat_interleave(xl.reshape(bl * gl, sg, d), k, dim=1)
+    wv = r.gate_vals.reshape(bl * gl, sg * k).to(x.dtype)
 
-    # --- scatter dispatch. A dropped choice adds a zero at the clipped slot
-    # c - 1; accumulating keeps that slot's real token whatever the order
-    # (an assignment could overwrite it with the zero).
-    x_rep = torch.repeat_interleave(x, k, dim=1)                  # (B,S*k,D)
-    contrib = torch.where(r.keep[..., None], x_rep, 0).to(x.dtype)
-    bidx = torch.arange(b, device=x.device)[:, None].expand(b, s * k)
-    buf = x.new_zeros((b, e, c, d))
-    buf.index_put_((bidx, flat_e, r.slot), contrib, accumulate=True)
+    def wrap(t, shape):
+        if not isinstance(xd, DTensor):
+            return t
+        return wrap_local(t, xd.device_mesh, xd.placements, shape)
 
-    # --- expert FFN (swiglu)
-    wg = params["w_gate"].to(x.dtype)
-    wu = params["w_up"].to(x.dtype)
-    wd = params["w_down"].to(x.dtype)
-    h = F.silu(torch.einsum("becd,edf->becf", buf, wg))
-    h = h * torch.einsum("becd,edf->becf", buf, wu)
-    y = torch.einsum("becf,efd->becd", h, wd)                     # (B,E,C,D)
-
-    # --- combine: weighted un-dispatch, sum over the k choices
-    wv = r.gate_vals.reshape(b, s * k).to(x.dtype)
-    y_tok = torch.where(r.keep[..., None], y[bidx, flat_e, r.slot], 0)
-    out = torch.sum((y_tok * wv[..., None]).reshape(b, s, k, d), dim=2)
+    if g > 1:
+        # --- GShard one-hot einsum dispatch: (Sg*k, E, C) per group
+        onehot_c = F.one_hot(r.slot, c).to(x.dtype) \
+            * r.keep[..., None].to(x.dtype)                    # (bg,Sk,C)
+        dispatch = F.one_hot(flat_e, e).to(x.dtype)[..., None] \
+            * onehot_c[..., None, :]                           # (bg,Sk,E,C)
+        buf = torch.einsum("gtec,gtd->gecd", dispatch, x_rep)
+        buf = wrap(buf.reshape(bl, gl, e, c, d), (b, g, e, c, d))
+        if rules is not None:
+            buf = rules.constrain_p(buf, P(dp, None, tp, None, None))
+        y = _experts(params, buf)                              # (B,G,E,C,D)
+        if rules is not None:
+            # back from expert owners to token groups
+            y = rules.constrain_p(y, P(dp, tp, None, None, None))
+        yl = _local(y).reshape(bl * gl, e, c, d)
+        comb = dispatch * wv[..., None, None]
+        y_sum = torch.einsum("gtec,gecd->gtd", comb, yl)
+    else:
+        # --- scatter dispatch. A dropped choice adds a zero at the clipped
+        # slot c - 1; accumulating keeps that slot's real token whatever
+        # the order (an assignment could overwrite it with the zero).
+        contrib = torch.where(r.keep[..., None], x_rep, 0).to(x.dtype)
+        bidx = torch.arange(bl * gl, device=xl.device)[:, None] \
+            .expand(bl * gl, sg * k)
+        buf = xl.new_zeros((bl * gl, e, c, d))
+        buf.index_put_((bidx, flat_e, r.slot), contrib, accumulate=True)
+        buf = wrap(buf.reshape(bl, gl, e, c, d), (b, g, e, c, d))
+        if rules is not None:
+            buf = rules.constrain_p(buf, P(dp, None, tp, None, None))
+        y = _experts(params, buf)
+        if rules is not None:
+            # one group: every rank of the model axis takes all experts
+            y = rules.constrain_p(y, P(dp, None, None, None, None))
+        yl = _local(y).reshape(bl * gl, e, c, d)
+        y_tok = torch.where(r.keep[..., None], yl[bidx, flat_e, r.slot], 0)
+        y_sum = y_tok * wv[..., None]
+    out = y_sum.reshape(bl, gl, sg, k, d).sum(dim=3)
+    out = wrap(out, (b, g, sg, d)).reshape(b, s, d)
+    if rules is not None:
+        out = rules.constrain(out, "dp", "sp", None)
 
     if m.num_shared_experts:
         sh = params["shared"]
         hs = F.silu(x @ sh["w_gate"].to(x.dtype))
         hs = hs * (x @ sh["w_up"].to(x.dtype))
-        out = out + hs @ sh["w_down"].to(x.dtype)
+        hs = hs @ sh["w_down"].to(x.dtype)
+        if rules is not None:
+            hs = rules.constrain(hs, "dp", "sp", None)
+        out = out + hs
 
-    # --- Switch load-balancing auxiliary loss
-    frac = torch.mean(F.one_hot(r.gate_idx[..., 0], e).to(torch.float32),
-                      dim=(0, 1))
-    pmean = torch.mean(r.probs, dim=(0, 1))
-    aux = m.router_aux_weight * e * torch.sum(frac * pmean)
-    return out, aux
+    return out, _aux(cfg, r, xd, b * s)

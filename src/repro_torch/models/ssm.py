@@ -11,6 +11,12 @@ the reference subtracts two cumulative sums (same function; see
 
 Layout: x (B, L, H, P); B and C are one group (B, L, N), broadcast to
 the heads.
+
+Under sharding rules the mixer runs on each rank's batch rows with its
+weights gathered whole (`_ssm_block_local`): the conv channels mix x, B
+and C, so the reference's tensor-parallel split of them is not kept, and
+the ranks of the model axis compute the same rows. Only the output
+constraint is the reference's.
 """
 from __future__ import annotations
 
@@ -20,7 +26,10 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
-from .config import PARALLEL, ModelConfig, not_ported
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+from ..parallel.sharding import reshard, wrap_local
+from .config import ModelConfig
 from .layers import ParamDef, rmsnorm, torch_dtype
 
 
@@ -153,8 +162,8 @@ def ssm_block(params, cfg: ModelConfig, u: torch.Tensor, rules=None,
     return_cache=True (prefill): also build the post-sequence cache (final
     SSD state + the conv's last d_conv - 1 pre-conv inputs) so decoding can
     continue the stream."""
-    if rules is not None:
-        raise not_ported("rules=", PARALLEL)
+    if isinstance(u, DTensor):
+        return _ssm_block_local(params, cfg, u, rules, cache, return_cache)
     s = cfg.ssm
     d_in, nheads, _ = ssm_dims(cfg)
     bsz, l, _ = u.shape
@@ -199,6 +208,39 @@ def ssm_block(params, cfg: ModelConfig, u: torch.Tensor, rules=None,
     y = rmsnorm({"scale": params["norm"]}, y * F.silu(z), cfg.rms_eps)
     out = y @ params["w_out"].to(u.dtype)
     return out, new_cache
+
+
+def _ssm_block_local(params, cfg: ModelConfig, u: DTensor, rules, cache,
+                     return_cache: bool):
+    """`ssm_block` on this rank's batch rows of u (B, L, D), sharded over
+    the batch only: every weight is gathered whole (its gradient a partial
+    sum over the batch-sharding ranks) and the cache's rows come with all
+    their channels and heads. The new cache is returned with the
+    placements of `cache` (a local slice), or batch-sharded after a
+    prefill."""
+    mesh = u.device_mesh
+    rows = [Shard(0) if p == Shard(0) else Replicate() for p in u.placements]
+    u = reshard(u, rows)
+    whole = [Replicate()] * mesh.ndim
+    grad = [Partial() if p.is_shard() else Replicate() for p in rows]
+    p_loc = {k: reshard(w, whole).to_local(grad_placements=grad)
+             for k, w in params.items()}
+    c_loc = None
+    if cache is not None:
+        c_loc = SSMCache(*(reshard(t, rows).to_local() for t in cache))
+    out, new = ssm_block(p_loc, cfg, u.to_local(), cache=c_loc,
+                         return_cache=return_cache)
+    out = wrap_local(out, mesh, rows, u.shape)
+    if rules is not None:
+        out = rules.constrain(out, "dp", "sp", None)
+    if new is not None:
+        b = u.shape[0]
+        new = SSMCache(*(wrap_local(t, mesh, rows, (b, *t.shape[1:]))
+                         for t in new))
+        if cache is not None:
+            new = SSMCache(*(reshard(t, c.placements)
+                             for t, c in zip(new, cache)))
+    return out, new
 
 
 def ssm_cache_defs(cfg: ModelConfig, batch: int, device="cuda") -> SSMCache:

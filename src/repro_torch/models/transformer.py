@@ -15,7 +15,15 @@ them). The modality frontends are the reference's: audio (MusicGen) sums K
 codebook embeddings at the input and predicts K codebooks with K heads;
 vision (InternVL2) maps precomputed patch embeddings through the trained
 2-layer MLP projector and puts them before the text, image tokens first.
-Sharding rules raise NotImplementedError naming their ROADMAP.md item.
+
+Sharding rules (`parallel/sharding.py`): the parameters are DTensors laid
+out by `param_shardings` (`init_params(..., rules=)` and
+`params_from_reference(..., rules=)` place them one leaf at a time), the inputs are whole on every rank and
+are replicated at the embedding, and each block gathers its fsdp-sharded
+weights at use (ZeRO-3, `_gather_block_params`; the MoE's routed experts
+stay sharded unless `gather_moe_experts`). The caches are DTensors laid
+out by `cache_specs`, each rank writing its own part. The outputs are
+DTensors; `.full_tensor()` gathers one.
 """
 from __future__ import annotations
 
@@ -26,9 +34,14 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
 from ..device import resolve_device
+from ..parallel.sharding import (
+    ShardingRules, local_bounds, reshard, shard_tensor, tree_shardings,
+    wrap_local, zeros_sharded)
 from . import layers as L
-from .config import PARALLEL, ModelConfig, SubLayer, not_ported
+from .config import ModelConfig, SubLayer
 from .moe import moe, moe_defs
 from .ssm import SSMCache, ssm_block, ssm_cache_defs, ssm_defs
 
@@ -99,26 +112,44 @@ def model_defs(cfg: ModelConfig) -> PyTree:
     return defs
 
 
-def init_params(cfg: ModelConfig, seed: int, device="cuda") -> PyTree:
+def init_params(cfg: ModelConfig, seed: int, device="cuda",
+                rules: Optional[ShardingRules] = None) -> PyTree:
     """Random parameters, std = scale / sqrt(fan_in) per ParamDef, drawn
     from a torch.Generator seeded with `seed` on `device`. Not bit-equal to
     the reference's jax.random draw: parity tests carry the reference's
-    weights across with `params_from_reference` instead."""
+    weights across with `params_from_reference` instead.
+
+    With `rules`, every rank draws the same leaves in the same order and
+    keeps only its part of each (`shard_tensor`), so the sharded weights
+    are those of the unsharded call and no rank holds more than one whole
+    leaf at a time."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    return L.init_tree(gen, model_defs(cfg))
+    if rules is None:
+        return L.init_tree(gen, model_defs(cfg))
+    shardings = param_shardings(cfg, rules)
+
+    def draw(defs, sh):
+        if isinstance(defs, L.ParamDef):
+            return shard_tensor(L.init_param(gen, defs), sh, dev)
+        return {k: draw(defs[k], sh[k]) for k in sorted(defs)}
+
+    return draw(model_defs(cfg), shardings)
 
 
 def params_from_reference(np_tree: PyTree, cfg: ModelConfig,
-                          device="cuda") -> PyTree:
+                          device="cuda",
+                          rules: Optional[ShardingRules] = None) -> PyTree:
     """The reference's parameter pytree, as numpy arrays under its dict keys
     (``jax.tree.map(np.asarray, params)``), as the port's dict of tensors on
     `device`, each in its array's dtype. Keys and shapes are checked
-    against `model_defs(cfg)`."""
+    against `model_defs(cfg)`. With `rules`, each leaf goes to the device
+    as this rank's part, one leaf at a time."""
     dev = resolve_device(device)
+    shardings = param_shardings(cfg, rules) if rules is not None else None
 
-    def convert(tree, defs, path):
+    def convert(tree, defs, sh, path):
         if isinstance(defs, L.ParamDef):
             arr = np.array(tree)   # a copy: the port owns its weights
             if arr.shape != defs.shape:
@@ -128,13 +159,29 @@ def params_from_reference(np_tree: PyTree, cfg: ModelConfig,
                 t = torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
             else:
                 t = torch.from_numpy(arr)
-            return t.to(dev)
+            return t.to(dev) if sh is None else shard_tensor(t, sh, dev)
         if set(tree) != set(defs):
             raise ValueError(f"{'/'.join(path) or 'params'}: keys "
                              f"{sorted(tree)}, expected {sorted(defs)}")
-        return {k: convert(tree[k], defs[k], path + (k,)) for k in defs}
+        return {k: convert(tree[k], defs[k], None if sh is None else sh[k],
+                           path + (k,)) for k in defs}
 
-    return convert(np_tree, model_defs(cfg), ())
+    return convert(np_tree, model_defs(cfg), shardings, ())
+
+
+def abstract_params(cfg: ModelConfig) -> PyTree:
+    """The parameter tree as meta tensors: shapes and dtypes, no storage."""
+    def meta(defs):
+        if isinstance(defs, L.ParamDef):
+            return torch.empty(defs.shape, dtype=L.torch_dtype(defs.dtype),
+                               device="meta")
+        return {k: meta(v) for k, v in defs.items()}
+
+    return meta(model_defs(cfg))
+
+
+def param_shardings(cfg: ModelConfig, rules: ShardingRules) -> PyTree:
+    return tree_shardings(rules, model_defs(cfg))
 
 
 def param_count(params: PyTree) -> int:
@@ -162,6 +209,77 @@ def _unstack(tree: PyTree) -> List[PyTree]:
     return [{k: part[r] for k, part in parts.items()} for r in range(n)]
 
 
+def _gathered(tree: PyTree, defs: PyTree, rules: ShardingRules) -> PyTree:
+    """Each leaf constrained to its def's spec with the fsdp dim
+    replicated: an all-gather over the fsdp axes at use."""
+    if isinstance(defs, L.ParamDef):
+        return rules.constrain(
+            tree, *(None if s == "fsdp" else s for s in defs.spec))
+    return {k: _gathered(tree[k], defs[k], rules) for k in tree}
+
+
+def _zero3(rules) -> bool:
+    return (rules is not None and rules.mesh is not None and rules.fsdp
+            and rules.zero3_gather)
+
+
+def _gather_block_params(p_block, cfg: ModelConfig, rules):
+    """ZeRO-3 gather-at-use of one repeat's block weights. Without it a
+    d-sharded contraction would resolve as a partial sum of the (larger)
+    activations; the gradient goes back to the fsdp-sharded leaf as a
+    reduce-scatter. With `gather_moe_experts` False the routed expert
+    weights stay sharded (expert parallelism): only the router and the
+    shared expert, which every token uses, are gathered."""
+    if not _zero3(rules):
+        return p_block
+    out = {}
+    for i, sub in enumerate(cfg.pattern):
+        key = f"sub_{i}"
+        sub_defs, sub_p = _sublayer_defs(cfg, sub), p_block[key]
+        new = {}
+        for name, d_sub in sub_defs.items():
+            if name == "moe" and not rules.gather_moe_experts:
+                new[name] = dict(sub_p[name])
+                for small in ("router", "shared"):
+                    if small in sub_p[name]:
+                        new[name][small] = _gathered(
+                            sub_p[name][small], d_sub[small], rules)
+            else:
+                new[name] = _gathered(sub_p[name], d_sub, rules)
+        out[key] = new
+    return out
+
+
+def _gather_head_params(params, cfg: ModelConfig, rules):
+    """The same gather-at-use for the embedding, the head and the vision
+    projector: a d-sharded head contraction would otherwise all-reduce
+    the whole logits tensor over the data axes."""
+    if not _zero3(rules):
+        return params
+    defs = model_defs(cfg)
+    out = dict(params)
+    for key in ("embed", "head", "projector"):
+        if key in params:
+            out[key] = _gathered(params[key], defs[key], rules)
+    return out
+
+
+def _replicated(t: torch.Tensor, like) -> torch.Tensor:
+    """A whole input tensor as a replicated DTensor on `like`'s mesh when
+    `like` is a DTensor; unchanged otherwise."""
+    if not isinstance(like, DTensor) or isinstance(t, DTensor):
+        return t
+    mesh = like.device_mesh
+    return DTensor.from_local(t.to(like.device), mesh,
+                              [Replicate()] * mesh.ndim, run_check=False)
+
+
+def _zero_aux(x: torch.Tensor) -> torch.Tensor:
+    """A 0-d f32 zero, replicated on x's mesh when x is a DTensor."""
+    return _replicated(torch.zeros((), dtype=torch.float32,
+                                   device=x.device), x)
+
+
 # ---------------------------------------------------------------------------
 # Input embedding and head
 # ---------------------------------------------------------------------------
@@ -171,24 +289,27 @@ def embed_inputs(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     """(B, S, d) in cfg.dtype. batch["tokens"]: (B, S) ids, or (B, K, S)
     for audio, whose K codebook embeddings are summed. With
     batch["patch_embeds"] (B, S_img, d_frontend) a vision model's projector
-    output comes first: (B, S_img + S, d). Decode batches are text only."""
-    if rules is not None:
-        raise not_ported("rules=", PARALLEL)
+    output comes first: (B, S_img + S, d). Decode batches are text only.
+    With DTensor weights the inputs are replicated onto their mesh, and
+    under rules the output is constrained to (dp, sp, -)."""
     dtype = L.torch_dtype(cfg.dtype)
     emb = params["embed"]
-    tokens = batch["tokens"].to(emb.device)
+    tokens = _replicated(batch["tokens"].to(emb.device), emb)
     if _modality(cfg) == "audio":
-        x = sum(emb[i][tokens[:, i]]
+        x = sum(F.embedding(tokens[:, i], emb[i])
                 for i in range(cfg.frontend.num_positions)).to(dtype)
     else:
-        x = emb[tokens].to(dtype)
+        x = F.embedding(tokens, emb).to(dtype)
     if _modality(cfg) == "vision" and "patch_embeds" in batch:
-        pe = batch["patch_embeds"].to(device=emb.device, dtype=dtype)
+        pe = _replicated(batch["patch_embeds"].to(device=emb.device,
+                                                  dtype=dtype), emb)
         pr = params["projector"]
         h = L.rmsnorm(pr["norm"], pe, cfg.rms_eps)
         # jax.nn.gelu's default is the tanh approximation
         h = F.gelu(h @ pr["w1"].to(dtype), approximate="tanh")
         x = torch.cat([h @ pr["w2"].to(dtype), x], dim=1)
+    if rules is not None:
+        x = rules.constrain(x, "dp", "sp", None)
     return x
 
 
@@ -209,17 +330,17 @@ def _logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return x @ head.to(x.dtype)
 
 
-def _ffn(p, cfg: ModelConfig, sub: SubLayer, x: torch.Tensor
+def _ffn(p, cfg: ModelConfig, sub: SubLayer, x: torch.Tensor, rules=None
          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The sub-layer's FFN half, (x + ffn(norm(x)), aux): aux is the MoE
     router loss, a 0-d f32 zero for an MLP or no FFN."""
-    aux = x.new_zeros((), dtype=torch.float32)
+    aux = _zero_aux(x)
     if sub.ffn == "none":
         return x, aux
     h = L.rmsnorm(p["norm_ffn"], x, cfg.rms_eps)
     if sub.ffn == "mlp":
-        return x + L.mlp(p["mlp"], cfg, h), aux
-    out, aux = moe(p["moe"], cfg, h)
+        return x + L.mlp(p["mlp"], cfg, h, rules), aux
+    out, aux = moe(p["moe"], cfg, h, rules)
     return x + out, aux
 
 
@@ -240,13 +361,13 @@ def _apply_sublayer(p, cfg: ModelConfig, sub: SubLayer, x: torch.Tensor,
     else:
         out, _ = ssm_block(p["ssm"], cfg, h, rules)
         x = x + out
-    return _ffn(p, cfg, sub, x)
+    return _ffn(p, cfg, sub, x, rules)
 
 
 def _block(p_block, cfg: ModelConfig, x: torch.Tensor,
            positions: torch.Tensor, rules, check_positions: bool = True
            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    aux_total = x.new_zeros((), dtype=torch.float32)
+    aux_total = _zero_aux(x)
     for i, sub in enumerate(cfg.pattern):
         x, aux = _apply_sublayer(p_block[f"sub_{i}"], cfg, sub, x,
                                  positions, rules, check_positions)
@@ -260,11 +381,13 @@ def _run_blocks(params, cfg: ModelConfig, x: torch.Tensor,
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The block stack over the stacked weights' repeats. With `remat`,
     each repeat keeps only its input for the backward and recomputes its
-    block there (no RNG runs inside a block, so its state is not kept)."""
+    block there (no RNG runs inside a block, so its state is not kept);
+    the ZeRO-3 gather is inside the recomputed part."""
     def block(p, h):
+        p = _gather_block_params(p, cfg, rules)
         return _block(p, cfg, h, positions, rules, check_positions)
 
-    aux = x.new_zeros((), dtype=torch.float32)
+    aux = _zero_aux(x)
     for p_block in _unstack(params["blocks"]):
         if remat:
             x, a = checkpoint(block, p_block, x, use_reentrant=False,
@@ -273,6 +396,40 @@ def _run_blocks(params, cfg: ModelConfig, x: torch.Tensor,
             x, a = block(p_block, x)
         aux = aux + a
     return x, aux
+
+
+def _label_logits(logits: torch.Tensor, labels: torch.Tensor
+                  ) -> torch.Tensor:
+    """logits[..., labels] over the last dim. On a DTensor whose vocab dim
+    is sharded each rank picks the labels in its own vocab range (zero
+    elsewhere), a partial sum over the vocab-sharding ranks: no rank
+    gathers the logits."""
+    if not isinstance(logits, DTensor):
+        return torch.gather(logits, -1, labels[..., None])[..., 0]
+    mesh, pl = logits.device_mesh, logits.placements
+    bounds = local_bounds(logits.shape, mesh, pl)
+    vdim = logits.ndim - 1
+    (v0, vn) = bounds[vdim]
+    lab = labels.to(logits.device)
+    for dim, (off, n) in enumerate(bounds[:-1]):
+        lab = lab.narrow(dim, off, n)
+    lab = lab - v0
+    inside = (lab >= 0) & (lab < vn)
+    local = logits.to_local()
+    ll = torch.gather(local, -1, lab.clamp(0, vn - 1)[..., None])[..., 0]
+    ll = torch.where(inside, ll, 0.0)
+    out_pl = [Partial() if p == Shard(vdim) else p for p in pl]
+    return wrap_local(ll, mesh, out_pl, logits.shape[:-1])
+
+
+def _logsumexp(logits: torch.Tensor) -> torch.Tensor:
+    """logsumexp over the last dim; on a DTensor as max + log(sum(exp(x -
+    max))), whose max and sum reduce over a sharded vocab dim."""
+    if not isinstance(logits, DTensor):
+        return torch.logsumexp(logits, dim=-1)
+    mx = torch.amax(logits, dim=-1, keepdim=True).detach()
+    return (mx + torch.log(torch.sum(torch.exp(logits - mx), dim=-1,
+                                     keepdim=True)))[..., 0]
 
 
 def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
@@ -287,7 +444,10 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     them).
 
     The positions are 0..S-1 in every row by construction, so the kernel's
-    attention step skips its check (and its host sync)."""
+    attention step skips its check (and its host sync). Under rules the
+    cross entropy reduces over the vocab-sharded logits in place
+    (`_logsumexp`, `_label_logits`)."""
+    params = _gather_head_params(params, cfg, rules)
     x = embed_inputs(params, cfg, batch, rules)
     b, s = x.shape[0], x.shape[1]
     positions = torch.arange(s, dtype=torch.int32,
@@ -296,13 +456,13 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
                          check_positions=False)
     x = L.rmsnorm(params["final_norm"], x, cfg.rms_eps)
     logits = _logits(params, cfg, x).to(torch.float32)
-    labels = batch["labels"].to(device=logits.device, dtype=torch.int64)
+    labels = batch["labels"].to(device=x.device, dtype=torch.int64)
     if _modality(cfg) == "vision":
         logits = logits[:, s - labels.shape[-1]:]       # drop the n_img
     if _modality(cfg) == "audio":
         labels = labels.movedim(1, 2)                   # (B, S, K)
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels[..., None])[..., 0]
+    lse = _logsumexp(logits)
+    ll = _label_logits(logits, labels)
     ce = torch.mean(lse - ll)
     return ce + aux, {"ce": ce, "aux": aux}
 
@@ -328,30 +488,104 @@ def cache_alloc_len(cfg: ModelConfig, s_max: int) -> int:
     return s_max
 
 
-def _zero_cache(cfg: ModelConfig, batch: int, s: int,
-                device: torch.device) -> DecodeCache:
-    shape = (cfg.repeats, batch, s, cfg.num_kv_heads, cfg.resolved_head_dim)
+def _cache_layout(cfg: ModelConfig, batch: int, s_alloc: int
+                  ) -> DecodeCache:
+    """The decode cache's shapes and dtypes, as meta tensors."""
+    shape = (cfg.repeats, batch, s_alloc, cfg.num_kv_heads,
+             cfg.resolved_head_dim)
     dtype = L.torch_dtype(cfg.dtype)
     cache = DecodeCache({}, {}, {})
     for i, sub in enumerate(cfg.pattern):
         key = f"sub_{i}"
         if sub.kind == "attn":
             for side in (cache.attn_k, cache.attn_v):
-                side[key] = torch.zeros(shape, dtype=dtype, device=device)
+                side[key] = torch.empty(shape, dtype=dtype, device="meta")
         else:
-            one = ssm_cache_defs(cfg, batch, device)
-            cache.ssm[key] = SSMCache(
-                *(t.new_zeros((cfg.repeats, *t.shape)) for t in one))
+            one = ssm_cache_defs(cfg, batch, "meta")
+            cache.ssm[key] = SSMCache(*(
+                torch.empty((cfg.repeats, *t.shape), dtype=t.dtype,
+                            device="meta") for t in one))
     return cache
 
 
+def _cache_shardings(cache: DecodeCache, rules: ShardingRules,
+                     shard_seq: bool) -> DecodeCache:
+    seq_ax = "dp" if shard_seq else None
+
+    def kv(t):
+        return rules.sharding_for_shape(t.shape, None, "dp", seq_ax, "tp",
+                                        None)
+
+    def ssm(c: SSMCache) -> SSMCache:
+        return SSMCache(
+            conv=rules.sharding_for_shape(c.conv.shape, None, "dp", None,
+                                          "tp"),
+            state=rules.sharding_for_shape(c.state.shape, None, "dp", "tp",
+                                           None, None))
+
+    return DecodeCache({k: kv(t) for k, t in cache.attn_k.items()},
+                       {k: kv(t) for k, t in cache.attn_v.items()},
+                       {k: ssm(c) for k, c in cache.ssm.items()})
+
+
+def cache_specs(cfg: ModelConfig, batch: int, s_max: int,
+                rules: Optional[ShardingRules] = None,
+                shard_seq: bool = False):
+    """The decode cache for `s_max` positions as meta tensors, and with
+    `rules` also its Shardings: (cache, shardings). KV caches are (-, dp,
+    seq, tp, -), seq being dp with `shard_seq` (the long-context layout:
+    a batch of one cannot use data parallelism, so the cache's sequence
+    is what gets distributed); SSM conv buffers (-, dp, -, tp), states
+    (-, dp, tp, -, -)."""
+    cache = _cache_layout(cfg, batch, cache_alloc_len(cfg, s_max))
+    if rules is None:
+        return cache
+    return cache, _cache_shardings(cache, rules, shard_seq)
+
+
+def _zero_cache(cfg: ModelConfig, batch: int, s: int, device: torch.device,
+                rules: Optional[ShardingRules] = None,
+                shard_seq: bool = False) -> DecodeCache:
+    layout = _cache_layout(cfg, batch, s)
+    sharded = rules is not None and rules.mesh is not None
+    sh = _cache_shardings(layout, rules, shard_seq) if sharded else layout
+
+    def zeros(t, h):
+        if isinstance(t, SSMCache):
+            return SSMCache(*(zeros(x, y) for x, y in zip(t, h)))
+        if sharded:
+            return zeros_sharded(t.shape, t.dtype, h, device)
+        return torch.zeros(t.shape, dtype=t.dtype, device=device)
+
+    return DecodeCache(*({k: zeros(t, hs[k]) for k, t in side.items()}
+                         for side, hs in zip(layout, sh)))
+
+
 def init_cache(cfg: ModelConfig, batch: int, s_max: int,
-               device="cuda") -> DecodeCache:
+               device="cuda", rules: Optional[ShardingRules] = None,
+               shard_seq: bool = False) -> DecodeCache:
     """Zeroed decode caches for a decode up to `s_max` positions (a vision
     model's image positions included): KV caches of cache_alloc_len slots
-    and SSM conv buffers in cfg.dtype, SSM states in f32."""
+    and SSM conv buffers in cfg.dtype, SSM states in f32. With `rules`,
+    DTensors laid out by `cache_specs`, only the local parts allocated."""
     return _zero_cache(cfg, batch, cache_alloc_len(cfg, s_max),
-                       resolve_device(device))
+                       resolve_device(device), rules, shard_seq)
+
+
+def _grow(small: torch.Tensor, s_alloc: int, ring: bool) -> torch.Tensor:
+    """A (repeats, B, s0, ...) cache in a zeroed (repeats, B, s_alloc, ...)
+    one, position p at slot p mod s_alloc (see `extend_cache`)."""
+    s0 = small.shape[2]
+    if s0 > s_alloc and not ring:
+        raise ValueError(f"a prefill of {s0} positions does not fit a "
+                         f"decode cache of {s_alloc}")
+    first = max(0, s0 - s_alloc)          # the first position kept
+    big = small.new_zeros((*small.shape[:2], s_alloc, *small.shape[3:]))
+    big[:, :, :s0 - first] = small[:, :, first:]
+    # Position `first` belongs at slot first mod s_alloc: roll the kept
+    # run there.
+    shift = first % s_alloc
+    return big.roll(shift, dims=2) if shift else big
 
 
 def extend_cache(cfg: ModelConfig, cache: DecodeCache,
@@ -368,26 +602,34 @@ def extend_cache(cfg: ModelConfig, cache: DecodeCache,
     prefill's s0 slots as the ring whenever s_alloc < s_max, so with s0 <
     window decode overwrites positions the window still covers; ROADMAP.md
     Queue 3.) The SSM caches do not grow with the sequence and carry over
-    as they are."""
+    as they are. A DTensor cache grows on each rank's own part, keeping
+    its placements (its sequence gathered first if it was sharded)."""
     s_alloc = cache_alloc_len(cfg, s_max)
     ring = cfg.sliding_window is not None
 
-    def grown(small: torch.Tensor) -> torch.Tensor:
-        s0 = small.shape[2]
-        if s0 > s_alloc and not ring:
-            raise ValueError(f"a prefill of {s0} positions does not fit a "
-                             f"decode cache of {s_alloc}")
-        first = max(0, s0 - s_alloc)          # the first position kept
-        big = small.new_zeros((*small.shape[:2], s_alloc, *small.shape[3:]))
-        big[:, :, :s0 - first] = small[:, :, first:]
-        # Position `first` belongs at slot first mod s_alloc: roll the kept
-        # run there.
-        shift = first % s_alloc
-        return big.roll(shift, dims=2) if shift else big
+    def grown(t: torch.Tensor) -> torch.Tensor:
+        if not isinstance(t, DTensor):
+            return _grow(t, s_alloc, ring)
+        t = reshard(t, [Replicate() if p == Shard(2) else p
+                        for p in t.placements])
+        shape = (*t.shape[:2], s_alloc, *t.shape[3:])
+        return wrap_local(_grow(t.to_local(), s_alloc, ring), t.device_mesh,
+                          t.placements, shape)
 
     return DecodeCache({k: grown(t) for k, t in cache.attn_k.items()},
                        {k: grown(t) for k, t in cache.attn_v.items()},
                        cache.ssm)
+
+
+def _put(stacked: torch.Tensor, r: int, value: torch.Tensor) -> None:
+    """stacked[r] = value; for a DTensor on this rank's part, value laid
+    out like stacked[r] first."""
+    if not isinstance(stacked, DTensor):
+        stacked[r] = value
+        return
+    pl = [Shard(p.dim - 1) if p.is_shard() else p
+          for p in stacked.placements]
+    stacked.to_local()[r].copy_(reshard(value, pl).to_local())
 
 
 def decode_step(params, cfg: ModelConfig, cache: DecodeCache,
@@ -398,9 +640,13 @@ def decode_step(params, cfg: ModelConfig, cache: DecodeCache,
     `cache` in place.
 
     Returns (logits (B, V) or (B, K, V), cache)."""
+    params = _gather_head_params(params, cfg, rules)
     x = embed_inputs(params, cfg, {"tokens": tokens}, rules)
     for r in range(cfg.repeats):
-        p_block = _layer(params["blocks"], r)
+        p_block = _gather_block_params(_layer(params["blocks"], r), cfg,
+                                       rules)
+        if rules is not None and rules.decode_feature_shard:
+            x = rules.constrain(x, "dp", None, "fsdp")
         for i, sub in enumerate(cfg.pattern):
             key = f"sub_{i}"
             p = p_block[key]
@@ -408,17 +654,17 @@ def decode_step(params, cfg: ModelConfig, cache: DecodeCache,
             if sub.kind == "attn":
                 out, _, _ = L.attention_decode(
                     p["attn"], cfg, hn, cache.attn_k[key][r],
-                    cache.attn_v[key][r], cur_len)
+                    cache.attn_v[key][r], cur_len, rules)
             else:
                 stacked = cache.ssm[key]
                 out, new = ssm_block(
-                    p["ssm"], cfg, hn,
+                    p["ssm"], cfg, hn, rules,
                     cache=SSMCache(stacked.conv[r], stacked.state[r]))
                 # ssm_block built the shifted conv buffer and the state as
                 # new tensors, so these copies never overlap their source.
-                stacked.conv[r].copy_(new.conv)
-                stacked.state[r].copy_(new.state)
-            x, _ = _ffn(p, cfg, sub, x + out)
+                _put(stacked.conv, r, new.conv)
+                _put(stacked.state, r, new.state)
+            x, _ = _ffn(p, cfg, sub, x + out, rules)
     x = L.rmsnorm(params["final_norm"], x, cfg.rms_eps)
     logits = _logits(params, cfg, x)
     return logits[:, 0], cache
@@ -431,29 +677,34 @@ def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     The cache covers the prompt span, (repeats, B, S, K, hd) in cfg.dtype
     per attention sub-layer, S counting a vision prompt's image positions
     (decode extends its own cache, `extend_cache`), and holds each SSM
-    sub-layer's state and conv tail after the prompt.
+    sub-layer's state and conv tail after the prompt. Under rules the
+    cache is laid out by `cache_specs`.
     """
+    params = _gather_head_params(params, cfg, rules)
     x = embed_inputs(params, cfg, batch, rules)
     b, s = x.shape[0], x.shape[1]
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
-    cache = _zero_cache(cfg, b, s, x.device)
+    cache = _zero_cache(cfg, b, s, x.device,
+                        rules if isinstance(x, DTensor) else None)
     for r in range(cfg.repeats):
-        p_block = _layer(params["blocks"], r)
+        p_block = _gather_block_params(_layer(params["blocks"], r), cfg,
+                                       rules)
         for i, sub in enumerate(cfg.pattern):
             key = f"sub_{i}"
             p = p_block[key]
             hn = L.rmsnorm(p["norm_mix"], x, cfg.rms_eps)
             if sub.kind == "attn":
                 out, k, v = L.attention_with_kv(p["attn"], cfg, hn,
-                                                positions)
-                cache.attn_k[key][r] = k
-                cache.attn_v[key][r] = v
+                                                positions, rules)
+                _put(cache.attn_k[key], r, k)
+                _put(cache.attn_v[key], r, v)
             else:
-                out, new = ssm_block(p["ssm"], cfg, hn, return_cache=True)
-                cache.ssm[key].conv[r] = new.conv
-                cache.ssm[key].state[r] = new.state
-            x, _ = _ffn(p, cfg, sub, x + out)
+                out, new = ssm_block(p["ssm"], cfg, hn, rules,
+                                     return_cache=True)
+                _put(cache.ssm[key].conv, r, new.conv)
+                _put(cache.ssm[key].state, r, new.state)
+            x, _ = _ffn(p, cfg, sub, x + out, rules)
     x = L.rmsnorm(params["final_norm"], x[:, -1:], cfg.rms_eps)
     logits = _logits(params, cfg, x)
     return logits[:, -1], cache

@@ -11,6 +11,11 @@ checkpoint of an `OptState` is byte-compatible with the reference's.
 Unlike the reference, `adamw_update` updates the parameters and the
 moments in place, under `torch.no_grad()`: at Qwen2-1.5B width a second
 copy of weights plus moments would be another 18.5 GB on the card.
+
+Sharded parameters (DTensors) keep moments with their placements (ZeRO-1:
+no optimizer state is gathered); each gradient is laid out like its
+parameter and the update runs on the local parts. The global norm sums
+over the whole sharded tree.
 """
 from __future__ import annotations
 
@@ -18,6 +23,9 @@ import dataclasses
 from typing import Any, Dict, List, NamedTuple, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
+
+from ..parallel.sharding import full, reshard
 
 PyTree = Any
 
@@ -47,6 +55,9 @@ def _leaves(tree: PyTree) -> List[torch.Tensor]:
 
 
 def _zeros_f32(tree: PyTree) -> PyTree:
+    if isinstance(tree, DTensor):
+        return torch.zeros_like(tree, dtype=torch.float32,
+                                requires_grad=False)
     if isinstance(tree, torch.Tensor):
         return torch.zeros(tree.shape, dtype=torch.float32,
                            device=tree.device)
@@ -62,12 +73,21 @@ def adamw_init(params: PyTree) -> OptState:
 
 def global_norm(tree: PyTree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf in f32, summed leaf by leaf
-    in the reference's leaf order."""
+    in the reference's leaf order. DTensor leaves reduce over their mesh;
+    the result is a plain 0-d tensor, the same on every rank."""
     total = None
     for x in _leaves(tree):
         sq = torch.sum(torch.square(x.to(torch.float32)))
         total = sq if total is None else total + sq
-    return torch.sqrt(total)
+    return full(torch.sqrt(total))
+
+
+def local_part(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """x's local part laid out like `like` (a DTensor); x itself for plain
+    tensors."""
+    if isinstance(like, DTensor):
+        return reshard(x, like.placements).to_local()
+    return x
 
 
 @torch.no_grad()
@@ -89,6 +109,8 @@ def adamw_update(cfg: AdamWConfig, grads: PyTree, state: OptState,
                                   device=gnorm.device)
     for p, g, m, v in zip(_leaves(params), _leaves(grads),
                           _leaves(state.mu), _leaves(state.nu)):
+        g = local_part(g, p)
+        p, m, v = (local_part(t, t) for t in (p, m, v))
         g = g.to(torch.float32) * clip
         m.mul_(cfg.b1).add_(g, alpha=1 - cfg.b1)
         v.mul_(cfg.b2).addcmul_(g, g, value=1 - cfg.b2)

@@ -14,8 +14,8 @@ fixes which projections each rank holds (`core/distributed.py`).
 
 Nothing here initialises the process group: the caller does, with NCCL on
 the card or gloo on the CPU (`torch.distributed.init_process_group`), and
-nothing runs at import time. The reference's `named` (a JAX sharding helper
-for the LM substrate) returns with ROADMAP.md Queue 1 item 19.
+nothing runs at import time. `named(mesh, *spec)` is the LM substrate's
+sharding of a spec on a mesh (`parallel/sharding.py`).
 """
 from __future__ import annotations
 
@@ -63,3 +63,11 @@ def axis_size(mesh: DeviceMesh, *names: str) -> int:
         if name in mesh.mesh_dim_names:
             n *= mesh.size(mesh.mesh_dim_names.index(name))
     return n
+
+
+def named(mesh: DeviceMesh, *spec):
+    """The Sharding (mesh and DTensor placements) of the PartitionSpec
+    `spec` on `mesh`; the reference's NamedSharding(mesh, P(*spec))."""
+    from .sharding import Sharding, placements_for
+
+    return Sharding(mesh, placements_for(mesh, spec))

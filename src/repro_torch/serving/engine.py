@@ -10,6 +10,10 @@ After a vision prompt decode continues at position n_img + s0, behind the
 image positions the prefill put first. The reference's `greedy_generate`
 decodes from s0 and so writes its first steps over image positions
 (ROADMAP.md Queue 3): it is no oracle for a prompt with images.
+
+Under sharding rules the parameters are DTensors (`init_params(...,
+rules=)`), prompts are whole on every rank, and each step's logits are
+gathered for the argmax, so every rank holds the same ids.
 """
 from __future__ import annotations
 
@@ -18,7 +22,8 @@ from typing import Any, Dict
 import torch
 
 from ..models import transformer as T
-from ..models.config import PARALLEL, ModelConfig, not_ported
+from ..models.config import ModelConfig
+from ..parallel.sharding import full
 
 PyTree = Any
 
@@ -44,21 +49,19 @@ def greedy_generate(cfg: ModelConfig, params, prompt: Dict[str, torch.Tensor],
     puts before the text. `s_max` counts every position, image ones
     included. Returns (B, steps + 1) int64 ids, or (B, K, steps + 1) for
     audio: the argmax after the prompt and after each decoded token."""
-    if rules is not None:
-        raise not_ported("rules=", PARALLEL)
     s0 = T.prompt_len(cfg, prompt)
-    logits, cache = T.prefill(params, cfg, prompt)
+    logits, cache = T.prefill(params, cfg, prompt, rules)
 
     # Re-home the prefill's KV caches into larger decode caches; the SSM
     # caches carry over as they are.
     cache = T.extend_cache(cfg, cache, s_max)
 
     out = []
-    cur = torch.argmax(logits, dim=-1)  # (B,), or (B, K) for audio
+    cur = torch.argmax(full(logits), dim=-1)  # (B,), or (B, K) for audio
     for t in range(steps):
         out.append(cur)
         logits, cache = T.decode_step(params, cfg, cache, cur[..., None],
-                                      s0 + t)
-        cur = torch.argmax(logits, dim=-1)
+                                      s0 + t, rules)
+        cur = torch.argmax(full(logits), dim=-1)
     out.append(cur)
     return torch.stack(out, dim=-1)

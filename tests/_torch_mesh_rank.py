@@ -5,7 +5,8 @@ its sharded checkpoints for tests/test_torch_checkpoint_mesh.py.
 
 MODE "checkpoint-save" (4 ranks, (1, 2, 2) mesh) and "checkpoint-load"
 (2 ranks, (1, 1, 2) mesh) are described at `checkpoint_save` and
-`checkpoint_load`; without a MODE:
+`checkpoint_load`, "lm" (4 ranks, (data 2, model 2) mesh, the sharded LM
+substrate for tests/test_torch_parallel_lm.py) at `lm`; without a MODE:
 
 Joins a gloo process group of WORLD ranks through INIT_FILE, builds the
 (2, 2, 2) (pod, data, model) mesh, reconstructs WORK_DIR/proj.npy for every
@@ -21,6 +22,7 @@ each micro-batch, and whether every rank's `ProjectionSource.load(mesh)`
 is its `local_projections`.
 Imports only the port (never JAX), so it starts fast.
 """
+import dataclasses
 import datetime
 import json
 import os
@@ -227,8 +229,142 @@ def checkpoint_load(rank: int, world: int, init_file: str, work: str) -> None:
         dist.destroy_process_group()
 
 
+def _flatten(tree, prefix):
+    if hasattr(tree, "_asdict"):
+        tree = tree._asdict()
+    if isinstance(tree, dict):
+        return {k: v for key in sorted(tree)
+                for k, v in _flatten(tree[key], f"{prefix}/{key}").items()}
+    return {prefix: tree}
+
+
+def _unflatten(flat, prefix):
+    out = {}
+    for key, v in flat.items():
+        if key.startswith(prefix + "/"):
+            *path, name = key[len(prefix) + 1:].split("/")
+            node = out
+            for p in path:
+                node = node.setdefault(p, {})
+            node[name] = v
+    return out
+
+
+def lm(rank: int, world: int, init_file: str, work: str) -> None:
+    """The port's side of tests/test_torch_parallel_lm.py: for each arch of
+    WORK/lm.json, the weights and batch of WORK/inputs_<ARCH>.npz run
+    sharded under `ShardingRules(mesh)` on the (data 2, model 2) mesh:
+    prefill (also under fsdp=False), two decode steps, loss_fn and one
+    train step of 2 micro-batches, as `_jax_mesh_lm.py` runs the
+    reference. Every output is gathered whole (`full`) and rank 0 writes
+    WORK/port_<ARCH>.npz. Then the collectives on a (pod 2, data 2) mesh
+    over the same ranks: each rank's block of WORK/collectives_in.npy
+    through `hierarchical_psum`, `hierarchical_psum_scatter` and
+    `psum_tree`, every rank writing WORK/port_collectives_<rank>.npz.
+    WORK/lm_<rank>.json records the local shapes of the sharded weights
+    and the error a sharded checkpoint raises, and the (token, choice)
+    pairs the MoE's capacity dropped in the prefill, over all ranks."""
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import _leaves
+    from repro_torch.parallel import collectives as C
+    from repro_torch.parallel.sharding import ShardingRules, full
+    from repro_torch.training.train_step import (
+        make_train_step, train_state_from_reference)
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=60))
+    report = {}
+    try:
+        mesh = make_mesh((2, 2), ("data", "model"), device_type="cpu")
+        rules = ShardingRules(mesh=mesh)
+        with open(os.path.join(work, "lm.json")) as f:
+            archs = json.load(f)
+        for arch in archs:
+            name, _, cf = arch.partition("@")   # NAME or NAME@CF
+            cfg = get_smoke_config(name).scaled(dtype="float32")
+            if cf:
+                cfg = cfg.scaled(moe=dataclasses.replace(
+                    cfg.moe, capacity_factor=float(cf)))
+            inputs = dict(np.load(os.path.join(work, f"inputs_{arch}.npz")))
+            np_params = _unflatten(inputs, "params")
+            tokens = torch.from_numpy(inputs["tokens"]).long()
+            out = {}
+            for name, r in (("", rules),
+                            ("nofsdp_", ShardingRules(mesh=mesh,
+                                                      fsdp=False))):
+                params = T.params_from_reference(np_params, cfg, "cpu", r)
+                logits, cache = T.prefill(params, cfg, {"tokens": tokens}, r)
+                out[f"{name}prefill_logits"] = full(logits)
+            params = T.params_from_reference(np_params, cfg, "cpu", rules)
+            report[arch] = {"local_embed": list(
+                params["embed"].to_local().shape)}
+            routed, route = [], M.route
+            M.route = lambda *a: routed.append(route(*a)) or routed[-1]
+            try:
+                logits, cache = T.prefill(params, cfg, {"tokens": tokens},
+                                          rules)
+            finally:
+                M.route = route
+            dropped = torch.tensor(sum(int((~r.keep).sum())
+                                       for r in routed))
+            dist.all_reduce(dropped)
+            report[arch]["dropped"] = int(dropped)
+            out.update({k: full(v) for k, v in
+                        _flatten(cache, "cache").items()})
+            s0, steps = tokens.shape[1], inputs["decode"].shape[1]
+            cache = T.extend_cache(cfg, cache, s0 + steps)
+            for i in range(steps):
+                tok = torch.from_numpy(inputs["decode"][:, i:i + 1]).long()
+                logits, cache = T.decode_step(params, cfg, cache, tok,
+                                              s0 + i, rules)
+                out[f"decode_logits_{i}"] = full(logits)
+            batch = {"tokens": tokens,
+                     "labels": torch.from_numpy(inputs["labels"]).long()}
+            loss, parts = T.loss_fn(params, cfg, batch, rules)
+            out["loss"], out["ce"], out["aux"] = (
+                full(loss), full(parts["ce"]), full(parts["aux"]))
+            zeros = {k: np.zeros_like(v) for k, v in inputs.items()
+                     if k.startswith("params/")}
+            state = train_state_from_reference(
+                (np_params, (np.int32(0), _unflatten(zeros, "params"),
+                             _unflatten(zeros, "params"))), cfg, "cpu", rules)
+            new, metrics = make_train_step(cfg, rules=rules,
+                                           microbatches=2)(state, batch)
+            out.update({f"metric_{k}": v for k, v in metrics.items()})
+            out.update({k: full(v).detach() for k, v in
+                        _flatten(new.params, "trained").items()})
+            try:
+                save_checkpoint(os.path.join(work, f"ckpt_{rank}"), 0,
+                                {"w": _leaves(new.params)[0]})
+            except NotImplementedError as e:
+                report[arch]["checkpoint"] = str(e)
+            if rank == 0:
+                np.savez(os.path.join(work, f"port_{arch}.npz"),
+                         **{k: v.numpy() for k, v in out.items()})
+        pd = make_mesh((2, 2), ("pod", "data"), device_type="cpu")
+        x = np.load(os.path.join(work, "collectives_in.npy"))
+        block = torch.from_numpy(np.split(x, world)[rank].copy())
+        np.savez(os.path.join(work, f"port_collectives_{rank}.npz"),
+                 psum=C.hierarchical_psum(block, pd, scatter_dim=1).numpy(),
+                 psum_no_pod=C.hierarchical_psum(
+                     block, pd, scatter_dim=1, have_pod=False).numpy(),
+                 psum_scatter=C.hierarchical_psum_scatter(
+                     block, pd, scatter_dim=1).numpy(),
+                 psum_tree=C.psum_tree({"g": block}, pd, ("pod",))["g"]
+                 .numpy())
+    finally:
+        with open(os.path.join(work, f"lm_{rank}.json"), "w") as f:
+            json.dump(report, f)
+        dist.destroy_process_group()
+
+
 if __name__ == "__main__":
     mode = sys.argv[5] if len(sys.argv) > 5 else "mesh"
     {"mesh": main, "checkpoint-save": checkpoint_save,
-     "checkpoint-load": checkpoint_load}[mode](
+     "checkpoint-load": checkpoint_load, "lm": lm}[mode](
         int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4])

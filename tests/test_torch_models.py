@@ -12,6 +12,7 @@ f32 the packages differ only by summation order: layers agree within
 1e-5 of the values' scale (`close`).
 """
 import dataclasses
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -27,7 +28,10 @@ from repro_torch import configs as tconfigs
 from repro_torch.models import config as tconfig
 from repro_torch.models import layers as TL
 from repro_torch.models import transformer as TT
+from repro_torch.checkpoint import save_checkpoint
+from repro_torch.parallel.sharding import AbstractMesh, ShardingRules
 from repro_torch.training import make_abstract_state, state_shardings
+from torch.distributed.tensor import DTensor
 
 torch.set_num_threads(1)
 
@@ -298,7 +302,10 @@ def test_entry_points_default_to_the_card():
 
 def test_what_the_slice_leaves_out_raises():
     """MoE and SSM patterns, the vision and audio frontends and a sliding
-    window build; only sharding rules raise, naming item 19."""
+    window build; sharding rules without a mesh change nothing (the
+    constraints are identities, as the reference's without a mesh), the
+    abstract state and its shardings resolve, and only a checkpoint of
+    sharded (DTensor) state raises, naming item 23."""
     _, tc = cfgs("qwen2_1_5b")
     moe = tc.scaled(pattern=(tconfig.SubLayer(ffn="moe"),),
                     moe=tconfig.MoEConfig(num_experts=2, top_k=1,
@@ -318,15 +325,24 @@ def test_what_the_slice_leaves_out_raises():
             == tconfig.count_params(cfg)
     assert tconfigs.get_config("mixtral_8x7b").sliding_window == 4096
     tp = TT.init_params(tc, seed=0, device="cpu")
-    toks = torch.zeros((1, 4), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="item 19"):
-        TT.prefill(tp, tc, {"tokens": toks}, rules=object())
-    with pytest.raises(NotImplementedError, match="item 19"):
-        TT.loss_fn(tp, tc, {"tokens": toks, "labels": toks}, rules=object())
-    with pytest.raises(NotImplementedError, match="item 19"):
-        make_abstract_state(tc)
-    with pytest.raises(NotImplementedError, match="item 19"):
-        state_shardings(tc, object())
+    toks = torch.arange(4, dtype=torch.int64)[None]
+    no_mesh = ShardingRules()
+    for got, want in ((TT.prefill(tp, tc, {"tokens": toks}, rules=no_mesh),
+                       TT.prefill(tp, tc, {"tokens": toks})),
+                      (TT.loss_fn(tp, tc, {"tokens": toks, "labels": toks},
+                                  rules=no_mesh),
+                       TT.loss_fn(tp, tc, {"tokens": toks, "labels": toks}))):
+        assert torch.equal(got[0], want[0])
+    state = make_abstract_state(tc)
+    assert state.params["embed"].device.type == "meta"
+    assert state.opt.mu["embed"].dtype == torch.float32
+    assert state_shardings(tc, no_mesh).params["embed"] is None
+    mesh = AbstractMesh((1, 1), ("data", "model"))
+    assert state_shardings(tc, ShardingRules(mesh=mesh)).opt.step.mesh \
+        is mesh
+    fake = mock.MagicMock(spec=DTensor)
+    with pytest.raises(NotImplementedError, match="item 23"):
+        save_checkpoint("/nonexistent", 0, {"w": fake})
 
 
 @pytest.mark.parametrize("arch", FAMILIES)

@@ -6,7 +6,11 @@ Two layers: Qwen2-MoE's smoke MoE (8 experts, top-4, 2 shared experts)
 and Jamba's (4 experts, top-2, no shared experts), each at its smoke
 capacity factor (8.0: nothing drops) and at 0.25, where capacity drops
 most choices. Routing is compared first: the same top-k experts in the
-same order, and the same (token, choice) pairs dropped. Where the picks
+same order, and the same (token, choice) pairs dropped. The grouped
+dispatch (G = 2 groups of S/2 tokens, each with its own capacity: the
+GShard one-hot einsum the reference runs on a mesh) is held against the
+reference's in one process, both given a rules stand-in whose tp_size()
+is 2 and whose constraints are identities (`GROUPS`). Where the picks
 or their order differ, the test says whether two of the k + 1 largest
 probabilities sit within 1e-6 of each other, so that a tie shows as a tie
 and a fault as a fault (both fail: these inputs have no tie). Then `out` and `aux` in f32 within 1e-5 of the largest |value|
@@ -48,6 +52,26 @@ def _layer(arch, capacity_factor=None, dtype="float32", seed=0):
     jp = jax.jit(lambda key: JL.init_tree(key, defs))(
         jax.random.PRNGKey(seed))
     return jc, jp, tc, _to_torch(jax.tree.map(np.asarray, jp))
+
+
+class _Groups:
+    """Sharding rules stand-in: two token groups, no mesh (identity
+    constraints, no axes), accepted by both packages' `moe`."""
+
+    def tp_size(self):
+        return 2
+
+    def axes(self, logical):
+        return None
+
+    def constrain(self, x, *logical):
+        return x
+
+    def constrain_p(self, x, spec):
+        return x
+
+
+GROUPS = _Groups()
 
 
 def _x(d, seed=1):
@@ -162,12 +186,68 @@ def test_moe_bf16_within_the_reference_bf16_distance():
 
 
 def test_capacity_and_rules():
-    jc, _, tc, tp = _layer("qwen2_moe_a2_7b")
+    """Capacities agree; with rules the layer runs the grouped dispatch
+    (S = 4 in 2 groups of 2), and falls back to one group where the
+    groups do not divide S (S = 3), as the reference does."""
+    jc, jp, tc, tp = _layer("qwen2_moe_a2_7b")
     for n in (1, 7, 24, 2048):
         assert TM.capacity(tc, n) == JM.capacity(jc, n)
-    x = torch.zeros((1, 4, tc.d_model))
-    with pytest.raises(NotImplementedError, match="item 19"):
-        TM.moe(tp, tc, x, rules=object())
+    for s in (4, 3):
+        x = np.random.default_rng(s).standard_normal(
+            (1, s, tc.d_model), dtype=np.float32)
+        want, want_aux = jax.jit(lambda p, xx: JM.moe(p, jc, xx, GROUPS))(
+            jp, jnp.asarray(x))
+        got, aux = TM.moe(tp, tc, torch.from_numpy(x), rules=GROUPS)
+        close(as_np(got), want, TOL)
+        np.testing.assert_allclose(float(aux), float(want_aux), rtol=TOL)
+
+
+def _grouped_keep(jc, idx, g):
+    """The reference's kept choices with G groups (its lines, in numpy on
+    its top-k): the capacity count runs inside each group of S/G tokens."""
+    b, s, k = idx.shape
+    flat = idx.reshape(b, g, (s // g) * k)
+    onehot = np.eye(jc.moe.num_experts, dtype=np.int64)[flat]
+    pos_in_e = np.sum(np.cumsum(onehot, axis=2) * onehot, axis=-1) - 1
+    return (pos_in_e < JM.capacity(jc, s // g)).reshape(b * g, -1)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("capacity_factor", [None, 0.25])
+def test_grouped_dispatch_matches_the_reference(arch, capacity_factor):
+    """G = 2: the dropped choices first (the port's router as `moe` calls
+    it, against the reference's top-k counted per group), then out and
+    aux against the reference's `moe` under the same stand-in rules. At
+    capacity factor 0.25 the drops differ from one group's."""
+    jc, jp, tc, tp = _layer(arch, capacity_factor)
+    x = _x(jc.d_model, seed=4)
+    probs = np.asarray(_ref_probs(jnp.asarray(x), jp["router"]))
+    idx = np.asarray(jax.lax.top_k(jnp.asarray(probs), jc.moe.top_k)[1])
+    calls, inner = [], TM.route
+
+    def recording(params, cfg, xx):
+        calls.append(inner(params, cfg, xx))
+        return calls[-1]
+
+    TM.route = recording
+    try:
+        out, aux = TM.moe(tp, tc, torch.from_numpy(x), rules=GROUPS)
+    finally:
+        TM.route = inner
+    (r,) = calls
+    want_keep = _grouped_keep(jc, idx, 2)
+    np.testing.assert_array_equal(r.gate_idx.reshape(B, S, -1).numpy(),
+                                  idx)
+    np.testing.assert_array_equal(r.keep.numpy(), want_keep)
+    if capacity_factor is None:
+        assert want_keep.all()
+    else:
+        one_group = _grouped_keep(jc, idx, 1).reshape(B, 2, -1)
+        assert (one_group != want_keep.reshape(B, 2, -1)).any()
+    want_out, want_aux = jax.jit(
+        lambda p, xx: JM.moe(p, jc, xx, GROUPS))(jp, jnp.asarray(x))
+    close(as_np(out), want_out, TOL)
+    np.testing.assert_allclose(float(aux), float(want_aux), rtol=TOL)
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -24,6 +24,7 @@ import torch
 from repro.models import layers as JL
 from repro.models import ssm as JS
 from repro_torch.models import ssm as TS
+from repro_torch.parallel.sharding import ShardingRules
 from test_torch_models import as_np, cfgs, close
 
 torch.set_num_threads(1)
@@ -169,5 +170,8 @@ def test_defs_dims_and_rules():
             for k, d in TS.ssm_defs(tc).items()}
     assert flat == {k: (d.shape, d.spec, d.scale, d.dtype, d.fan_in)
                     for k, d in JS.ssm_defs(jc).items()}
-    with pytest.raises(NotImplementedError, match="item 19"):
-        TS.ssm_block(tp, tc, torch.zeros((1, 4, tc.d_model)), rules=object())
+    u = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (1, 4, tc.d_model), dtype=np.float32))
+    got, _ = TS.ssm_block(tp, tc, u, rules=ShardingRules())
+    want, _ = TS.ssm_block(tp, tc, u)
+    assert torch.equal(got, want)
