@@ -320,14 +320,23 @@ Phases, in order; any failure exits non-zero:
    axis only: gloo moves ~0.3 GiB/s through the host here, and ZeRO-3
    would gather every layer's weights at each step) and the default
    rules (ZeRO-3) for the train step, with the attention kernel on its
-   own heads. Gates: f32 logits, decode steps, the loss and the updated
-   parameter tree within relative RMSE F32_LOGITS_REL of the oracle's
-   (each leaf's own is printed, the farthest first); bf16
-   prefill logits within twice the plain step's distance from the f32
-   oracle; the MoE's drops per layer equal to the oracle's; per rank and
-   prefill 28 (Qwen2) and 4 (MoE) kernel launches, 16 per train step.
-   Prints times, the drop share and the grouped einsums' operations
-   against the expert GEMMs'.
+   own heads. The train step runs twice, each time beside its gradients
+   (`step_grads`, the step's micro-batches) on the same weights: at the
+   stacked init (timed; each small leaf's gradient distance and its
+   update's sign flips printed, not gated) and on the weights rescaled
+   to 1 / sqrt(fan_in), from second moments of each leaf's mean square
+   clipped gradient (`smooth_moments`), where the update is smooth in
+   the gradient. Gates: f32 logits and decode steps within relative RMSE
+   F32_LOGITS_REL of the oracle's; bf16 prefill logits on the fan-in
+   weights within twice the plain step's distance from the f32 oracle
+   (at the stacked init printed only); the MoE's drops per layer equal
+   to the oracle's; per rank and prefill 28 (Qwen2) and 4 (MoE) kernel
+   launches, 16 per train step; loss and gradient norm within
+   F32_LOGITS_REL at both inits; on the fan-in weights every leaf's
+   gradient and update within F32_LOGITS_REL relative RMSE, and two
+   controls, an unchanged state and one leaf's gradient halved, past
+   that bound. Prints times, the drop share and the grouped einsums'
+   operations against the expert GEMMs'.
 35. The `kernels` JSON line (each kernel with the PR of its design and
    its launches by path; the back-projector's launches sum every path
    that runs it: phases 4, 7-10, 12, 14-18, 19 and 20's ranks, the
@@ -463,6 +472,13 @@ LM_MESH_STEPS = 8
 LM_MESH_MOE_LAYERS = 4
 LM_MESH_TRAIN_LAYERS = 4
 LM_MESH_DEADLINE_S = 400
+# The train step runs at the stacked init (timed; its small leaves'
+# gradients and sign flips printed) and on the weights rescaled to
+# 1 / sqrt(fan_in) (gated leaf by leaf). Leaves of at most
+# LM_MESH_SMALL_LEAF elements (biases, norm scales) are the ones whose
+# first AdamW step was seen to flip at the stacked init.
+LM_MESH_TRAIN_INITS = ("stacked", "fan_in")
+LM_MESH_SMALL_LEAF = 100_000
 
 # Mesh phases: the (pod, data, model) engine of core/plan.py at RabbitCT.
 MESH_AXES = ("pod", "data", "model")
@@ -3880,23 +3896,113 @@ def lm_mesh_oracles(cfg, moe_cfg, dev, out_dir: str) -> dict:
         with plain_attention_step(L):
             oracle["plain16"] = T.prefill(params, mcfg, prompt,
                                           rules)[0].float().cpu()
+        fan_in_scaled(params, mcfg)
+        oracle["fan32"] = T.prefill(params, mcfg.scaled(dtype="float32"),
+                                    prompt, rules)[0].float().cpu()
+        oracle["fan16"] = T.prefill(params, mcfg, prompt,
+                                    rules)[0].float().cpu()
+        with plain_attention_step(L):
+            oracle["fan_plain16"] = T.prefill(params, mcfg, prompt,
+                                              rules)[0].float().cpu()
         torch.save(oracle, os.path.join(out_dir, f"{name}.pt"))
         seconds[name] = time.perf_counter() - t0
         del params
         torch.cuda.empty_cache()
-    t0 = time.perf_counter()
     tcfg = cfg.scaled(num_layers=LM_MESH_TRAIN_LAYERS, dtype="float32")
-    state = init_train_state(tcfg, SEED, dev)
-    step = make_train_step(tcfg, microbatches=TRAIN_MICROBATCHES,
-                           warmup=TRAIN_WARMUP, total_steps=TRAIN_TOTAL)
-    new, metrics = step(state, train_batch(tcfg, dev))
-    torch.save({"metrics": {k: float(v) for k, v in metrics.items()},
-                "leaves": [p.detach().cpu() for p in _leaves(new.params)]},
-               os.path.join(out_dir, "train.pt"))
-    seconds["train"] = time.perf_counter() - t0
-    del state, new, step
-    torch.cuda.empty_cache()
+    batch = train_batch(tcfg, dev)
+    for init in LM_MESH_TRAIN_INITS:
+        t0 = time.perf_counter()
+        state = init_train_state(tcfg, SEED, dev)
+        if init == "fan_in":
+            fan_in_scaled(state.params, tcfg)
+        grads = step_grads(state.params, tcfg, batch, None)
+        nu = smooth_moments(grads) if init == "fan_in" else None
+        if nu is not None:
+            for v, c2 in zip(_leaves(state.opt.nu), nu):
+                v.fill_(c2)
+        keep = [init == "fan_in" or p.numel() <= LM_MESH_SMALL_LEAF
+                for p in _leaves(state.params)]
+        old = [p.detach().clone() if k else None
+               for p, k in zip(_leaves(state.params), keep)]
+        step = make_train_step(tcfg, microbatches=TRAIN_MICROBATCHES,
+                               warmup=TRAIN_WARMUP, total_steps=TRAIN_TOTAL)
+        new, metrics = step(state, batch)
+        torch.save({
+            "metrics": {k: float(v) for k, v in metrics.items()},
+            "nu": nu,
+            "grads": [g.cpu() if k else None for g, k in zip(grads, keep)],
+            "update": [(p.detach() - o).cpu() if k else None
+                       for p, o, k in zip(_leaves(new.params), old, keep)]},
+            os.path.join(out_dir, f"train_{init}.pt"))
+        seconds[f"train {init}"] = time.perf_counter() - t0
+        del state, new, step, grads, old
+        torch.cuda.empty_cache()
     return seconds
+
+
+def step_grads(params, cfg, batch, rules) -> list:
+    """The gradients a train step takes (make_train_step's, in
+    `_leaves` order): loss_and_grads of each of the TRAIN_MICROBATCHES
+    slices, laid out like its param (this rank's part under rules),
+    summed in f32 and divided by their count."""
+    import torch
+
+    from repro_torch.optim.adamw import _leaves, local_part
+    from repro_torch.training import loss_and_grads
+
+    n, total = TRAIN_MICROBATCHES, None
+    for m in range(n):
+        mb = {k: v.reshape(n, v.shape[0] // n, *v.shape[1:])[m]
+              for k, v in batch.items()}
+        _, grads = loss_and_grads(params, cfg, mb, rules)
+        grads = [local_part(g, p).float() for g, p in
+                 zip(_leaves(grads), _leaves(params))]
+        if total is None:
+            total = grads
+        else:
+            torch._foreach_add_(total, grads)
+        del grads
+    torch._foreach_div_(total, float(n))
+    return total
+
+
+def smooth_moments(grads) -> list:
+    """Per leaf, the second moment the gated train step starts from: the
+    mean square of the leaf's clipped gradient (AdamW's clip at
+    grad_clip 1). With zero first moments the step's update is then
+    lr (g / sqrt(19 c + g^2) + weight decay x p) for the clipped g and
+    this c: smooth in g, where from zero moments it is lr x the sign of g,
+    which flips wherever g sits near AdamW's eps or its round-off."""
+    import torch
+
+    norm = float(torch.sqrt(sum(torch.sum(g.double() ** 2)
+                                for g in grads)))
+    clip = min(1.0, 1.0 / (norm + 1e-9))
+    return [float(torch.mean((g.double() * clip) ** 2)) for g in grads]
+
+
+def leaf_sums(got, want, like) -> "torch.Tensor":
+    """(2, leaves) float64: per leaf, the sum of (got - want)^2 and of
+    want^2 over this rank's part. `got` holds local parts (None: skip),
+    `want` whole tensors on the host, narrowed to the part of `like`'s
+    DTensor layout; summed over the ranks, their ratio's root is the
+    leaf's relative RMSE (a replicated part counts on each rank that
+    holds it, in both sums alike)."""
+    import torch
+
+    from repro_torch.parallel.sharding import local_bounds
+
+    sums = torch.zeros(2, len(like), dtype=torch.float64)
+    for i, (g, w, p) in enumerate(zip(got, want, like)):
+        if g is None or w is None:
+            continue
+        for dim, (off, n) in enumerate(local_bounds(
+                p.shape, p.device_mesh, p.placements)):
+            w = w.narrow(dim, off, n)
+        w = w.double()
+        sums[0, i] = ((g.detach().double().cpu() - w) ** 2).sum()
+        sums[1, i] = (w ** 2).sum()
+    return sums
 
 
 def lm_mesh_rank(rank: int, world: int, work: str) -> None:
@@ -3913,9 +4019,7 @@ def lm_mesh_rank(rank: int, world: int, work: str) -> None:
     from repro_torch.models import transformer as T
     from repro_torch.optim.adamw import _leaves
     from repro_torch.parallel.mesh import make_mesh
-    from repro_torch.parallel.sharding import ShardingRules, local_bounds
-    from repro_torch.training.train_step import (
-        init_train_state, make_train_step)
+    from repro_torch.parallel.sharding import ShardingRules, full
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3944,6 +4048,9 @@ def lm_mesh_rank(rank: int, world: int, work: str) -> None:
             got["init_s"] = init_s
             got["local_gib"] = sum(p.to_local().numel() * 4 for p in
                                    _leaves(params)) / 2**30
+            fan_in_scaled(params, mcfg)
+            got["fan16"] = full(T.prefill(params, mcfg, prompt, serve)[0]
+                                ).float().cpu()
             del params
             torch.cuda.empty_cache()
             rep = {k: v for k, v in got.items()
@@ -3959,6 +4066,13 @@ def lm_mesh_rank(rank: int, world: int, work: str) -> None:
                                                    want["decode32"]))
                 rep["bf16_rel"] = rel_rmse(got["prefill16"],
                                            want["prefill32"])
+                rep["fan_bf16_rel"] = rel_rmse(got["fan16"], want["fan32"])
+                rep["fan_bf16_vs_kernel"] = rel_rmse(got["fan16"],
+                                                     want["fan16"])
+                rep["fan_oracle_bf16_rel"] = rel_rmse(want["fan16"],
+                                                      want["fan32"])
+                rep["fan_plain_bf16_rel"] = rel_rmse(want["fan_plain16"],
+                                                     want["fan32"])
                 rep["plain_bf16_rel"] = rel_rmse(want["plain16"],
                                                  want["prefill32"])
                 rep["oracle_bf16_rel"] = rel_rmse(want["prefill16"],
@@ -3967,47 +4081,178 @@ def lm_mesh_rank(rank: int, world: int, work: str) -> None:
                                          .float().mean())
                 rep["oracle_drops"] = want["drops"].tolist()
             report[name] = rep
-        # one f32 train step at LM_MESH_TRAIN_LAYERS, ZeRO-3 rules
+        # one f32 train step at LM_MESH_TRAIN_LAYERS, ZeRO-3 rules, at
+        # each init of LM_MESH_TRAIN_INITS
         train = ShardingRules(mesh=mesh)
         tcfg = get_config("qwen2_1_5b").scaled(
             num_layers=LM_MESH_TRAIN_LAYERS, dtype="float32")
-        state = init_train_state(tcfg, SEED, dev, rules=train)
-        step = make_train_step(tcfg, rules=train,
-                               microbatches=TRAIN_MICROBATCHES,
-                               warmup=TRAIN_WARMUP, total_steps=TRAIN_TOTAL)
         batch = train_batch(tcfg, dev)
-        torch.cuda.reset_peak_memory_stats()
-        dist.barrier()
-        fak.launches = 0
-        t0 = time.perf_counter()
-        new, metrics = step(state, batch)
-        torch.cuda.synchronize()
-        rep = {"step_s": time.perf_counter() - t0,
-               "launches": fak.launches,
-               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-               "metrics": {k: float(v) for k, v in metrics.items()}}
-        want = torch.load(os.path.join(out_dir, "train.pt"), mmap=True)
-        sums = torch.zeros(2, len(want["leaves"]), dtype=torch.float64)
-        for i, (p, ref) in enumerate(zip(_leaves(new.params),
-                                         want["leaves"])):
-            for dim, (off, n) in enumerate(local_bounds(
-                    p.shape, p.device_mesh, p.placements)):
-                ref = ref.narrow(dim, off, n)
-            got = p.to_local().detach().double().cpu()
-            sums[0, i] = ((got - ref.double()) ** 2).sum()
-            sums[1, i] = (ref.double() ** 2).sum()
-        dist.all_reduce(sums)
-        rep["tree_rel"] = float((sums[0].sum() / sums[1].sum()).sqrt())
-        rep["leaf_rel"] = (sums[0] / sums[1]).sqrt().tolist()
-        rep["loss_rel"] = abs(rep["metrics"]["loss"]
-                              / want["metrics"]["loss"] - 1)
-        rep["grad_norm_rel"] = abs(rep["metrics"]["grad_norm"]
-                                   / want["metrics"]["grad_norm"] - 1)
-        report["train"] = rep
+        for init in LM_MESH_TRAIN_INITS:
+            report[f"train_{init}"] = lm_mesh_train_rank(
+                tcfg, train, batch, init, out_dir, dev)
     finally:
         dist.destroy_process_group()
         with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
             json.dump(report, f)
+
+
+def lm_mesh_train_rank(tcfg, rules, batch, init: str, out_dir: str,
+                       dev) -> dict:
+    """One rank's sharded train step at `init` ("stacked" or "fan_in"):
+    the step's gradients (`step_grads`), then the step itself, timed with
+    the kernel's launches counted from 0, each leaf's gradient and update
+    (the trained part less the part it started from) held against the
+    oracle's in WORK/lm-mesh/train_<init>.pt. At "fan_in" the step starts
+    from the oracle's `smooth_moments`; the controls are the same sums for
+    an update of zero (an unchanged state) and for the smallest leaf's
+    gradient halved. At "stacked", per small leaf, the elements whose
+    update's sign differs from the oracle's and those whose gradient is
+    farther from the oracle's than the oracle's is from zero. Every sum
+    is over the ranks; returns the report."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels.attention import kernel as fak
+    from repro_torch.optim.adamw import _leaves
+    from repro_torch.parallel.sharding import local_bounds
+    from repro_torch.training.train_step import (
+        init_train_state, make_train_step)
+
+    want = torch.load(os.path.join(out_dir, f"train_{init}.pt"), mmap=True)
+    state = init_train_state(tcfg, SEED, dev, rules=rules)
+    if init == "fan_in":
+        fan_in_scaled(state.params, tcfg)
+    like = _leaves(state.params)
+    grads = step_grads(state.params, tcfg, batch, rules)
+    keep = [w is not None for w in want["update"]]
+    if want["nu"] is not None:
+        for v, c2 in zip(_leaves(state.opt.nu), want["nu"]):
+            v.to_local().fill_(c2)
+    old = [p.to_local().detach().clone() if k else None
+           for p, k in zip(like, keep)]
+    step = make_train_step(tcfg, rules=rules,
+                           microbatches=TRAIN_MICROBATCHES,
+                           warmup=TRAIN_WARMUP, total_steps=TRAIN_TOTAL)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    fak.launches = 0
+    t0 = time.perf_counter()
+    new, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    rep = {"step_s": time.perf_counter() - t0, "launches": fak.launches,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "metrics": {k: float(v) for k, v in metrics.items()}}
+    update = [p.to_local().detach() - o if k else None
+              for p, o, k in zip(_leaves(new.params), old, keep)]
+    sums = [leaf_sums([g if k else None for g, k in zip(grads, keep)],
+                      want["grads"], like),
+            leaf_sums(update, want["update"], like)]
+    if init == "fan_in":   # the controls
+        small = min(range(len(like)), key=lambda i: like[i].numel())
+        halved = [g / 2 if i == small else g for i, g in enumerate(grads)]
+        sums += [leaf_sums([torch.zeros_like(u) for u in update],
+                           want["update"], like),
+                 leaf_sums(halved, want["grads"], like)]
+    else:                  # the small leaves' flips and their cause
+        counts = torch.zeros(3, len(like), dtype=torch.float64)
+        for i, (g, u, p) in enumerate(zip(grads, update, like)):
+            if u is None:
+                continue
+            wg, wu = want["grads"][i], want["update"][i]
+            for dim, (off, n) in enumerate(local_bounds(
+                    p.shape, p.device_mesh, p.placements)):
+                wg, wu = wg.narrow(dim, off, n), wu.narrow(dim, off, n)
+            g, u = g.double().cpu(), u.double().cpu()
+            counts[0, i] = float((torch.sign(u) != torch.sign(wu)).sum())
+            counts[1, i] = float(((g - wg).abs() >= wg.abs()).sum())
+            counts[2, i] = float(u.numel())
+        sums.append(counts)
+    total = torch.cat(sums)
+    dist.all_reduce(total)
+
+    def rel(i):   # the i-th pair of leaf_sums rows
+        return (total[2 * i] / total[2 * i + 1]).sqrt().tolist()
+
+    rep["grad_rel"], rep["update_rel"] = rel(0), rel(1)
+    if init == "fan_in":
+        rep["control_unchanged_rel"], rep["control_halved_rel"] = (
+            rel(2), rel(3))
+        rep["control_leaf"] = small
+    else:
+        rep["flips"], rep["err_over_grad"], rep["elements"] = (
+            total[4].tolist(), total[5].tolist(), total[6].tolist())
+    rep["loss_rel"] = abs(rep["metrics"]["loss"]
+                          / want["metrics"]["loss"] - 1)
+    rep["grad_norm_rel"] = abs(rep["metrics"]["grad_norm"]
+                               / want["metrics"]["grad_norm"] - 1)
+    del state, new, step, grads, old, update
+    torch.cuda.empty_cache()
+    return rep
+
+
+def lm_mesh_train_report(init: str, reps: list, names: list,
+                         want_train: int) -> None:
+    """Prints and gates one init's sharded train step (rank reports
+    `reps`, leaf names `names`). Both inits: the kernel's launches per
+    rank, the loss and the gradient norm within F32_LOGITS_REL of the
+    oracle's. "fan_in": every leaf's gradient and update within
+    F32_LOGITS_REL relative RMSE of the oracle's, and each control past
+    that bound (else the gate could not fail). "stacked": printed, not
+    gated: the small leaves' gradient distances, and their update sign
+    flips beside the elements whose gradient error is at least the
+    oracle's gradient."""
+    tr = reps[0]
+    print(f"[lm-mesh] train step at the {init.replace('_', '-')} init, "
+          f"Qwen2-1.5B f32 at {LM_MESH_TRAIN_LAYERS} of 28 layers, "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens in {TRAIN_MICROBATCHES} "
+          f"micro-batches, ZeRO-3 rules: {tr['step_s']:.3f} s, peak "
+          f"{tr['peak_gib']:.2f} GiB on rank 0, {tr['launches']} kernel "
+          f"launches per rank; loss {tr['metrics']['loss']:.6f} (relative "
+          f"to the oracle {tr['loss_rel']:.2e}), grad norm "
+          f"{tr['metrics']['grad_norm']:.6e} (relative "
+          f"{tr['grad_norm_rel']:.2e})")
+    if init == "stacked":
+        print(f"[lm-mesh] stacked init, not gated, per leaf of at most "
+              f"{LM_MESH_SMALL_LEAF} elements: gradient relative RMSE; "
+              f"update relative RMSE; update signs unlike the oracle's; "
+              f"elements whose |gradient - oracle's| >= |oracle's|, of all: "
+              + "; ".join(
+                  f"{names[i]} {tr['grad_rel'][i]:.3e}, "
+                  f"{tr['update_rel'][i]:.3e}, {tr['flips'][i]:.0f}, "
+                  f"{tr['err_over_grad'][i]:.0f} of {e:.0f}"
+                  for i, e in enumerate(tr["elements"]) if e))
+    else:
+        def worst(key):
+            return max(zip(tr[key], names),
+                       key=lambda x: math.inf if math.isnan(x[0]) else x[0])
+
+        (g_err, g_leaf), (u_err, u_leaf) = (worst("grad_rel"),
+                                            worst("update_rel"))
+        small = tr["control_leaf"]
+        unchanged = min(tr["control_unchanged_rel"])
+        halved = tr["control_halved_rel"][small]
+        print(f"[lm-mesh] fan-in init, from second moments of each leaf's "
+              f"mean square clipped gradient: worst leaf gradient relative "
+              f"RMSE {g_err:.3e} ({g_leaf}), worst update {u_err:.3e} "
+              f"({u_leaf}); bound {F32_LOGITS_REL} each; controls: an "
+              f"unchanged state, the least leaf distance {unchanged:.3e}; "
+              f"{names[small]}'s gradient halved {halved:.3e}")
+    if any(rep["launches"] != want_train for rep in reps):
+        fail(f"[lm-mesh] train step launches per rank "
+             f"{[rep['launches'] for rep in reps]}, not {want_train} "
+             f"(forward and remat, per micro-batch and layer)")
+    if not (tr["loss_rel"] <= F32_LOGITS_REL
+            and tr["grad_norm_rel"] <= F32_LOGITS_REL):
+        fail(f"[lm-mesh] {init} train step off the oracle: loss "
+             f"{tr['loss_rel']:.3e}, grad norm {tr['grad_norm_rel']:.3e}")
+    if init == "stacked":
+        return
+    if not (g_err <= F32_LOGITS_REL and u_err <= F32_LOGITS_REL):
+        fail(f"[lm-mesh] fan-in train step off the oracle: gradient "
+             f"{g_err:.3e} ({g_leaf}), update {u_err:.3e} ({u_leaf})")
+    if not (unchanged > F32_LOGITS_REL and halved > F32_LOGITS_REL):
+        fail("[lm-mesh] a control passes the train step's gates")
 
 
 def grouped_einsum_flops(cfg) -> tuple:
@@ -4055,7 +4300,7 @@ def lm_mesh(cfg, moe_cfg, dev, work: str) -> dict:
         for line in tail.splitlines():
             if line.startswith("[lm-mesh]"):
                 print(line)
-        if code != 0 or report is None or "train" not in report:
+        if code != 0 or report is None or "train_fan_in" not in report:
             fail(f"[lm-mesh] rank {r} exited {code}:\n{tail}")
     reports = [rep for _, _, rep in ranks]
     lead = reports[0]
@@ -4084,17 +4329,26 @@ def lm_mesh(cfg, moe_cfg, dev, work: str) -> dict:
               f"{rep['bf16_prefill_s']:.3f} s, distance from the f32 oracle "
               f"{rep['bf16_rel']:.3e} (unsharded: kernel "
               f"{rep['oracle_bf16_rel']:.3e}, plain "
-              f"{rep['plain_bf16_rel']:.3e}); kernel launches per rank and "
-              f"prefill {rep['f32_launches']}")
+              f"{rep['plain_bf16_rel']:.3e}; not gated: at the stacked "
+              f"init bf16 sits as far from f32 as the logits are large); "
+              f"kernel launches per rank and prefill {rep['f32_launches']}")
+        print(f"[lm-mesh] {mcfg.name} on the weights rescaled to 1 / sqrt("
+              f"fan_in): bf16 prefill relative RMSE from the unsharded f32 "
+              f"kernel path {rep['fan_bf16_rel']:.3e} (bound 2 x the "
+              f"unsharded bf16 plain path's {rep['fan_plain_bf16_rel']:.3e};"
+              f" the unsharded bf16 kernel path's "
+              f"{rep['fan_oracle_bf16_rel']:.3e}), from the unsharded bf16 "
+              f"kernel path "
+              f"{rep['fan_bf16_vs_kernel']:.3e}")
         if not (rep["f32_prefill_rel"] <= F32_LOGITS_REL
                 and rep["f32_decode_rel"] <= F32_LOGITS_REL):
             fail(f"[lm-mesh] {name} f32 logits off the oracle: prefill "
                  f"{rep['f32_prefill_rel']:.3e}, decode "
                  f"{rep['f32_decode_rel']:.3e} > {F32_LOGITS_REL}")
-        if rep["bf16_rel"] > 2 * rep["plain_bf16_rel"]:
-            fail(f"[lm-mesh] {name} bf16 logits {rep['bf16_rel']:.3e} from "
-                 f"f32, past twice the plain step's "
-                 f"{rep['plain_bf16_rel']:.3e}")
+        if not rep["fan_bf16_rel"] <= 2 * rep["fan_plain_bf16_rel"]:
+            fail(f"[lm-mesh] {name} bf16 logits {rep['fan_bf16_rel']:.3e} "
+                 f"from f32 on the fan-in weights, past twice the plain "
+                 f"step's {rep['fan_plain_bf16_rel']:.3e}")
         if rep["drops"] != rep["oracle_drops"]:
             fail(f"[lm-mesh] {name} drops per layer {rep['drops']}, the "
                  f"oracle's {rep['oracle_drops']}")
@@ -4110,37 +4364,16 @@ def lm_mesh(cfg, moe_cfg, dev, work: str) -> dict:
                   f"the dispatch einsum {dispatch / 1e12:.3f} TFLOP and the "
                   f"combine's the same, the expert GEMMs "
                   f"{experts / 1e12:.3f} TFLOP together")
-    tr = lead["train"]
-    print(f"[lm-mesh] train step, Qwen2-1.5B f32 at "
-          f"{LM_MESH_TRAIN_LAYERS} of 28 layers, {TRAIN_BATCH} x {TRAIN_SEQ}"
-          f" tokens in {TRAIN_MICROBATCHES} micro-batches, ZeRO-3 rules: "
-          f"{tr['step_s']:.3f} s, peak {tr['peak_gib']:.2f} GiB on rank 0, "
-          f"{tr['launches']} kernel launches per rank; loss "
-          f"{tr['metrics']['loss']:.6f} (relative to the oracle "
-          f"{tr['loss_rel']:.2e}), grad norm relative "
-          f"{tr['grad_norm_rel']:.2e}, the updated tree's relative RMSE "
-          f"{tr['tree_rel']:.3e}")
     names = [k for k, _ in flat_leaves(T.abstract_params(cfg.scaled(
         num_layers=LM_MESH_TRAIN_LAYERS)))]
-    worst = sorted(zip(tr["leaf_rel"], names), reverse=True)[:4]
-    print(f"[lm-mesh] train step, the leaves farthest from the oracle "
-          f"(relative RMSE): " + ", ".join(f"{n} {e:.3e}" for e, n in worst)
-          + " (zero-initialised leaves, biases and norm scales, take "
-          "their first AdamW step as lr x the sign of their gradient, so an "
-          "element whose gradient sits within round-off of zero flips; the "
-          "tree's relative RMSE weighs each leaf by its size)")
     want_train = 2 * TRAIN_MICROBATCHES * LM_MESH_TRAIN_LAYERS
-    if any(rep["train"]["launches"] != want_train for rep in reports):
-        fail(f"[lm-mesh] train step launches per rank "
-             f"{[rep['train']['launches'] for rep in reports]}, not "
-             f"{want_train} (forward and remat, per micro-batch and layer)")
-    if not (tr["tree_rel"] <= F32_LOGITS_REL
-            and tr["loss_rel"] <= F32_LOGITS_REL):
-        fail(f"[lm-mesh] train step off the oracle: loss "
-             f"{tr['loss_rel']:.3e}, updated tree {tr['tree_rel']:.3e}")
+    for init in LM_MESH_TRAIN_INITS:
+        lm_mesh_train_report(init, [rep[f"train_{init}"] for rep in reports],
+                             names, want_train)
     print(f"[lm-mesh] ranks {ranks_s:.1f} s (spawn to exit), phase "
           f"{time.perf_counter() - t_phase:.1f} s")
-    launches["train"] = sum(rep["train"]["launches"] for rep in reports)
+    launches["train"] = sum(rep[f"train_{init}"]["launches"]
+                            for rep in reports for init in LM_MESH_TRAIN_INITS)
     return launches
 
 
@@ -4349,8 +4582,8 @@ def run(work: str) -> int:
                                       "ranks"] = meshed["bf16"]
         else:
             entry["launches_by_path"]["lm-mesh f32 prefills and train "
-                                      "step, 4 ranks"] = (meshed["f32"]
-                                                          + meshed["train"])
+                                      "steps, 4 ranks"] = (meshed["f32"]
+                                                           + meshed["train"])
         entry["launches"] = sum(entry["launches_by_path"].values())
         print(f"[kernels] {entry['name']} launches with [lm-mesh]: "
               f"{entry['launches']}")

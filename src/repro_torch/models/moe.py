@@ -32,7 +32,7 @@ import torch.nn.functional as F
 
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-from ..parallel.sharding import P, reshard, settled, wrap_local
+from ..parallel.sharding import P, reshard, settled, summed, wrap_local
 from .config import ModelConfig
 from .layers import ParamDef
 
@@ -147,9 +147,8 @@ def _aux(cfg: ModelConfig, r: Routing, like, n_tokens: int):
     if isinstance(like, DTensor):
         pl = [Partial() if p.is_shard() else Replicate()
               for p in like.placements]
-        whole = [Replicate()] * len(pl)
-        frac = reshard(wrap_local(frac, like.device_mesh, pl, (e,)), whole)
-        psum = reshard(wrap_local(psum, like.device_mesh, pl, (e,)), whole)
+        frac = summed(frac, like.device_mesh, pl, (e,))
+        psum = summed(psum, like.device_mesh, pl, (e,))
     return m.router_aux_weight * e * torch.sum(
         (frac / n_tokens) * (psum / n_tokens))
 

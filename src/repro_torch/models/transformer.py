@@ -31,6 +31,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
@@ -38,8 +39,8 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..device import resolve_device
 from ..parallel.sharding import (
-    ShardingRules, local_bounds, reshard, shard_tensor, tree_shardings,
-    wrap_local, zeros_sharded)
+    ShardingRules, local_bounds, reshard, settled, shard_tensor, summed,
+    tree_shardings, wrap_local, zeros_sharded)
 from . import layers as L
 from .config import ModelConfig, SubLayer
 from .moe import moe, moe_defs
@@ -398,14 +399,21 @@ def _run_blocks(params, cfg: ModelConfig, x: torch.Tensor,
     return x, aux
 
 
+def _vocab_partial(pl, vdim: int) -> list:
+    """The placements of a sum over the vocab dim `vdim` of a tensor laid
+    out by `pl`: a partial sum where the vocab dim was sharded."""
+    return [Partial() if p == Shard(vdim) else p for p in pl]
+
+
 def _label_logits(logits: torch.Tensor, labels: torch.Tensor
                   ) -> torch.Tensor:
     """logits[..., labels] over the last dim. On a DTensor whose vocab dim
     is sharded each rank picks the labels in its own vocab range (zero
-    elsewhere), a partial sum over the vocab-sharding ranks: no rank
+    elsewhere), summed over the vocab-sharding ranks (`summed`): no rank
     gathers the logits."""
     if not isinstance(logits, DTensor):
         return torch.gather(logits, -1, labels[..., None])[..., 0]
+    logits = settled(logits)
     mesh, pl = logits.device_mesh, logits.placements
     bounds = local_bounds(logits.shape, mesh, pl)
     vdim = logits.ndim - 1
@@ -418,18 +426,32 @@ def _label_logits(logits: torch.Tensor, labels: torch.Tensor
     local = logits.to_local()
     ll = torch.gather(local, -1, lab.clamp(0, vn - 1)[..., None])[..., 0]
     ll = torch.where(inside, ll, 0.0)
-    out_pl = [Partial() if p == Shard(vdim) else p for p in pl]
-    return wrap_local(ll, mesh, out_pl, logits.shape[:-1])
+    return summed(ll, mesh, _vocab_partial(pl, vdim), logits.shape[:-1])
 
 
 def _logsumexp(logits: torch.Tensor) -> torch.Tensor:
-    """logsumexp over the last dim; on a DTensor as max + log(sum(exp(x -
-    max))), whose max and sum reduce over a sharded vocab dim."""
+    """logsumexp over the last dim. On a DTensor whose vocab dim is
+    sharded: max + log(sum(exp(x - max))) with the max all-reduced and the
+    sum of each rank's exponentials summed over the vocab-sharding ranks
+    (`summed`) on local parts. DTensor's own sum over the sharded dim, as
+    its backward runs with torch 2.11, gives gradients hundreds of times
+    off (`tools/dtensor_grad_probe.py`); the explicit sum keeps the
+    gradient of a sum."""
     if not isinstance(logits, DTensor):
         return torch.logsumexp(logits, dim=-1)
-    mx = torch.amax(logits, dim=-1, keepdim=True).detach()
-    return (mx + torch.log(torch.sum(torch.exp(logits - mx), dim=-1,
-                                     keepdim=True)))[..., 0]
+    logits = settled(logits)
+    mesh, pl = logits.device_mesh, logits.placements
+    vdim = logits.ndim - 1
+    local = logits.to_local()
+    mx = torch.amax(local, dim=-1, keepdim=True).detach()
+    for i, p in enumerate(pl):
+        if p == Shard(vdim):
+            dist.all_reduce(mx, op=dist.ReduceOp.MAX, group=mesh.get_group(i))
+    total = summed(torch.sum(torch.exp(local - mx), dim=-1), mesh,
+                   _vocab_partial(pl, vdim), logits.shape[:-1])
+    out_pl = [Replicate() if p == Shard(vdim) else p for p in pl]
+    return wrap_local(mx[..., 0], mesh, out_pl, logits.shape[:-1]) \
+        + torch.log(total)
 
 
 def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],

@@ -16,7 +16,8 @@ process (a segmentation fault in `wait_tensor`) on a gloo group holding
 CUDA tensors, the layout of several ranks sharing one card; the blocking
 calls carry the same collectives there. The all-to-all becomes an
 all-gather and a local slice on every gloo group. NCCL groups keep
-DTensor's own path. Sharding rules with a DeviceMesh install it.
+DTensor's own path. `parallel.mesh.make_mesh` installs it when it builds
+a CUDA mesh over a gloo default group; nothing else does.
 """
 from __future__ import annotations
 

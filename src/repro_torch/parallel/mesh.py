@@ -38,7 +38,13 @@ def dp_axes(mesh: DeviceMesh) -> Tuple[str, ...]:
 def make_mesh(shape: Sequence[int], axes: Sequence[str],
               device_type: str = "cuda") -> DeviceMesh:
     """A mesh of `shape` with dims named `axes` over the initialised default
-    process group, whose size must be the product of `shape`."""
+    process group, whose size must be the product of `shape`.
+
+    A CUDA mesh over a gloo group (several ranks sharing one card, where
+    NCCL refuses) first routes DTensor's collectives on gloo groups over
+    the blocking torch.distributed calls, process-wide
+    (`collectives.use_blocking_collectives`): DTensor's own functional
+    collectives crash there with torch 2.11."""
     if not dist.is_initialized():
         raise RuntimeError(
             "make_mesh needs an initialised default process group; call "
@@ -47,6 +53,10 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str],
     shape, axes = tuple(int(s) for s in shape), tuple(axes)
     if len(shape) != len(axes):
         raise ValueError(f"mesh shape {shape} and axes {axes} differ in rank")
+    if device_type == "cuda" and dist.get_backend() == "gloo":
+        from .collectives import use_blocking_collectives
+
+        use_blocking_collectives()
     return init_device_mesh(device_type, shape, mesh_dim_names=axes)
 
 

@@ -16,7 +16,8 @@ here becomes the placements of a `torch.distributed.tensor.DTensor` on a
 each of those mesh dims, every other mesh dim `Replicate()`. DTensor
 shards a dim over several mesh dims in the mesh's own order, which is the
 reference's major-to-minor order over (pod, data, model); a spec that
-names one dim's axes in another order has no placements and raises.
+names one dim's axes in another order has no placements and raises. A
+mesh dim of size 1 is always `Replicate()`.
 `constrain` / `constrain_p` redistribute a DTensor to the spec's
 placements (`reshard`); on a plain tensor, or without a mesh, they return
 it unchanged, as the reference's do without a mesh.
@@ -31,9 +32,9 @@ import math
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Placement, Replicate, Shard
 
-from .collectives import use_blocking_collectives
 from .mesh import AXIS_DATA, AXIS_MODEL, AXIS_POD
 
 LOGICAL = {
@@ -89,8 +90,13 @@ class Sharding(NamedTuple):
 
 def placements_for(mesh, spec) -> Tuple[Placement, ...]:
     """The DTensor placements of `spec` (one entry per tensor dim) on
-    `mesh`. Raises ValueError if a dim's axes are not in mesh order."""
-    names = list(mesh_axes(mesh))
+    `mesh`. A mesh dim of size 1 is Replicate() whatever the spec names
+    there: each rank holds the whole tensor dim either way, and DTensor's
+    view rules refuse a dim of size 1 sharded (a batch of one on a data
+    axis of one). Raises ValueError if a dim's axes are not in mesh
+    order."""
+    sizes = mesh_axes(mesh)
+    names = list(sizes)
     out = [Replicate()] * len(names)
     for dim, entry in enumerate(spec):
         if entry is None:
@@ -106,7 +112,8 @@ def placements_for(mesh, spec) -> Tuple[Placement, ...]:
                 raise ValueError(f"spec {spec}: mesh axis {names[i]!r} "
                                  "shards two dims")
             out[i] = Shard(dim)
-    return tuple(out)
+    return tuple(Replicate() if sizes[n] == 1 else p
+                 for n, p in zip(names, out))
 
 
 def reshard(x: DTensor, placements) -> DTensor:
@@ -153,10 +160,6 @@ class ShardingRules:
     gather_moe_experts: bool = False
     # Shard the decode residual stream's feature dim over the data axes.
     decode_feature_shard: bool = False
-
-    def __post_init__(self):
-        if self.mesh is not None and not isinstance(self.mesh, AbstractMesh):
-            use_blocking_collectives()
 
     def axes(self, logical: Optional[str]):
         if logical == "fsdp" and not self.fsdp:
@@ -280,6 +283,37 @@ def wrap_local(local: torch.Tensor, mesh, placements, shape) -> DTensor:
                               run_check=False, shape=torch.Size(shape),
                               stride=torch.empty(shape, device="meta")
                               .stride())
+
+
+class _SummedOver(torch.autograd.Function):
+    """The sum of `local` over the process groups `groups` (an all-reduce
+    each); its gradient is the output's, unchanged: every rank's part
+    enters the sum once."""
+
+    @staticmethod
+    def forward(ctx, local, groups):
+        out = local.contiguous().clone()
+        for group in groups:
+            dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def summed(local: torch.Tensor, mesh, placements, shape) -> DTensor:
+    """This rank's part `local` of a tensor of global `shape` laid out by
+    `placements`, whose Partial() mesh dims hold partial sums (each rank a
+    term), reduced over those dims: the DTensor with Replicate() there,
+    differentiable, each term's gradient the sum's. The loss sums over a
+    sharded vocab this way, on local parts: DTensor's own reduction there
+    gave wrong gradients with torch 2.11 (see
+    `models.transformer._logsumexp`)."""
+    out = _SummedOver.apply(local, [mesh.get_group(i) for i, p in
+                                    enumerate(placements) if p.is_partial()])
+    return wrap_local(out, mesh, [Replicate() if p.is_partial() else p
+                                  for p in placements], shape)
 
 
 def shard_tensor(full: torch.Tensor, sharding: Sharding,

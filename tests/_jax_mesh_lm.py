@@ -1,27 +1,32 @@
 """The reference side of tests/test_torch_parallel_lm.py: `repro`'s LM
-substrate under sharding rules on a (data 2, model 2) mesh of 4 virtual
-CPU devices.
+substrate under sharding rules on a (data, model) mesh of 4 virtual CPU
+devices, of the shape WORK_DIR/lm.json names ("mesh": (2, 2) or (1, 4)).
 
     PYTHONPATH=src python tests/_jax_mesh_lm.py WORK_DIR ARCH [ARCH]
 
 ARCH is a smoke config's name, or NAME@CF for its MoE at capacity
 factor CF (`lm_config`; the port's ranks read ARCH the same way).
 
-Reads WORK_DIR/inputs_<ARCH>.npz (the weights and the batch the test
-wrote) and writes WORK_DIR/ref_<ARCH>.npz: the prefill's last logits and
-every cache leaf, two decode steps' logits, loss_fn's loss, ce and aux,
-and one train step's metrics and updated params, each jitted under
+Reads WORK_DIR/inputs_<ARCH>.npz (the weights and the batch the test wrote)
+and writes WORK_DIR/ref_<ARCH>.npz: the prefill's last logits and every
+cache leaf, two decode steps' logits, loss_fn's loss, ce and aux and its
+gradient with respect to every param (`jax.grad`), and one train step's
+metrics, updated params and first moments, each jitted under
 `ShardingRules(mesh)`; the prefill also under `ShardingRules(mesh,
-fsdp=False)`. With ARCH "collectives" it writes WORK_DIR/ref_collectives
-.npz instead: `hierarchical_psum`, `hierarchical_psum_scatter` and
-`psum_tree` under shard_map on a (pod 2, data 2) mesh, each device's
-block.
+fsdp=False)`. The train step starts from zero first moments and second
+moments of 1, so that its update is smooth in the gradient (lr (g / sqrt(19
++ g^2) + weight decay x p) at step 1, not lr x the sign of g), and runs
+with warmup 1, at the full learning rate. With ARCH "collectives" it writes
+WORK_DIR/ref_collectives.npz instead: `hierarchical_psum`,
+`hierarchical_psum_scatter` and `psum_tree` under shard_map on a (pod 2,
+data 2) mesh, each device's block.
 
 The mesh is built with `devices=`: jax 0.9's default `jax.make_mesh`
 gives Explicit axes, on which the rules' `with_sharding_constraint`
 raises (ROADMAP.md Queue 3).
 """
 import dataclasses
+import json
 import os
 import sys
 
@@ -40,6 +45,7 @@ from repro.parallel.sharding import ShardingRules  # noqa: E402
 from repro.training.train_step import TrainState, make_train_step  # noqa
 
 SEP = "/"
+WARMUP = 1   # the train step's learning rate scale at step 1 is 1
 
 
 def unflatten(flat, prefix):
@@ -112,14 +118,21 @@ def lm(work: str, arch: str, mesh) -> None:
         out["loss"] = np.asarray(loss)
         out["ce"], out["aux"] = np.asarray(parts["ce"]), np.asarray(
             parts["aux"])
+        grads = jax.jit(jax.grad(lambda p, bt: T.loss_fn(p, cfg, bt,
+                                                         rules)[0]))(
+            params, batch)
+        out.update(flatten(grads, "grads"))
         zeros = jax.tree.map(jnp.zeros_like, params)
+        ones = jax.tree.map(jnp.ones_like, params)
         state = TrainState(params, OptState(jnp.zeros((), jnp.int32), zeros,
-                                            zeros))
-        train = jax.jit(make_train_step(cfg, rules=rules, microbatches=2))
+                                            ones))
+        train = jax.jit(make_train_step(cfg, rules=rules, microbatches=2,
+                                        warmup=WARMUP))
         new, metrics = train(state, batch)
         for k, v in metrics.items():
             out[f"metric_{k}"] = np.asarray(v)
         out.update(flatten(new.params, "trained"))
+        out.update(flatten(new.opt.mu, "mu"))
     np.savez(os.path.join(work, f"ref_{arch}.npz"), **out)
 
 
@@ -149,7 +162,9 @@ def collectives(work: str) -> None:
 
 def main() -> None:
     work, archs = sys.argv[1], sys.argv[2:]
-    mesh = make_mesh((2, 2), ("data", "model"), devices=jax.devices()[:4])
+    with open(os.path.join(work, "lm.json")) as f:
+        shape = tuple(json.load(f)["mesh"])
+    mesh = make_mesh(shape, ("data", "model"), devices=jax.devices()[:4])
     for arch in archs:
         if arch == "collectives":
             collectives(work)

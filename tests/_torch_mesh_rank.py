@@ -252,18 +252,24 @@ def _unflatten(flat, prefix):
 
 def lm(rank: int, world: int, init_file: str, work: str) -> None:
     """The port's side of tests/test_torch_parallel_lm.py: for each arch of
-    WORK/lm.json, the weights and batch of WORK/inputs_<ARCH>.npz run
-    sharded under `ShardingRules(mesh)` on the (data 2, model 2) mesh:
-    prefill (also under fsdp=False), two decode steps, loss_fn and one
-    train step of 2 micro-batches, as `_jax_mesh_lm.py` runs the
-    reference. Every output is gathered whole (`full`) and rank 0 writes
-    WORK/port_<ARCH>.npz. Then the collectives on a (pod 2, data 2) mesh
-    over the same ranks: each rank's block of WORK/collectives_in.npy
-    through `hierarchical_psum`, `hierarchical_psum_scatter` and
-    `psum_tree`, every rank writing WORK/port_collectives_<rank>.npz.
-    WORK/lm_<rank>.json records the local shapes of the sharded weights
-    and the error a sharded checkpoint raises, and the (token, choice)
-    pairs the MoE's capacity dropped in the prefill, over all ranks."""
+    WORK/lm.json ("archs"), the weights and batch of WORK/inputs_<ARCH>.npz
+    run sharded under `ShardingRules(mesh)` on the (data, model) mesh of
+    its "mesh" shape: prefill (also under fsdp=False), two decode steps,
+    loss_fn, its gradients (`loss_and_grads`) and one train step of 2
+    micro-batches with warmup 1 from second moments of 1, as
+    `_jax_mesh_lm.py` runs the reference. Every output is gathered whole
+    (`full`) and rank 0 writes WORK/port_<ARCH>.npz. Then the collectives
+    on a (pod 2, data 2) mesh over the same ranks: each rank's block of
+    WORK/collectives_in.npy through `hierarchical_psum`,
+    `hierarchical_psum_scatter` and `psum_tree`, every rank writing
+    WORK/port_collectives_<rank>.npz. WORK/lm_<rank>.json records the local
+    shapes of the sharded weights and the error a sharded checkpoint
+    raises, the (token, choice) pairs the MoE's capacity dropped in the
+    prefill, over all ranks, and whether DTensor's collectives were
+    rerouted (only a CUDA mesh over gloo
+    reroutes them)."""
+    import torch.distributed._functional_collectives as funcol
+
     from repro_torch.checkpoint import save_checkpoint
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import moe as M
@@ -272,7 +278,7 @@ def lm(rank: int, world: int, init_file: str, work: str) -> None:
     from repro_torch.parallel import collectives as C
     from repro_torch.parallel.sharding import ShardingRules, full
     from repro_torch.training.train_step import (
-        make_train_step, train_state_from_reference)
+        loss_and_grads, make_train_step, train_state_from_reference)
 
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{init_file}",
@@ -280,11 +286,13 @@ def lm(rank: int, world: int, init_file: str, work: str) -> None:
                             timeout=datetime.timedelta(seconds=60))
     report = {}
     try:
-        mesh = make_mesh((2, 2), ("data", "model"), device_type="cpu")
-        rules = ShardingRules(mesh=mesh)
         with open(os.path.join(work, "lm.json")) as f:
-            archs = json.load(f)
-        for arch in archs:
+            spec = json.load(f)
+        mesh = make_mesh(spec["mesh"], ("data", "model"), device_type="cpu")
+        rules = ShardingRules(mesh=mesh)
+        report["rerouted"] = bool(getattr(funcol.all_reduce, "blocking",
+                                          False))
+        for arch in spec["archs"]:
             name, _, cf = arch.partition("@")   # NAME or NAME@CF
             cfg = get_smoke_config(name).scaled(dtype="float32")
             if cf:
@@ -328,16 +336,23 @@ def lm(rank: int, world: int, init_file: str, work: str) -> None:
             loss, parts = T.loss_fn(params, cfg, batch, rules)
             out["loss"], out["ce"], out["aux"] = (
                 full(loss), full(parts["ce"]), full(parts["aux"]))
+            _, grads = loss_and_grads(params, cfg, batch, rules)
+            out.update({k: full(v) for k, v in
+                        _flatten(grads, "grads").items()})
+            del grads
             zeros = {k: np.zeros_like(v) for k, v in inputs.items()
                      if k.startswith("params/")}
+            ones = {k: np.ones_like(v) for k, v in zeros.items()}
             state = train_state_from_reference(
                 (np_params, (np.int32(0), _unflatten(zeros, "params"),
-                             _unflatten(zeros, "params"))), cfg, "cpu", rules)
-            new, metrics = make_train_step(cfg, rules=rules,
-                                           microbatches=2)(state, batch)
+                             _unflatten(ones, "params"))), cfg, "cpu", rules)
+            new, metrics = make_train_step(cfg, rules=rules, microbatches=2,
+                                           warmup=1)(state, batch)
             out.update({f"metric_{k}": v for k, v in metrics.items()})
             out.update({k: full(v).detach() for k, v in
                         _flatten(new.params, "trained").items()})
+            out.update({k: full(v) for k, v in
+                        _flatten(new.opt.mu, "mu").items()})
             try:
                 save_checkpoint(os.path.join(work, f"ckpt_{rank}"), 0,
                                 {"w": _leaves(new.params)[0]})

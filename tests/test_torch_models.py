@@ -11,7 +11,9 @@ own code (`_sdpa`, or the query-chunked form past CHUNK_THRESHOLD), so in
 f32 the packages differ only by summation order: layers agree within
 1e-5 of the values' scale (`close`).
 """
+import contextlib
 import dataclasses
+import datetime
 from unittest import mock
 
 import jax
@@ -19,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from repro import configs as jconfigs
 from repro.models import config as jconfig
@@ -29,7 +32,8 @@ from repro_torch.models import config as tconfig
 from repro_torch.models import layers as TL
 from repro_torch.models import transformer as TT
 from repro_torch.checkpoint import save_checkpoint
-from repro_torch.parallel.sharding import AbstractMesh, ShardingRules
+from repro_torch.parallel.mesh import make_mesh
+from repro_torch.parallel.sharding import AbstractMesh, ShardingRules, full
 from repro_torch.training import make_abstract_state, state_shardings
 from torch.distributed.tensor import DTensor
 
@@ -61,6 +65,20 @@ def close(got, want, tol):
 
 def as_np(t):
     return t.detach().to(torch.float32).numpy()
+
+
+@contextlib.contextmanager
+def one_rank_mesh(tmp_path):
+    """A (data 1, model 1) DeviceMesh over a gloo world of one, for the
+    block's duration: the DTensor paths of the sharded layers run on it
+    with every local part whole."""
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'pg'}",
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        yield make_mesh((1, 1), ("data", "model"), device_type="cpu")
+    finally:
+        dist.destroy_process_group()
 
 
 def cfgs(arch, dtype="float32", **over):
@@ -300,12 +318,13 @@ def test_entry_points_default_to_the_card():
         TT.params_from_reference({}, tc)
 
 
-def test_what_the_slice_leaves_out_raises():
+def test_what_the_slice_leaves_out_raises(tmp_path):
     """MoE and SSM patterns, the vision and audio frontends and a sliding
-    window build; sharding rules without a mesh change nothing (the
-    constraints are identities, as the reference's without a mesh), the
-    abstract state and its shardings resolve, and only a checkpoint of
-    sharded (DTensor) state raises, naming item 23."""
+    window build; prefill and loss_fn under sharding rules on a one-rank
+    mesh (every param and activation a DTensor, each local part whole)
+    give the unsharded results, the abstract state and its shardings
+    resolve, and only a checkpoint of sharded (DTensor) state raises,
+    naming item 23."""
     _, tc = cfgs("qwen2_1_5b")
     moe = tc.scaled(pattern=(tconfig.SubLayer(ffn="moe"),),
                     moe=tconfig.MoEConfig(num_experts=2, top_k=1,
@@ -326,13 +345,17 @@ def test_what_the_slice_leaves_out_raises():
     assert tconfigs.get_config("mixtral_8x7b").sliding_window == 4096
     tp = TT.init_params(tc, seed=0, device="cpu")
     toks = torch.arange(4, dtype=torch.int64)[None]
+    batch = {"tokens": toks, "labels": toks}
+    with one_rank_mesh(tmp_path) as mesh:
+        rules = ShardingRules(mesh=mesh)
+        sp = TT.init_params(tc, seed=0, device="cpu", rules=rules)
+        assert isinstance(sp["embed"], DTensor)
+        for got, want in ((TT.prefill(sp, tc, {"tokens": toks}, rules),
+                           TT.prefill(tp, tc, {"tokens": toks})),
+                          (TT.loss_fn(sp, tc, batch, rules),
+                           TT.loss_fn(tp, tc, batch))):
+            close(as_np(full(got[0])), as_np(want[0]), 1e-6)
     no_mesh = ShardingRules()
-    for got, want in ((TT.prefill(tp, tc, {"tokens": toks}, rules=no_mesh),
-                       TT.prefill(tp, tc, {"tokens": toks})),
-                      (TT.loss_fn(tp, tc, {"tokens": toks, "labels": toks},
-                                  rules=no_mesh),
-                       TT.loss_fn(tp, tc, {"tokens": toks, "labels": toks}))):
-        assert torch.equal(got[0], want[0])
     state = make_abstract_state(tc)
     assert state.params["embed"].device.type == "meta"
     assert state.opt.mu["embed"].dtype == torch.float32

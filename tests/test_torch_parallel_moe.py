@@ -6,7 +6,7 @@ configs (its `mesh_runs`: the same outputs, the same MODEL_TOL 2e-5).
 Under the rules the MoE runs the grouped dispatch, G = tp = 2 groups of
 8 tokens each with its own capacity: at the smoke capacity factor (8:
 nothing drops) and at 0.25, where the capacity drops choices; equal
-logits, caches, loss and train step there mean equal drops, and the
+logits, caches, loss, gradients and train step there mean equal drops, and the
 ranks count the drops to show the case has them.
 """
 import json
@@ -14,8 +14,8 @@ import json
 import pytest
 
 from test_torch_parallel_lm import (
-    LOGITS, check_caches, check_logits, check_loss, check_train_step,
-    mesh_runs)
+    LOGITS, WRONG, check_caches, check_grads, check_logits, check_loss,
+    check_train_step, mesh_runs, wrong_step)
 
 ARCHS = ["qwen2_moe_a2_7b", "qwen2_moe_a2_7b@0.25"]
 
@@ -43,8 +43,20 @@ def test_loss_matches_the_reference(runs, arch):
 
 
 @pytest.mark.parametrize("arch", ARCHS)
+def test_grads_match_the_reference(runs, arch):
+    check_grads(runs, arch)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
 def test_train_step_matches_the_reference(runs, arch):
     check_train_step(runs, arch)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("wrong", WRONG)
+def test_checks_reject_a_wrong_step(runs, arch, wrong):
+    with pytest.raises(AssertionError):
+        wrong_step(runs, arch, wrong)()
 
 
 def test_capacity_drops_only_at_the_low_factor(runs):

@@ -2,15 +2,16 @@
 against `repro.parallel.sharding`, in one process and with no devices.
 
 Both packages resolve their rules against a shape-only mesh (JAX's
-`AbstractMesh`, the port's own) of four shapes: (data 1, model 1),
-(2, 2), (4, 8) and (pod 2, data 16, model 16), with the reference's
-defaults and each rules flag toggled. For all ten full configs the
-parameter specs (`param_shardings`), the decode caches' specs
-(`cache_specs`, with and without `shard_seq`) and the train state's
-(`state_shardings`) are the reference's entry for entry, and each spec's
-DTensor placements put `Shard(dim)` on exactly the mesh dims the spec
-names. `abstract_params` and `make_abstract_state` give the reference's
-shapes and dtypes.
+`AbstractMesh`, the port's own) of four shapes: (data 1, model 1), (2, 2),
+(4, 8) and (pod 2, data 16, model 16), with the reference's defaults and
+each rules flag toggled. For all ten full configs the parameter specs
+(`param_shardings`), the decode caches' specs (`cache_specs`, with and
+without `shard_seq`) and the train state's (`state_shardings`) are the
+reference's entry for entry, and each spec's DTensor placements put
+`Shard(dim)` on exactly the mesh dims the spec names whose size is above 1
+(a mesh dim of size 1 is `Replicate()`: every rank holds the whole tensor
+dim either way). `abstract_params` and `make_abstract_state` give the
+reference's shapes and dtypes.
 """
 import jax
 import numpy as np
@@ -76,10 +77,12 @@ def _flat(tree, prefix=()):
 def _check_sharding(ref_sharding, got: TS.Sharding, shape, mesh_axes):
     """The port's Sharding has the reference's spec as placements."""
     spec = _spec(ref_sharding.spec, len(shape))
+    sizes = TS.mesh_axes(got.mesh)
     want = [Replicate()] * len(mesh_axes)
     for dim, entry in enumerate(spec):
         for axis in ((entry,) if isinstance(entry, str) else entry or ()):
-            want[mesh_axes.index(axis)] = Shard(dim)
+            if sizes[axis] > 1:
+                want[mesh_axes.index(axis)] = Shard(dim)
     assert tuple(got.placements) == tuple(want), (shape, spec, got)
     assert TS.placements_for(got.mesh, spec) == tuple(want)
 
@@ -200,6 +203,9 @@ def test_placements_refuse_a_spec_out_of_mesh_order():
     rules = TS.ShardingRules(mesh=mesh, fsdp_axes=("data", "pod"))
     with pytest.raises(ValueError, match="mesh's order"):
         rules.sharding_for_shape((8, 4), "fsdp", None)
+    ones = TS.AbstractMesh((1, 2, 1), ("pod", "data", "model"))
+    assert TS.placements_for(ones, (("pod", "data"), "model")) == (
+        Replicate(), Shard(0), Replicate())
 
 
 def test_without_a_mesh_nothing_is_sharded():

@@ -24,8 +24,8 @@ import torch
 from repro.models import layers as JL
 from repro.models import ssm as JS
 from repro_torch.models import ssm as TS
-from repro_torch.parallel.sharding import ShardingRules
-from test_torch_models import as_np, cfgs, close
+from repro_torch.parallel.sharding import ShardingRules, full, shard_tensor
+from test_torch_models import as_np, cfgs, close, one_rank_mesh
 
 torch.set_num_threads(1)
 
@@ -163,15 +163,44 @@ def test_bf16_within_the_reference_bf16_distance():
     assert np.abs(as_np(got) - f32).max() <= 2 * ref_err
 
 
-def test_defs_dims_and_rules():
+def test_defs_dims_and_rules(tmp_path):
+    """The defs match the reference's; under sharding rules on a one-rank
+    mesh the block takes its DTensor path (`_ssm_block_local`: weights
+    gathered with partial-sum gradients, the cache's rows) and gives the
+    plain block's prefill, cache, decode step and gradients."""
     jc, _, tc, tp = _block()
     assert TS.ssm_dims(tc) == JS.ssm_dims(jc)
+    defs = TS.ssm_defs(tc)
     flat = {k: (d.shape, d.spec, d.scale, d.dtype, d.fan_in)
-            for k, d in TS.ssm_defs(tc).items()}
+            for k, d in defs.items()}
     assert flat == {k: (d.shape, d.spec, d.scale, d.dtype, d.fan_in)
                     for k, d in JS.ssm_defs(jc).items()}
-    u = torch.from_numpy(np.random.default_rng(3).standard_normal(
-        (1, 4, tc.d_model), dtype=np.float32))
-    got, _ = TS.ssm_block(tp, tc, u, rules=ShardingRules())
-    want, _ = TS.ssm_block(tp, tc, u)
-    assert torch.equal(got, want)
+    rng = np.random.default_rng(3)
+    u = torch.from_numpy(rng.standard_normal((B, 20, tc.d_model),
+                                             dtype=np.float32))
+    u1 = torch.from_numpy(rng.standard_normal((B, 1, tc.d_model),
+                                              dtype=np.float32))
+    leaves = {k: v.clone().requires_grad_() for k, v in tp.items()}
+    want, want_cache = TS.ssm_block(leaves, tc, u, return_cache=True)
+    want_grads = torch.autograd.grad(want.square().sum(),
+                                     list(leaves.values()))
+    want_step, _ = TS.ssm_block(tp, tc, u1, cache=want_cache)
+    with one_rank_mesh(tmp_path) as mesh:
+        rules = ShardingRules(mesh=mesh)
+        sp = {k: shard_tensor(tp[k], rules.sharding_for_shape(
+            defs[k].shape, *defs[k].spec)).requires_grad_() for k in tp}
+        rows = rules.sharding_for_shape(u.shape, "dp", None, None)
+        got, cache = TS.ssm_block(sp, tc, shard_tensor(u, rows), rules,
+                                  return_cache=True)
+        grads = torch.autograd.grad(got.square().sum(), list(sp.values()))
+        step, _ = TS.ssm_block(sp, tc, shard_tensor(u1, rows), rules,
+                               cache=cache)
+        got, step = full(got), full(step)
+        cache = [full(t) for t in cache]
+        grads = [full(g) for g in grads]
+    close(as_np(got), as_np(want), TOL)
+    close(as_np(step), as_np(want_step), TOL)
+    for g, w in zip(cache, want_cache):
+        close(as_np(g), as_np(w), TOL)
+    for g, w in zip(grads, want_grads):
+        close(as_np(g), as_np(w), TOL)
