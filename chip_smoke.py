@@ -233,8 +233,24 @@ Phases, in order; any failure exits non-zero:
    device memory, the profile, and the kernel's time at the training
    shape (2 x 12 heads, S = 2048) beside its bound. Each of 25 and 26
    prints its seconds.
-27. (Phase 26's weights and state are freed before each phase below, which
-   prints the device memory still allocated on entry.)
+27. [launch] The dry run (`repro_torch.launch`) against the card. First
+   the card's rates: a bf16 8192^3 torch.matmul and a 4 GiB device copy
+   (CUDA events), beside the H100 SXM datasheet figures the roofline
+   prices with. Then the [serve] prefill (4 x 2048) and one [train] step
+   (4 x 2048 in 2 micro-batches, remat) of full Qwen2-1.5B, each dry-run
+   on a fake world of one (fake tensors, no card) and run on the card,
+   both counted by the dry run's TraceCounter. Gates: the FLOPs equal
+   exactly (the same program), the attention operator reached as often
+   as the card launches the kernel (28 a prefill, 112 a step), and the
+   predicted peak memory within LAUNCH_MEM_BAND of the measured (both
+   from the inputs' allocation on). Printed: each run's seconds as a
+   fraction of its roofline bound. Two production cells, Qwen2-1.5B x
+   train_4k and the paper's 4k reconstruction (the kernel's launch
+   operator) on the 256-rank (32, 8) mesh, are dry-run in subprocesses
+   on the host while phases 28-34 use the card; their rows and seconds
+   are printed before phase 35. (Phase 26's weights and state are freed
+   before this phase and each below, which prints the device memory
+   still allocated on entry.)
 28. [moe-serve] Qwen2-MoE-A2.7B at full width and depth (24 layers, d_model
    2048, 16/16 heads of 128, 60 experts top-4 of 1408, 4 shared, capacity
    factor 1.25, vocab 151 936; init_params(seed 0) with the draw's peak
@@ -337,11 +353,20 @@ Phases, in order; any failure exits non-zero:
    controls, an unchanged state and one leaf's gradient halved, past
    that bound. Prints times, the drop share and the grouped einsums'
    operations against the expert GEMMs'.
+   [lm-ckpt], in the same ranks after the fan-in train step: every rank
+   saves its share of the trained f32 TrainState (DTensor leaves) to one
+   checkpoint, restores it onto the (2, 2) mesh (gated bit-equal, leaf
+   by leaf) and onto a (1, 4) mesh of the same ranks (saved again as
+   step 2), and takes one more train step from the restored state and
+   one from the live state (gated bit-equal). This process then loads
+   both steps whole (mesh=None): step 2 bit-equal to step 1, and step
+   1's update (less the fan-in init) within F32_LOGITS_REL of the
+   unsharded oracle's, leaf by leaf. Prints save and restore GB/s.
 35. The `kernels` JSON line (each kernel with the PR of its design and
    its launches by path; the back-projector's launches sum every path
    that runs it: phases 4, 7-10, 12, 14-18, 19 and 20's ranks, the
-   attention kernel's the serving prefills (phases 23, 28-34, phase 34
-   summed over its ranks) and the training steps, each counted from 0
+   attention kernel's the serving prefills (phases 23, 27, 28-34, phase 34
+   summed over its ranks) and the training steps (26, 27), each counted from 0
    just before the path; a path on
    another wire type's instantiation, such as the auto plan's, is printed
    beside it; the attention entries also carry the windowed kernel's,
@@ -357,6 +382,7 @@ checkout. It imports neither JAX nor the JAX package.
 """
 from __future__ import annotations
 
+import atexit
 import concurrent.futures
 import contextlib
 import dataclasses
@@ -479,6 +505,23 @@ LM_MESH_DEADLINE_S = 400
 # first AdamW step was seen to flip at the stacked init.
 LM_MESH_TRAIN_INITS = ("stacked", "fan_in")
 LM_MESH_SMALL_LEAF = 100_000
+
+# [launch]: the card's bf16 GEMM and copy rates, then the dry run of the
+# [serve] prefill and the [train] step on a fake world of one, held
+# against the same runs on the card: FLOPs exactly, kernel calls, and the
+# predicted peak memory within LAUNCH_MEM_BAND of the measured (fixed
+# before the first card run). Two production cells are dry-run in
+# subprocesses while later phases run.
+LAUNCH_GEMM_N = 8192
+LAUNCH_COPY_BYTES = 4 * 2**30
+LAUNCH_RUNS = 10
+LAUNCH_TIMED = 3
+LAUNCH_MEM_BAND = 0.25
+PRODUCTION_CELLS = (
+    ("qwen2_1_5b x train_4k", ("--arch", "qwen2_1_5b", "--shape",
+                               "train_4k")),
+    ("ifdk-4k", ("--fdk", "--fdk-problem", "4k", "--bp-impl", "kernel")))
+PRODUCTION_DEADLINE_S = 600
 
 # Mesh phases: the (pod, data, model) engine of core/plan.py at RabbitCT.
 MESH_AXES = ("pod", "data", "model")
@@ -3017,6 +3060,197 @@ def token_ce(params, cfg, batch):
                 - torch.gather(logits, -1, labels)[..., 0])
 
 
+def card_rates(dev) -> None:
+    """[launch]'s rates: a bf16 LAUNCH_GEMM_N^3 torch.matmul and a
+    LAUNCH_COPY_BYTES device-to-device copy (read and write), CUDA events
+    over LAUNCH_RUNS calls, beside the datasheet figures the roofline
+    (`launch/roofline.py`) prices with."""
+    import torch
+
+    from repro_torch.launch import roofline as R
+
+    n = LAUNCH_GEMM_N
+    a = torch.randn(n, n, device=dev, dtype=torch.bfloat16)
+    b = torch.randn(n, n, device=dev, dtype=torch.bfloat16)
+    gemm_ms = event_ms(lambda: torch.matmul(a, b), LAUNCH_RUNS)
+    del a, b
+    src = torch.empty(LAUNCH_COPY_BYTES // 4, device=dev)
+    dst = torch.empty_like(src)
+    copy_ms = event_ms(lambda: dst.copy_(src), LAUNCH_RUNS)
+    del src, dst
+    torch.cuda.empty_cache()
+    flops = 2 * n ** 3 / (gemm_ms / 1e3)
+    rate = 2 * LAUNCH_COPY_BYTES / (copy_ms / 1e3)
+    print(f"[launch] bf16 {n}^3 matmul {gemm_ms:.3f} ms = "
+          f"{flops / 1e12:.1f} TFLOP/s (datasheet dense bf16 "
+          f"{R.PEAK_FLOPS / 1e12:.1f}: {flops / R.PEAK_FLOPS:.1%}); "
+          f"{LAUNCH_COPY_BYTES / 2**30:.0f} GiB device copy {copy_ms:.3f} ms "
+          f"= {rate / 1e9:.1f} GB/s read + write (datasheet HBM3 "
+          f"{R.HBM_BW / 1e9:.0f}: {rate / R.HBM_BW:.1%}); "
+          f"{nvidia_smi_line()}")
+
+
+def start_production_cells(work: str) -> list:
+    """Starts each PRODUCTION_CELLS dry run in a subprocess on the host
+    (`python -m repro_torch.launch.dryrun ... --out`); returns them for
+    `finish_production_cells`. Each is killed at exit if still running."""
+    env = dict(os.environ, PYTHONPATH=SRC)
+    procs = []
+    for i, (name, args) in enumerate(PRODUCTION_CELLS):
+        out = os.path.join(work, f"production_{i}.jsonl")
+        procs.append((name, out, time.perf_counter(), subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+             "--out", out], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    # a phase that fails before they are joined must not leave them behind
+    atexit.register(lambda: [p.kill() for *_, p in procs
+                             if p.poll() is None])
+    return procs
+
+
+def finish_production_cells(procs: list) -> None:
+    """Waits for the production dry runs (killing any past the deadline)
+    and prints each row; a failed cell fails the run."""
+    end = time.perf_counter() + PRODUCTION_DEADLINE_S
+    for name, out, t0, p in procs:
+        try:
+            log = p.communicate(timeout=max(1.0, end - time.perf_counter()))[0]
+        except subprocess.TimeoutExpired:
+            p.kill()
+            log = p.communicate()[0] + "\n[killed at the deadline]"
+        if p.returncode != 0 or not os.path.exists(out):
+            fail(f"[launch] production cell {name} exited {p.returncode}:\n"
+                 f"{log[-3000:]}")
+        with open(out) as f:
+            row = json.loads(f.readlines()[-1])
+        print(f"[launch] production cell {name} on {row['mesh']} "
+              f"({row['chips']} ranks): dry run {row['trace_s']:.1f} s "
+              f"traced, {time.perf_counter() - t0:.1f} s of process beside "
+              f"phases 28-34; peak {row['peak_mem_bytes'] / 1e9:.2f} GB a "
+              f"rank; flops {row['hlo_flops_per_dev']:.4e}, bytes "
+              f"{row['hlo_bytes_per_dev']:.4e}, wire "
+              f"{row['wire_bytes_per_dev']:.4e} B a rank "
+              f"({row['collectives']['by_group']}); roofline compute "
+              f"{row['t_compute_s']:.4f} s, memory {row['t_memory_s']:.4f} "
+              f"s, collective {row['t_collective_s']:.4f} s, dominant "
+              f"{row['dominant']}, useful ratio {row['useful_ratio']}")
+        print(f"[launch] row {json.dumps(row)}")
+
+
+def launch_phase(cfg, dev, work: str) -> tuple:
+    """Phase 27 [launch]; returns (the production cells' processes, the
+    attention kernel's launches)."""
+    import torch
+
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.kernels.attention import kernel as fak
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models import transformer as T
+    from repro_torch.training import init_train_state, make_train_step
+
+    entering("[launch]")
+    t_phase = time.perf_counter()
+    procs = start_production_cells(work)
+    card_rates(dev)
+    sync = torch.cuda.synchronize
+    launches = 0
+
+    def counted(tag, dry, run, want_calls, base):
+        """`run()` on the card under the dry run's counter; its peak
+        memory above `base`, the memory allocated before its inputs; gated
+        against the dry run's row."""
+        nonlocal launches
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        counter = D.TraceCounter()
+        fak.launches = 0
+        with counter:
+            run()
+        sync()
+        peak = torch.cuda.max_memory_allocated() - base
+        launches += fak.launches
+        calls = dry["kernel_calls"].get("flash_attention", 0)
+        print(f"[launch] {tag}: dry run {dry['trace_s']:.1f} s on the host, "
+              f"FLOPs {dry['traced_flops_per_dev']} (card "
+              f"{counter.flops}), attention operator {calls} calls (card "
+              f"{fak.launches} launches, want {want_calls}); peak memory "
+              f"predicted {dry['peak_mem_bytes'] / 1e9:.3f} GB, measured "
+              f"{peak / 1e9:.3f} GB ({dry['peak_mem_bytes'] / peak - 1:+.1%},"
+              f" band +-{LAUNCH_MEM_BAND:.0%}); predicted by kind "
+              f"{dry['memory']}")
+        if counter.flops != dry["traced_flops_per_dev"]:
+            fail(f"[launch] {tag}: the dry run counts "
+                 f"{dry['traced_flops_per_dev']} FLOPs, the card's run "
+                 f"{counter.flops}")
+        if not calls == fak.launches == want_calls:
+            fail(f"[launch] {tag}: {calls} operator calls dry, "
+                 f"{fak.launches} launches on the card, want {want_calls}")
+        if abs(dry["peak_mem_bytes"] / peak - 1) > LAUNCH_MEM_BAND:
+            fail(f"[launch] {tag}: predicted peak {dry['peak_mem_bytes']} "
+                 f"B, measured {peak} B, past +-{LAUNCH_MEM_BAND:.0%}")
+
+    def timed(tag, dry, run):
+        seconds = []
+        for _ in range(LAUNCH_TIMED):
+            sync()
+            t0 = time.perf_counter()
+            run()
+            sync()
+            seconds.append(time.perf_counter() - t0)
+        s = min(seconds)
+        print(f"[launch] {tag}: {[round(x, 4) for x in seconds]} s on the "
+              f"card; roofline bound {dry['t_compute_s']:.4f} s compute, "
+              f"{dry['t_memory_s']:.4f} s memory (analytic bytes), dominant "
+              f"{dry['dominant']}: the best run takes "
+              f"{max(dry['t_compute_s'], dry['t_memory_s']) / s:.1%} of it "
+              f"at the bound")
+
+    # the [serve] prefill
+    info = dict(kind="prefill", seq=PROMPT, batch=BATCH)
+    dry = D.run_cell("qwen2_1_5b", "prefill_32k", False, verbose=False,
+                     cfg=cfg, shape_info=info, single=True)
+    base = torch.cuda.memory_allocated()
+    params = T.init_params(cfg, SEED, dev)
+    batch = {"tokens": serving_prompts(cfg, dev)}
+
+    def prefill():
+        with torch.no_grad():
+            T.prefill(params, cfg, batch)
+
+    tag = f"prefill {BATCH} x {PROMPT}"
+    counted(tag, dry, prefill, attention_layers(cfg), base)
+    timed(tag, dry, prefill)
+    del params, batch
+    torch.cuda.empty_cache()
+
+    # one [train] step
+    info = dict(kind="train", seq=TRAIN_SEQ, batch=TRAIN_BATCH)
+    dry = D.run_cell("qwen2_1_5b", "train_4k", False, verbose=False,
+                     cfg=cfg, shape_info=info,
+                     microbatches=TRAIN_MICROBATCHES, single=True)
+    base = torch.cuda.memory_allocated()
+    state = init_train_state(cfg, seed=SEED, device=dev)
+    batch = SyntheticTokens(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=SEED,
+                            device=dev)(0)
+    step = make_train_step(cfg, microbatches=TRAIN_MICROBATCHES,
+                           warmup=TRAIN_WARMUP, total_steps=TRAIN_TOTAL,
+                           remat=True)
+
+    def train():
+        nonlocal state
+        state, _ = step(state, batch)
+
+    tag = (f"train step {TRAIN_BATCH} x {TRAIN_SEQ} in {TRAIN_MICROBATCHES} "
+           "micro-batches")
+    counted(tag, dry, train, cfg.num_layers * 2 * TRAIN_MICROBATCHES, base)
+    timed(tag, dry, train)
+    del state, batch, step
+    torch.cuda.empty_cache()
+    print(f"[launch] {time.perf_counter() - t_phase:.1f} s (the production "
+          f"cells go on in the background)")
+    return procs, launches
+
+
 @contextlib.contextmanager
 def timed_updates(module, events: list):
     """`module.adamw_update` with CUDA events recorded around each call."""
@@ -4186,7 +4420,10 @@ def lm_mesh_train_rank(tcfg, rules, batch, init: str, out_dir: str,
                           / want["metrics"]["loss"] - 1)
     rep["grad_norm_rel"] = abs(rep["metrics"]["grad_norm"]
                                / want["metrics"]["grad_norm"] - 1)
-    del state, new, step, grads, old, update
+    del state, step, grads, old, update
+    if init == "fan_in":
+        rep["ckpt"] = lm_ckpt_rank(new, tcfg, rules, batch, out_dir, dev)
+    del new
     torch.cuda.empty_cache()
     return rep
 
@@ -4253,6 +4490,149 @@ def lm_mesh_train_report(init: str, reps: list, names: list,
              f"{g_err:.3e} ({g_leaf}), update {u_err:.3e} ({u_leaf})")
     if not (unchanged > F32_LOGITS_REL and halved > F32_LOGITS_REL):
         fail("[lm-mesh] a control passes the train step's gates")
+
+
+def lm_ckpt_rank(new, tcfg, rules, batch, out_dir: str, dev) -> dict:
+    """[lm-ckpt] in one rank, after the fan-in train step left `new`: the
+    state saved (every rank its share), restored onto this (2, 2) mesh
+    with `new` as `like` and compared leaf by leaf, restored onto a
+    (1, 4) mesh of the same ranks and saved again as step 2 (for this
+    process's whole loads), and one train step from the restored state
+    beside one from the live state. Returns the timings, bytes and
+    equalities."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.optim.adamw import _leaves
+    from repro_torch.parallel.mesh import make_mesh
+    from repro_torch.parallel.sharding import ShardingRules
+    from repro_torch.training.train_step import (
+        make_abstract_state, make_train_step, state_shardings)
+
+    def leaves(s):
+        return _leaves(s.params) + _leaves(s.opt.mu) + _leaves(s.opt.nu)
+
+    def same(a, b):
+        return all(torch.equal(x.to_local(), y.to_local())
+                   for x, y in zip(leaves(a), leaves(b))) and \
+            torch.equal(a.opt.step, b.opt.step)
+
+    def local_bytes(s):
+        return sum(x.to_local().numel() * x.element_size()
+                   for x in leaves(s))
+
+    ckpt = os.path.join(out_dir, "ckpt")
+    rep = {}
+    for tag, fn in (
+            ("save", lambda: save_checkpoint(ckpt, 1, new)),
+            ("load_2x2", lambda: load_checkpoint(ckpt, 1, new, device=dev))):
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        back = fn()
+        torch.cuda.synchronize()
+        rep[f"{tag}_s"] = time.perf_counter() - t0
+    rep["local_bytes"] = local_bytes(new)
+    rep["bit_equal_2x2"] = same(back, new)
+    mesh14 = make_mesh((1, 4), ("data", "model"), device_type=dev.type)
+    sh = state_shardings(tcfg, ShardingRules(mesh=mesh14))
+    sh = sh._replace(opt=sh.opt._replace(step=None))   # a plain step
+    dist.barrier()
+    t0 = time.perf_counter()
+    moved = load_checkpoint(ckpt, 1, make_abstract_state(tcfg), device=dev,
+                            shardings=sh)
+    torch.cuda.synchronize()
+    rep["load_1x4_s"] = time.perf_counter() - t0
+    rep["local_bytes_1x4"] = local_bytes(moved)
+    rep["placements_1x4"] = str(_leaves(moved.params)[0].placements)
+    save_checkpoint(ckpt, 2, moved)
+    del moved
+    torch.cuda.empty_cache()
+    step = make_train_step(tcfg, rules=rules,
+                           microbatches=TRAIN_MICROBATCHES,
+                           warmup=TRAIN_WARMUP, total_steps=TRAIN_TOTAL)
+    resumed, m_resumed = step(back, batch)
+    live, m_live = step(new, batch)
+    rep["resumed_bit_equal"] = same(resumed, live) and all(
+        torch.equal(m_resumed[k], m_live[k]) for k in m_live)
+    rep["resumed_loss"] = float(m_resumed["loss"])
+    del resumed, live, back
+    torch.cuda.empty_cache()
+    return rep
+
+
+def lm_ckpt_report(tcfg, reps: list, out_dir: str, dev) -> None:
+    """[lm-ckpt] in this process: the ranks' equalities (gated), then the
+    checkpoint's steps 1 ((2, 2)) and 2 (written from the (1, 4) restore)
+    loaded whole, bit-equal, and step 1's update against the unsharded
+    oracle's leaf by leaf (the params less the fan-in init, relative
+    RMSE within F32_LOGITS_REL); save and restore GB/s."""
+    import torch
+
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.optim.adamw import _leaves
+    from repro_torch.training.train_step import (
+        init_train_state, make_abstract_state)
+
+    ckpt = os.path.join(out_dir, "ckpt")
+    like = make_abstract_state(tcfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    whole = load_checkpoint(ckpt, 1, like, device=dev)
+    torch.cuda.synchronize()
+    t_whole = time.perf_counter() - t0
+    whole14 = load_checkpoint(ckpt, 2, like, device=dev)
+    leaves = (_leaves(whole.params) + _leaves(whole.opt.mu)
+              + _leaves(whole.opt.nu))
+    total = sum(x.numel() * x.element_size() for x in leaves)
+    equal14 = all(torch.equal(a, b) for a, b in zip(
+        leaves, _leaves(whole14.params) + _leaves(whole14.opt.mu)
+        + _leaves(whole14.opt.nu))) and torch.equal(whole.opt.step,
+                                                     whole14.opt.step)
+    del whole14
+    init = init_train_state(tcfg, SEED, dev)
+    fan_in_scaled(init.params, tcfg)
+    want = torch.load(os.path.join(out_dir, "train_fan_in.pt"), mmap=True)
+    worst = 0.0
+    for p, p0, w in zip(_leaves(whole.params), _leaves(init.params),
+                        want["update"]):
+        worst = max(worst, rel_rmse((p - p0.detach()).cpu(), w))
+    step = int(whole.opt.step)
+    del whole, init
+    torch.cuda.empty_cache()
+
+    def rate(nbytes, seconds):
+        return f"{nbytes / seconds / 1e9:.3f} GB/s"
+
+    save_s = max(r["save_s"] for r in reps)
+    load22 = max(r["load_2x2_s"] for r in reps)
+    load14 = max(r["load_1x4_s"] for r in reps)
+    print(f"[lm-ckpt] {tcfg.name} at {tcfg.num_layers} layers, f32 "
+          f"TrainState {total / 1e9:.3f} GB: saved by 4 ranks in "
+          f"{save_s:.3f} s ({rate(total, save_s)}); restored onto (2, 2) in "
+          f"{load22:.3f} s ({rate(sum(r['local_bytes'] for r in reps), load22)}"
+          f" of local parts), onto (1, 4) (the first leaf "
+          f"{reps[0]['placements_1x4']}) in {load14:.3f} s "
+          f"({rate(sum(r['local_bytes_1x4'] for r in reps), load14)}); whole "
+          f"in this process {t_whole:.3f} s ({rate(total, t_whole)}); "
+          f"{nvidia_smi_line()}")
+    print(f"[lm-ckpt] bit-equal on (2, 2) per rank "
+          f"{[r['bit_equal_2x2'] for r in reps]}; the (1, 4) restore, "
+          f"gathered, bit-equal to the saved state: {equal14}; a resumed "
+          f"step bit-equal to the live one per rank "
+          f"{[r['resumed_bit_equal'] for r in reps]} (loss "
+          f"{reps[0]['resumed_loss']:.6f}); step {step}; the whole state's "
+          f"update from the fan-in init vs the oracle's: worst leaf "
+          f"relative RMSE {worst:.3e} (bound {F32_LOGITS_REL})")
+    if not (all(r["bit_equal_2x2"] for r in reps) and equal14):
+        fail("[lm-ckpt] a restore is not bit-equal to the saved state")
+    if not all(r["resumed_bit_equal"] for r in reps):
+        fail("[lm-ckpt] the step from the restored state differs from the "
+             "step from the live state")
+    if step != 1 or not worst <= F32_LOGITS_REL:
+        fail(f"[lm-ckpt] the whole state: step {step}, update {worst:.3e} "
+             f"from the oracle's")
 
 
 def grouped_einsum_flops(cfg) -> tuple:
@@ -4370,6 +4750,10 @@ def lm_mesh(cfg, moe_cfg, dev, work: str) -> dict:
     for init in LM_MESH_TRAIN_INITS:
         lm_mesh_train_report(init, [rep[f"train_{init}"] for rep in reports],
                              names, want_train)
+    lm_ckpt_report(cfg.scaled(num_layers=LM_MESH_TRAIN_LAYERS,
+                              dtype="float32"),
+                   [rep["train_fan_in"]["ckpt"] for rep in reports],
+                   out_dir, dev)
     print(f"[lm-mesh] ranks {ranks_s:.1f} s (spawn to exit), phase "
           f"{time.perf_counter() - t_phase:.1f} s")
     launches["train"] = sum(rep[f"train_{init}"]["launches"]
@@ -4530,6 +4914,14 @@ def run(work: str) -> int:
     del trained
     torch.cuda.empty_cache()
 
+    # 27. The dry run against the card; two production cells dry-run on
+    # the host meanwhile -------------------------------------------------
+    production, launched = launch_phase(cfg, dev, work)
+    for entry in attn:
+        entry["launches_by_path"]["launch prefill and train step"] = (
+            launched if entry["name"] == "fa_fwd_bf16_kernel" else 0)
+    torch.cuda.empty_cache()
+
     # 28-30. MoE, SSM and hybrid serving (the training state is freed) ----
     moe = moe_serve(moe_cfg, dev)
     ssm = ssm_serve(get_config("mamba2_130m"), dev)
@@ -4588,6 +4980,8 @@ def run(work: str) -> int:
         print(f"[kernels] {entry['name']} launches with [lm-mesh]: "
               f"{entry['launches']}")
     entries += attn
+
+    finish_production_cells(production)
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "repro."))

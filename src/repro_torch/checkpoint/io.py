@@ -40,9 +40,17 @@ Semantics:
     writes on a background thread, keeps the newest K checkpoints, never
     deletes the last committed one, and sweeps `step_*.tmp` directories
     orphaned by a crashed writer.
-  * Sharded LM state (DTensor leaves, `parallel/sharding.py`) has no
-    checkpoint format yet: saving or restoring into it raises, naming
-    ROADMAP.md item 23.
+  * Sharded LM state: a DTensor leaf (`parallel/sharding.py`) is saved
+    as its rank's local part with the spec of its placements
+    (`sharding.spec_of`), so each rank writes only its own shards; a tree
+    that spans several ranks is saved by every rank, and by the manager
+    with `blocking=True`. Restoring into DTensor leaves of `like` (or
+    into meta leaves with `shardings=`) reads each rank's region of the
+    TARGET layout and returns DTensors laid out so: a state written on a
+    (data 2, model 2) mesh restores onto (1, 4), (4, 1) or, with plain
+    leaves, whole. A mesh axis of size 1 is Replicate() in a DTensor, so
+    the recorded spec does not name it (the layout is the same); a
+    Partial() or unevenly sharded leaf raises.
 """
 from __future__ import annotations
 
@@ -62,7 +70,7 @@ from torch.distributed.tensor import DTensor
 from ..device import resolve_device
 from ..io import shard_store
 from ..io.shard_store import HostShardedArray, StoreError
-from ..models.config import SHARDED_CHECKPOINTS, not_ported
+from ..parallel.sharding import spec_of, wrap_local
 
 PyTree = Any
 
@@ -142,10 +150,21 @@ def _leaf_spec(leaf) -> Optional[list]:
     return leaf.spec if isinstance(leaf, HostShardedArray) else None
 
 
+def _spec_json(spec) -> list:
+    return [list(e) if isinstance(e, tuple) else e for e in spec]
+
+
 def _snapshot(leaf):
-    """A host copy of one leaf (snapshots pass through)."""
-    return leaf if isinstance(leaf, HostShardedArray) else \
-        shard_store.snapshot(leaf)
+    """A host copy of one leaf (snapshots pass through); a DTensor's is its
+    rank's local part on its mesh, with its spec."""
+    if isinstance(leaf, HostShardedArray):
+        return leaf
+    if isinstance(leaf, DTensor):
+        return shard_store.snapshot(leaf.to_local(), leaf.device_mesh,
+                                    _spec_json(spec_of(
+                                        leaf.device_mesh, leaf.placements,
+                                        leaf.shape)))
+    return shard_store.snapshot(leaf)
 
 
 def _writer(flat) -> Tuple[int, int]:
@@ -155,13 +174,6 @@ def _writer(flat) -> Tuple[int, int]:
         if isinstance(leaf, HostShardedArray) and leaf.world > 1:
             return leaf.rank, leaf.world
     return 0, 1
-
-
-def _refuse_dtensors(flat) -> None:
-    """Sharded LM state (DTensor leaves) has no checkpoint format yet."""
-    if any(isinstance(leaf, DTensor) for _, leaf in flat):
-        raise not_ported("a checkpoint of DTensor leaves (sharded LM "
-                         "state)", SHARDED_CHECKPOINTS)
 
 
 def _is_rank0() -> bool:
@@ -188,18 +200,20 @@ def _sweep_orphaned_tmp(directory: str) -> List[str]:
 def save_checkpoint(directory: str, step: int, tree: PyTree) -> str:
     """Write a committed checkpoint for `tree` at `step`. Returns its path.
 
-    Leaves may be tensors (on any device; copied to the host here), numpy
-    values, or `shard_store.HostShardedArray` snapshots. When the snapshots
-    were taken on a mesh of several ranks, every rank of the default
-    process group calls this with its own snapshots: each writes its own
-    shards, other leaves are written by rank 0, and rank 0 commits after
-    a barrier.
+    Leaves may be tensors (on any device; copied to the host here),
+    DTensors (each rank's local part), numpy values, or
+    `shard_store.HostShardedArray` snapshots. When the DTensors or
+    snapshots span a mesh of several ranks, every rank of the default
+    process group calls this with its own: each writes its own shards,
+    other leaves are written by rank 0, and rank 0 commits after a
+    barrier.
     """
     path = os.path.join(directory, f"step_{step:08d}")
     tmp = path + ".tmp"
     leaves_dir = os.path.join(tmp, "leaves")
     flat, treedef = _flatten(tree)
-    _refuse_dtensors(flat)
+    flat = [(k, _snapshot(v) if isinstance(v, DTensor) else v)
+            for k, v in flat]
     rank, world = _writer(flat)
     if rank == 0:
         if os.path.exists(tmp):  # stale writer: do not inherit its files
@@ -252,20 +266,26 @@ def latest_step(directory: str) -> Optional[int]:
 
 
 def load_checkpoint(directory: str, step: int, like: PyTree, mesh=None,
-                    device="cuda") -> PyTree:
+                    device="cuda", shardings: Optional[PyTree] = None
+                    ) -> PyTree:
     """Restore into the structure of `like`, onto `device`.
 
     `like` gives the pytree structure and each leaf's GLOBAL shape (a
-    tensor, a tensor on the "meta" device, or a snapshot). Without a mesh
-    every leaf comes back whole. With `mesh=` (a DeviceMesh, which may
-    differ in shape from the mesh that wrote the checkpoint: an elastic
-    restart), a leaf whose manifest records a spec comes back as this
-    rank's region of that spec on `mesh`, and only the shard files that
-    region intersects are opened; a leaf saved without a mesh comes back
-    whole on every rank.
+    tensor, a tensor on the "meta" device, a DTensor, or a snapshot).
+
+    A DTensor leaf of `like`, or a leaf whose entry in `shardings` (a tree
+    like `like`'s, of `parallel.sharding.Sharding`s or None) is a
+    Sharding, gives the TARGET layout: the leaf comes back as a DTensor on
+    that mesh and placements, each rank reading its region of it
+    (whatever layout wrote the checkpoint), and only the shard files that
+    region intersects are opened. Otherwise, without `mesh` the leaf comes
+    back whole; with `mesh=` (a DeviceMesh, which may differ in shape
+    from the mesh that wrote the checkpoint: an elastic restart), a leaf
+    whose manifest records a spec comes back as this rank's region of
+    that spec on `mesh`, and a leaf saved without a mesh whole on every
+    rank.
     """
     dev = resolve_device(device)
-    _refuse_dtensors(_flatten(like)[0])
     path = os.path.join(directory, f"step_{step:08d}")
     mpath = os.path.join(path, "MANIFEST.json")
     if not os.path.exists(mpath):
@@ -285,13 +305,26 @@ def load_checkpoint(directory: str, step: int, like: PyTree, mesh=None,
         raise ValueError(
             f"checkpoint has {len(manifest['leaves'])} leaves, expected "
             f"{len(flat)}")
+    targets = ([None] * len(flat) if shardings is None
+               else _target_shardings(shardings, like))
     out = []
-    for (_, leaf_like), meta in zip(flat, manifest["leaves"]):
+    for (_, leaf_like), target, meta in zip(flat, targets,
+                                            manifest["leaves"]):
         leaf_dir = os.path.join(path, "leaves", meta["name"])
         if tuple(meta["shape"]) != _shape(leaf_like):
             raise ValueError(
                 f"{meta['key']}: checkpoint shape {tuple(meta['shape'])} != "
                 f"expected {_shape(leaf_like)}")
+        if isinstance(leaf_like, DTensor):
+            target = (leaf_like.device_mesh, tuple(leaf_like.placements))
+        if target is not None:
+            t_mesh, placements = target
+            shape = tuple(meta["shape"])
+            region = shard_store.mesh_region(shape, t_mesh, _spec_json(
+                spec_of(t_mesh, placements, shape)))
+            local = shard_store.read_region(leaf_dir, region).to(dev)
+            out.append(wrap_local(local, t_mesh, placements, shape))
+            continue
         if mesh is not None and meta["spec"] is not None:
             region = shard_store.mesh_region(meta["shape"], mesh,
                                              meta["spec"])
@@ -300,6 +333,19 @@ def load_checkpoint(directory: str, step: int, like: PyTree, mesh=None,
             value = shard_store.load_array(leaf_dir)
         out.append(value.to(dev))
     return _unflatten(treedef, iter(out))
+
+
+def _target_shardings(shardings: PyTree, like: PyTree) -> list:
+    """The Sharding (or None) of each leaf of `like`, in its leaf order,
+    from the tree `shardings` (a None subtree covers every leaf under
+    it)."""
+    if isinstance(like, dict):
+        return [x for k in sorted(like) for x in _target_shardings(
+            None if shardings is None else shardings[k], like[k])]
+    if isinstance(like, (list, tuple)):
+        return [x for i, v in enumerate(like) for x in _target_shardings(
+            None if shardings is None else shardings[i], v)]
+    return [] if like is None else [shardings]
 
 
 class CheckpointManager:
@@ -346,7 +392,8 @@ class CheckpointManager:
             self._thread.join()
             self._thread = None
 
-    def restore_latest(self, like: PyTree, mesh=None, device="cuda"):
+    def restore_latest(self, like: PyTree, mesh=None, device="cuda",
+                       shardings: Optional[PyTree] = None):
         """(step, tree) from the newest loadable committed checkpoint.
 
         A corrupted newest step (truncated shard, gutted manifest — any
@@ -360,7 +407,7 @@ class CheckpointManager:
         for step in reversed(committed_steps(self.directory)):
             try:
                 return step, load_checkpoint(self.directory, step, like,
-                                             mesh, device)
+                                             mesh, device, shardings)
             except StoreError as e:
                 last_err = e
                 continue

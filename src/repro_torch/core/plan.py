@@ -67,6 +67,7 @@ from typing import Callable, Dict, Literal, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 from torch.distributed.device_mesh import DeviceMesh
+from torch._guards import detect_fake_mode
 
 from ..device import resolve_device
 from ..obs.trace import get_tracer, wait_for
@@ -360,6 +361,16 @@ class ReconstructionPlan:
         non-kernel impls."""
         if self.impl != "kernel":
             return None
+        if detect_fake_mode() is not None:
+            # A dry run (launch/dryrun.py) traces on fake tensors, which
+            # the tuner cannot digest: the pinned tile, default staging.
+            if self.blocks is None:
+                raise ValueError("a dry run of impl='kernel' needs a pinned "
+                                 "tile (blocks=): the tuner reads the "
+                                 "call's matrices")
+            from ..kernels.backproject.kernel import default_stage_bytes
+            return (tuple(int(b) for b in self.blocks), default_stage_bytes(
+                self.resolved_precision().storage_dtype))
         from ..kernels.backproject import tune
         g = self.geometry
         nx_call, ny_call, np_call = self.bp_call_shape()

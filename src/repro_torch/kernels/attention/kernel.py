@@ -28,6 +28,12 @@ for bf16, 128 for f32, by 64 keys) are fixed in its source, or raises;
 `bq` and `bk` only block the plain version. `launches` counts kernel
 launches, `window_launches` those with a window.
 
+The launch is the operator `torch.ops.repro_torch.flash_attention_fwd`
+(`flash_attention_fwd`): on fake tensors (a dry run, `launch/dryrun.py`)
+its fake implementation gives the output's shape and dtype and launches
+nothing, and `torch.utils.flop_counter` counts it by
+`attention_flops`.
+
 The kernel's output is written through ctypes, outside autograd. So on the
 card the wrapper raises when grad is enabled and q, k or v requires grad:
 under autograd the kernel runs only through the `ops.FlashAttention`
@@ -41,7 +47,9 @@ from pathlib import Path
 from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
+from ...device import on_card
 from ..build import CudaLibrary
 
 LIBRARY = CudaLibrary(
@@ -157,10 +165,11 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tensors on the card, the plain torch version (blocked by bq x bk) for
     tensors on the CPU. `window` (causal, Sq == Sk): key j visible to query
     i iff i - window < j <= i; None for the causal mask alone."""
-    group = _check(q, k, v, causal, window)
-    if q.device.type == "cpu":
-        return flash_attention_bhsd_torch(q, k, v, bq, bk, causal, window)
-    if q.device.type != "cuda":
+    _check(q, k, v, causal, window)
+    if not on_card(q):
+        if q.device.type == "cpu":
+            return flash_attention_bhsd_torch(q, k, v, bq, bk, causal,
+                                              window)
         raise ValueError(f"no flash-attention kernel for device {q.device}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
@@ -169,24 +178,64 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             "autograd, so its result would carry no gradient; under autograd "
             "call kernels.attention.flash_attention_trainable (the "
             "FlashAttention autograd Function), or run under torch.no_grad()")
-    bh, sq, d = q.shape
+    d = q.shape[2]
     if d % 4 or not 4 <= d <= MAX_HEAD_DIM:
         raise ValueError(f"the kernel takes head dims that are multiples of "
                          f"4 up to {MAX_HEAD_DIM}, got {d}")
+    return flash_attention_fwd(q, k, v, causal, int(window or 0))
+
+
+@torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=(),
+                         device_types="cuda")
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool, window: int) -> torch.Tensor:
+    """The kernel's launch as a PyTorch operator (checked operands, window
+    0 for none): a fake tensor gets its output's shape and dtype from the
+    fake implementation below, without the library, and a FlopCounterMode
+    the count of `attention_flops`."""
     global launches, window_launches
     lib = _bound_library()
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    bh, sq, d = q.shape
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.fa_fwd_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                               out.data_ptr(), bh, group, sq, k.shape[1], d,
-                               1.0 / math.sqrt(d), int(causal),
-                               int(window or 0), DTYPES[q.dtype], stream)
+                               out.data_ptr(), bh, bh // k.shape[0], sq,
+                               k.shape[1], d, 1.0 / math.sqrt(d), int(causal),
+                               window, DTYPES[q.dtype], stream)
     if rc != 0:
         raise RuntimeError(
             f"flash-attention kernel launch failed: "
             f"{lib.fa_error_string(rc).decode()} (cudaError {rc})")
     launches += 1
-    window_launches += window is not None
+    window_launches += window > 0
     return out
+
+
+@flash_attention_fwd.register_fake
+def _(q, k, v, causal, window):
+    return torch.empty_like(q, memory_format=torch.contiguous_format)
+
+
+def attention_flops(bh: int, sq: int, sk: int, d: int, causal: bool = True,
+                    window: Optional[int] = None) -> int:
+    """The products the attention function needs over BH folded rows, 2 D
+    operations each for q.k and for p.v per (query, visible key) pair:
+    query i sees keys 0..i when causal (min(i + 1, W) of them with a
+    window W), all Sk keys otherwise."""
+    if not causal:
+        pairs = sq * sk
+    elif window:
+        w = min(window, sq)
+        pairs = w * (w + 1) // 2 + (sq - w) * w
+    else:
+        pairs = sq * (sq + 1) // 2
+    return 4 * d * pairs * bh
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_fwd)
+def _(q_shape, k_shape, v_shape, causal, window, *args, out_shape=None,
+      **kwargs) -> int:
+    bh, sq, d = q_shape
+    return attention_flops(bh, sq, k_shape[1], d, causal, window)

@@ -32,6 +32,12 @@ card: the tuner (tune.py) ranks launch shapes with them.
 with the kernel's arithmetic in the kernel's order; `backproject_dual`
 takes it only for tensors on the CPU. For a CUDA tensor it launches the
 kernel or raises. `launches` counts kernel launches.
+
+The launch is the operator `torch.ops.repro_torch.backproject_dual_launch`
+(`backproject_dual_launch`): on fake tensors (a dry run,
+`launch/dryrun.py`) its fake implementation gives the output's shape and
+launches nothing, and `torch.utils.flop_counter` counts it by
+`backproject_ops`.
 """
 from __future__ import annotations
 
@@ -41,7 +47,9 @@ from pathlib import Path
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
+from ...device import on_card
 from ..build import CudaLibrary
 
 LIBRARY = CudaLibrary(
@@ -66,6 +74,16 @@ WARPS = 8         # warps per block (kWarps)
 PREP = 2          # projections whose terms and boxes are made at once
 # The default staging budget in Q^T pixels, both buffers (kStagePixels).
 STAGE_PIXELS = 26 * 1024
+# f32 operations the back-projection needs (a multiply-add counts 2). Per
+# voxel column (i, j) and projection, the Theorem 2/3 invariants: x0, y0,
+# z (4 each), 1/z, u = x0/z, w = s/z^2 (2), floor(u), its fraction and
+# complement (3), and v(k) = a + b k's a = y0/z and b = p6/z (1 each): 21.
+# Per mirrored pair (i, j, k < nz/2) whose gathers touch the detector:
+# v(k) (2), the mirror v~ (1), two 4-tap gathers at 14 (floor(v),
+# fraction, complement, 4 tap weights, 4 tap products, 3 sums) and two
+# weighted accumulates (2 each): 35.
+COLUMN_OPS = 21
+PAIR_OPS = 35
 
 launches = 0  # kernel launches by backproject_dual (never by the plain path)
 # (tile, projection) pairs of the last launch whose boxes exceeded the
@@ -440,14 +458,33 @@ def backproject_dual(params13: torch.Tensor, qt: torch.Tensor,
     t_index = _tile_index(t)
     if stage_bytes is not None and stage_bytes < 0:
         raise ValueError(f"stage_bytes must be >= 0, got {stage_bytes}")
-    if qt.device.type == "cpu":
-        return backproject_dual_torch(params13, qt, nx, ny, nz)
-    if qt.device.type != "cuda":
+    if not on_card(qt):
+        if qt.device.type == "cpu":
+            return backproject_dual_torch(params13, qt, nx, ny, nz)
         raise ValueError(f"no back-projection kernel for device {qt.device}")
-    global launches, direct_pairs, tile_pairs
+    global direct_pairs, tile_pairs
+    out, direct_pairs = backproject_dual_launch(
+        params13.contiguous(), qt.contiguous(), nx, ny, nz, t_index,
+        -1 if stage_bytes is None else stage_bytes)
+    tile_pairs = qt.shape[0] * math.prod(-(-n // d) for n, d in
+                                         zip((nx, ny, nz // 2), t))
+    return out
+
+
+@torch.library.custom_op("repro_torch::backproject_dual_launch",
+                         mutates_args=(), device_types="cuda")
+def backproject_dual_launch(params13: torch.Tensor, qt: torch.Tensor,
+                            nx: int, ny: int, nz: int, tile_index: int,
+                            stage_bytes: int
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's launch as a PyTorch operator (checked, contiguous
+    operands; stage_bytes -1 for the source's default): the volume, and
+    the count of directly gathered (tile, projection) pairs as a 1-element
+    int64 tensor. A fake tensor gets both shapes from the fake
+    implementation below, without the library, and a FlopCounterMode the
+    count of `backproject_ops`."""
+    global launches
     lib = _bound_library()
-    params13 = params13.contiguous()
-    qt = qt.contiguous()
     n_p, nu, nv = qt.shape
     out = torch.empty((nx, ny, 2, nz // 2), dtype=torch.float32,
                       device=qt.device)
@@ -456,16 +493,34 @@ def backproject_dual(params13: torch.Tensor, qt: torch.Tensor,
         stream = torch.cuda.current_stream(qt.device).cuda_stream
         rc = lib.bp_dual_launch(params13.data_ptr(), qt.data_ptr(),
                                 out.data_ptr(), n_p, nu, nv, nx, ny, nz // 2,
-                                WIRE_DTYPES[qt.dtype], t_index,
-                                -1 if stage_bytes is None else stage_bytes,
-                                count.data_ptr(), stream)
+                                WIRE_DTYPES[qt.dtype], tile_index,
+                                stage_bytes, count.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(
-            f"back-projection kernel launch failed (tile {t}, stage_bytes "
-            f"{stage_bytes}): {lib.bp_error_string(rc).decode()} "
-            f"(cudaError {rc})")
+            f"back-projection kernel launch failed (tile "
+            f"{TILES[tile_index]}, stage_bytes {stage_bytes}): "
+            f"{lib.bp_error_string(rc).decode()} (cudaError {rc})")
     launches += 1
-    direct_pairs = count
-    tile_pairs = n_p * math.prod(-(-n // d) for n, d in
-                                 zip((nx, ny, nz // 2), t))
-    return out
+    return out, count
+
+
+@backproject_dual_launch.register_fake
+def _(params13, qt, nx, ny, nz, tile_index, stage_bytes):
+    return (qt.new_empty((nx, ny, 2, nz // 2), dtype=torch.float32),
+            qt.new_empty((1,), dtype=torch.int64))
+
+
+def backproject_ops(n_p: int, nx: int, ny: int, nz: int) -> int:
+    """f32 operations of one back-projection, counted as the operations
+    bound counts them: COLUMN_OPS per voxel column and projection, and
+    PAIR_OPS per mirrored pair (i, j, k < nz/2) and projection. Every pair
+    is counted as touching the detector, so this is an upper count: a
+    pair whose gathers all fall outside the detector needs only its
+    column's terms."""
+    return n_p * nx * ny * (COLUMN_OPS + PAIR_OPS * (nz // 2))
+
+
+@register_flop_formula(torch.ops.repro_torch.backproject_dual_launch)
+def _(params13_shape, qt_shape, nx, ny, nz, *args, out_shape=None,
+      **kwargs) -> int:
+    return backproject_ops(qt_shape[0], nx, ny, nz)

@@ -6,8 +6,7 @@ arranged as repeats of a block pattern (tuple of SubLayer descriptors).
 The port serves and trains every reference architecture: attention
 (with an optional sliding window), MoE and Mamba-2 (SSD) patterns, the
 hybrid Jamba stack, and the vision and audio frontends, with or without
-sharding rules. What is not ported yet raises NotImplementedError naming
-its ROADMAP.md item (`not_ported`).
+sharding rules.
 """
 from __future__ import annotations
 
@@ -16,16 +15,6 @@ from typing import Literal, Optional, Tuple
 
 Kind = Literal["attn", "ssm"]
 Ffn = Literal["mlp", "moe", "none"]
-
-# The ROADMAP.md Queue 1 item that brings back what the port leaves out.
-SHARDED_CHECKPOINTS = ("ROADMAP.md Queue 1 item 23 (checkpoints of "
-                       "sharded LM state)")
-
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet; see {item}")
-
 
 @dataclasses.dataclass(frozen=True)
 class SubLayer:

@@ -35,7 +35,9 @@ import torch
 import torch.nn.functional as F
 
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch._subclasses.fake_tensor import is_fake
 
+from ..device import on_card
 from ..kernels.attention import flash_attention, flash_attention_trainable
 from ..parallel.sharding import local_bounds, reshard, settled, wrap_local
 from .config import ModelConfig
@@ -234,13 +236,14 @@ def prefill_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     with a window i - W < j), so on the card every row of `positions` must
     be 0..S-1, as `prefill` and `loss_fn` give them; checking that costs
     one host sync, which a caller that built them with arange skips with
-    `check_positions=False`. The window is `kernel_window(cfg, S)`.
+    `check_positions=False`, and a dry run's fake tensors skip (they
+    hold no values). The window is `kernel_window(cfg, S)`.
     """
-    if q.device.type != "cuda":
+    if not on_card(q):
         return prefill_attention_plain(cfg, q, k, v, positions)
     s = q.shape[1]
     window = kernel_window(cfg, s)
-    if check_positions and not bool(
+    if check_positions and not is_fake(positions) and not bool(
             (positions == torch.arange(s, device=positions.device)).all()):
         raise ValueError("the flash-attention kernel masks by index: "
                          "positions must be 0..S-1 in every row")

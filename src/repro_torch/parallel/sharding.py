@@ -116,6 +116,42 @@ def placements_for(mesh, spec) -> Tuple[Placement, ...]:
                  for n, p in zip(names, out))
 
 
+def spec_of(mesh, placements, shape) -> PartitionSpec:
+    """The spec of a layout (a DTensor's mesh, or an AbstractMesh, its
+    placements and global shape), the inverse of `placements_for`: one
+    entry per tensor dim, None, a mesh axis name, or a tuple of names in
+    the mesh's order (the order in which DTensor cuts a dim over several
+    mesh dims). A mesh dim of size 1 is Replicate() in `placements_for`,
+    so a spec read back names no such axis: the layout is the same either
+    way, each rank holding the whole dim. Raises ValueError on a Partial()
+    placement (the values are partial sums, not a layout) and on a dim
+    that does not divide evenly over its mesh dims (its local parts
+    differ in size, which `shard_store.snapshot` cannot describe)."""
+    shape = tuple(shape)
+    sizes = mesh_axes(mesh)
+    names = list(sizes)
+    axes: List[List[str]] = [[] for _ in shape]
+    for i, pl in enumerate(placements):
+        if pl.is_partial():
+            raise ValueError(
+                f"a DTensor with placements {tuple(placements)} holds "
+                f"partial sums on mesh axis {names[i]!r}, not a layout; "
+                "reduce it first (sharding.settled)")
+        if pl.is_shard():
+            if type(pl) is not Shard:
+                raise ValueError(f"placement {pl} on mesh axis "
+                                 f"{names[i]!r} is not a plain Shard")
+            axes[pl.dim].append(names[i])
+    for dim, names_d in enumerate(axes):
+        parts = math.prod(sizes[a] for a in names_d)
+        if shape[dim] % parts:
+            raise ValueError(
+                f"dim {dim} of {shape} does not divide evenly over mesh "
+                f"axes {names_d} ({parts} ranks): uneven local shards")
+    return P(*(None if not a else a[0] if len(a) == 1 else tuple(a)
+               for a in axes))
+
+
 def reshard(x: DTensor, placements) -> DTensor:
     """`x` redistributed to `placements`, in up to three steps: the
     Partial mesh dims are reduced first (all-reduce or reduce-scatter),
@@ -201,7 +237,11 @@ class ShardingRules:
         moved to another dim, and a mesh axis shards at most one dim."""
         if self.mesh is None:
             return P(*(None,) * len(shape))
-        entries = [self.axes(lg) for lg in logical]
+        return self._fit(shape, [self.axes(lg) for lg in logical])
+
+    def _fit(self, shape, entries) -> PartitionSpec:
+        """`entries` (mesh axes per dim) with the axes that do not divide
+        their dim dropped, trailing first, and none used twice."""
         out = [None] * len(shape)
         used = set()
         for i, ax in enumerate(entries):
@@ -232,10 +272,15 @@ class ShardingRules:
             self.mesh, self.spec_for_shape(x.shape, *logical)))
 
     def constrain_p(self, x, spec):
-        """Explicit-spec constraint (the MoE reshards)."""
+        """Explicit-spec constraint (the MoE reshards), shape-aware as
+        `constrain` is: an axis that does not divide its dim is dropped
+        (GSPMD would pad it; DTensor's view rules refuse the uneven
+        layout, e.g. a decode batch of one over a data axis of two)."""
         if self.mesh is None or not isinstance(x, DTensor):
             return x
-        return reshard(x, placements_for(self.mesh, spec))
+        spec = tuple(spec) + (None,) * (x.ndim - len(spec))
+        return reshard(x, placements_for(self.mesh,
+                                         self._fit(x.shape, spec)))
 
     def tp_size(self) -> int:
         ax = self.axes("tp") if self.mesh is not None else None

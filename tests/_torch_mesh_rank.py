@@ -263,14 +263,15 @@ def lm(rank: int, world: int, init_file: str, work: str) -> None:
     WORK/collectives_in.npy through `hierarchical_psum`,
     `hierarchical_psum_scatter` and `psum_tree`, every rank writing
     WORK/port_collectives_<rank>.npz. WORK/lm_<rank>.json records the local
-    shapes of the sharded weights and the error a sharded checkpoint
-    raises, the (token, choice) pairs the MoE's capacity dropped in the
+    shapes of the sharded weights, whether the trained state comes back
+    bit-equal from a checkpoint (saved by every rank to WORK/ckpt_<ARCH>,
+    restored onto the same layout), the (token, choice) pairs the MoE's capacity dropped in the
     prefill, over all ranks, and whether DTensor's collectives were
     rerouted (only a CUDA mesh over gloo
     reroutes them)."""
     import torch.distributed._functional_collectives as funcol
 
-    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import moe as M
     from repro_torch.models import transformer as T
@@ -353,11 +354,18 @@ def lm(rank: int, world: int, init_file: str, work: str) -> None:
                         _flatten(new.params, "trained").items()})
             out.update({k: full(v) for k, v in
                         _flatten(new.opt.mu, "mu").items()})
-            try:
-                save_checkpoint(os.path.join(work, f"ckpt_{rank}"), 0,
-                                {"w": _leaves(new.params)[0]})
-            except NotImplementedError as e:
-                report[arch]["checkpoint"] = str(e)
+            ckpt = os.path.join(work, f"ckpt_{arch}")
+            save_checkpoint(ckpt, 0, new)
+            back = load_checkpoint(ckpt, 0, new, device="cpu")
+            report[arch]["checkpoint"] = {
+                "leaves": len(_leaves(new.params)),
+                "bit_equal": all(
+                    torch.equal(a.to_local(), b.to_local()) for a, b in
+                    zip(_leaves(back.params) + _leaves(back.opt.mu)
+                        + _leaves(back.opt.nu),
+                        _leaves(new.params) + _leaves(new.opt.mu)
+                        + _leaves(new.opt.nu)))
+                and torch.equal(back.opt.step, new.opt.step)}
             if rank == 0:
                 np.savez(os.path.join(work, f"port_{arch}.npz"),
                          **{k: v.numpy() for k, v in out.items()})

@@ -1,0 +1,126 @@
+"""The kernels' launch operators on fake tensors (no card needed).
+
+`kernels/attention/kernel.py::flash_attention_fwd` and
+`kernels/backproject/kernel.py::backproject_dual_launch` are PyTorch
+operators whose fake implementations give the output's shape and dtype,
+and whose FLOPs `torch.utils.flop_counter` counts by the kernels' own
+formulas. The wrappers take them for fake CUDA tensors, and for fake CPU
+tensors inside `device.fake_card()` (the dry run's); neither touches the
+library, and `launches` counts real launches only. Real CPU tensors still
+run the plain versions.
+"""
+import math
+
+import pytest
+import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.utils.flop_counter import FlopCounterMode
+
+from repro_torch.device import fake_card, on_card
+from repro_torch.kernels.attention import kernel as fak
+from repro_torch.kernels.backproject import kernel as bpk
+
+BH, GROUP, S, D = 8, 4, 96, 32
+
+
+def attention_flops_by_pairs(bh, sq, sk, d, causal, window):
+    """4 D operations per (query, visible key) pair, counted pair by
+    pair: the formula's definition, independent of its closed form."""
+    pairs = 0
+    for i in range(sq):
+        if not causal:
+            pairs += sk
+        else:
+            lo = 0 if window is None else max(0, i - window + 1)
+            pairs += i + 1 - lo
+    return 4 * d * pairs * bh
+
+
+@pytest.mark.parametrize("device", ["cuda", "cpu"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("window", [None, 40])
+def test_attention_operator_on_fake_tensors(device, dtype, window):
+    """Shape, dtype and device of the output; the registered count, in
+    FlopCounterMode's total, equal to the pair-by-pair count; no launch
+    counted; the library never loaded."""
+    before = (fak.launches, fak.window_launches, fak.LIBRARY._lib)
+    with FakeTensorMode(), fake_card():
+        q = torch.empty(BH, S, D, dtype=dtype, device=device)
+        kv = torch.empty(BH // GROUP, S, D, dtype=dtype, device=device)
+        with FlopCounterMode(display=False) as fc:
+            out = fak.flash_attention_bhsd(q, kv, kv, window=window)
+    assert out.shape == q.shape and out.dtype == dtype
+    assert out.device.type == device
+    want = attention_flops_by_pairs(BH, S, S, D, True, window)
+    assert fc.get_total_flops() == want
+    assert fak.attention_flops(BH, S, S, D, True, window) == want
+    assert (fak.launches, fak.window_launches, fak.LIBRARY._lib) == before
+
+
+def test_attention_formula_matches_the_smoke_script():
+    """The causal count is the smoke script's causal_attention_flops
+    (4 D S (S + 1) / 2 per row), the windowed one its windowed_flops
+    (4 D (W (W + 1) / 2 + (S - W) W)), and the unmasked 4 D Sq Sk."""
+    b, h, s, d, w = 2, 3, 70, 16, 9
+    assert fak.attention_flops(b * h, s, s, d) == 4 * d * s * (s + 1) / 2 \
+        * b * h
+    assert fak.attention_flops(b * h, s, s, d, window=w) == \
+        4 * d * (w * (w + 1) // 2 + (s - w) * w) * b * h
+    assert fak.attention_flops(b * h, s, 50, d, causal=False) == \
+        attention_flops_by_pairs(b * h, s, 50, d, False, None)
+
+
+@pytest.mark.parametrize("device", ["cuda", "cpu"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.float8_e4m3fn])
+def test_backprojection_operator_on_fake_tensors(device, dtype):
+    """The dual-slab volume's shape in f32; the registered count (every
+    mirrored pair counted as touching the detector); `tile_pairs` set,
+    `launches` and the library untouched."""
+    n_p, nu, nv, nx, ny, nz = 6, 40, 24, 16, 12, 20
+    before = (bpk.launches, bpk._BOUND)
+    with FakeTensorMode(), fake_card():
+        params = torch.empty(n_p, 13, device=device)
+        qt = torch.empty(n_p, nu, nv, dtype=dtype, device=device)
+        with FlopCounterMode(display=False) as fc:
+            vol = bpk.backproject_dual(params, qt, nx, ny, nz,
+                                       tile=(16, 8, 32))
+    assert vol.shape == (nx, ny, 2, nz // 2) and vol.dtype == torch.float32
+    assert vol.device.type == device
+    want = n_p * nx * ny * (21 + 35 * (nz // 2))
+    assert bpk.backproject_ops(n_p, nx, ny, nz) == want
+    assert fc.get_total_flops() == want
+    assert (bpk.launches, bpk._BOUND) == before
+    assert bpk.tile_pairs == n_p * math.ceil(nx / 16) * math.ceil(ny / 8) \
+        * math.ceil(nz // 2 / 32)
+
+
+def test_real_cpu_tensors_run_the_plain_versions():
+    """Outside a dry run, and for real tensors inside one, the wrappers
+    run the plain versions; the operators have no CPU kernel."""
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(4, 10, 8, generator=g)
+    kv = torch.randn(2, 10, 8, generator=g)
+    with fake_card():
+        assert not on_card(q)
+        got = fak.flash_attention_bhsd(q, kv, kv)
+    torch.testing.assert_close(
+        got, fak.flash_attention_bhsd_torch(q, kv, kv), rtol=0, atol=0)
+    with pytest.raises(NotImplementedError):
+        fak.flash_attention_fwd(q, kv, kv, True, 0)
+    with FakeTensorMode():
+        fake = torch.empty(3)
+    assert not on_card(fake)
+    with fake_card():
+        assert on_card(fake)
+    assert not on_card(fake)
+
+
+def test_raise_under_autograd_stays():
+    """On the card's branch the raw wrapper still refuses operands that
+    require grad (its output is written outside autograd)."""
+    with FakeTensorMode(), fake_card():
+        q = torch.empty(4, 8, 16, requires_grad=True)
+        kv = torch.empty(2, 8, 16)
+        with pytest.raises(RuntimeError, match="flash_attention_trainable"):
+            fak.flash_attention_bhsd(q, kv, kv)
