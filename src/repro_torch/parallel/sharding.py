@@ -237,11 +237,7 @@ class ShardingRules:
         moved to another dim, and a mesh axis shards at most one dim."""
         if self.mesh is None:
             return P(*(None,) * len(shape))
-        return self._fit(shape, [self.axes(lg) for lg in logical])
-
-    def _fit(self, shape, entries) -> PartitionSpec:
-        """`entries` (mesh axes per dim) with the axes that do not divide
-        their dim dropped, trailing first, and none used twice."""
+        entries = [self.axes(lg) for lg in logical]
         out = [None] * len(shape)
         used = set()
         for i, ax in enumerate(entries):
@@ -272,15 +268,22 @@ class ShardingRules:
             self.mesh, self.spec_for_shape(x.shape, *logical)))
 
     def constrain_p(self, x, spec):
-        """Explicit-spec constraint (the MoE reshards), shape-aware as
-        `constrain` is: an axis that does not divide its dim is dropped
-        (GSPMD would pad it; DTensor's view rules refuse the uneven
-        layout, e.g. a decode batch of one over a data axis of two)."""
+        """Explicit-spec constraint (the MoE reshards). A dim split over
+        more ranks than it has entries (a decode batch of one over a data
+        axis of two) drops its trailing axes until none is left empty:
+        GSPMD pads such a dim, and DTensor's view rules refuse the empty
+        shards. A dim that splits unevenly but gives every rank some (60
+        experts over 8) keeps its axes, as the reference's does."""
         if self.mesh is None or not isinstance(x, DTensor):
             return x
-        spec = tuple(spec) + (None,) * (x.ndim - len(spec))
-        return reshard(x, placements_for(self.mesh,
-                                         self._fit(x.shape, spec)))
+        fitted = []
+        for n, entry in zip(x.shape, tuple(spec) + (None,) * x.ndim):
+            axes = (() if entry is None else (entry,)
+                    if isinstance(entry, str) else tuple(entry))
+            while axes and self._axis_size(axes) > n:
+                axes = axes[:-1]
+            fitted.append(axes[0] if len(axes) == 1 else axes or None)
+        return reshard(x, placements_for(self.mesh, P(*fitted)))
 
     def tp_size(self) -> int:
         ax = self.axes("tp") if self.mesh is not None else None

@@ -194,9 +194,9 @@ def test_cli_dry_runs_the_paper_cell_on_both_production_meshes(tmp_path):
 def test_long_context_decode_cells_trace(arch):
     """long_500k's layout at smoke size (a batch of one, the cache's
     sequence over the data axis) on a fake (2, 2) world. The MoE's
-    explicit reshards put the batch of one over the data axis of two, an
-    uneven layout DTensor's view rules refused, until `constrain_p`
-    dropped an axis that does not divide its dim."""
+    explicit reshards put the batch of one over the data axis of two,
+    leaving a rank none of it, which DTensor's view rules refused, until
+    `constrain_p` dropped the axes that would leave a rank empty."""
     info = dict(kind="decode", seq=64, batch=1, long=True)
     row = D.run_cell(arch, "long_500k", False, verbose=False,
                      cfg=get_smoke_config(arch), shape_info=info, **SMALL)
