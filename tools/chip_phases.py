@@ -1,7 +1,7 @@
 """`chip_smoke.py`'s `[launch]` and `[lm-mesh]` (with `[lm-ckpt]`) alone,
 after the card tests: the quick check of those phases on the card.
 
-    chiprun --timeout 900 -- python3 tools/chip_phases.py
+    python3 tools/chip_phases.py  # one H100, about 15 minutes
 
 Builds both kernel libraries (one nvcc each, at once), runs the card
 tests (`pytest --noconftest -m gpu tests/test_torch_gpu.py`), then
