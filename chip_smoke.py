@@ -352,7 +352,17 @@ Phases, in order; any failure exits non-zero:
    gradient and update within F32_LOGITS_REL relative RMSE, and two
    controls, an unchanged state and one leaf's gradient halved, past
    that bound. Prints times, the drop share and the grouped einsums'
-   operations against the expert GEMMs'.
+   operations against the expert GEMMs'. Each rank is fed only its dp
+   rows of every input (the prompts, the teacher-forced ids, the train
+   batch: 2 of 4 rows, cut locally as the rules lay a batch out) and
+   reports their local shapes, gated. Each rank measures its peak memory
+   (`torch.cuda.max_memory_allocated()`) over its bf16 Qwen2-1.5B
+   prefill and over each train step, as the peak above what it held
+   before the call plus the call's inputs (its weight or state parts and
+   its rows); meanwhile this process dry-runs the same two cells on a
+   fake (2, 2) world (`launch.dryrun.run_cell`, ShardingRules as the
+   ranks use them), and each rank's peaks are gated within
+   LAUNCH_MEM_BAND of the dry run's prediction.
    [lm-ckpt], in the same ranks after the fan-in train step: every rank
    saves its share of the trained f32 TrainState (DTensor leaves) to one
    checkpoint, restores it onto the (2, 2) mesh (gated bit-equal, leaf
@@ -2172,15 +2182,23 @@ def mesh_traced(g, proj, mesh) -> int:
 
 
 def spawn_ranks(world: int, work: str, deadline: float,
-                flag: str = "--mesh-rank") -> list:
+                flag: str = "--mesh-rank", meanwhile=None) -> list:
     """Run `world` copies of this script as ranks of a mesh phase (`flag
-    RANK WORLD WORK`); returns (exit code, output tail, report or None)
-    per rank. A rank past the deadline is killed."""
+    RANK WORLD WORK`), and `meanwhile()` in this process while they run;
+    returns (exit code, output tail, report or None) per rank. A rank
+    past the deadline is killed."""
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), flag, str(r),
          str(world), work],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for r in range(world)]
+    try:
+        if meanwhile is not None:
+            meanwhile()
+    except BaseException:
+        for p in procs:
+            p.kill()
+        raise
     results = []
     end = time.perf_counter() + deadline
     for r, p in enumerate(procs):
@@ -4042,12 +4060,37 @@ def train_batch(cfg, dev) -> dict:
     return {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
 
 
+def dp_rows(t, rules):
+    """This rank's dp rows of the whole batch entry `t`, cut locally and
+    laid out as the rules lay a batch out (a DTensor)."""
+    from repro_torch.parallel.sharding import shard_tensor
+
+    return shard_tensor(t, rules.sharding_for_shape(
+        t.shape, "dp", *(None,) * (t.ndim - 1)), t.device)
+
+
+def local_bytes(tree) -> int:
+    """The bytes of this rank's parts of every tensor leaf of `tree`."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(tree, dict):
+        return sum(local_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(local_bytes(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        t = tree.to_local() if isinstance(tree, DTensor) else tree
+        return t.numel() * t.element_size()
+    return 0
+
+
 def serve_path(cfg, params, prompt, forced, rules, dev) -> dict:
     """The serving traffic of [lm-mesh], on one process or on each rank:
     the f32 copy's prefill (kernel launches, logits, the MoE's drops per
     layer) and its decode teacher-forced on `forced`; greedy_generate in
-    bf16 (launches, ids, seconds) and a timed bf16 prefill. Every tensor
-    returned is whole (gathered) and on the host."""
+    bf16 (launches, ids, seconds) and a timed bf16 prefill, with its peak
+    memory above what was allocated before it (`prefill_extra`, bytes).
+    Every tensor returned is whole (gathered) and on the host."""
     import torch
     import torch.distributed as dist
 
@@ -4098,10 +4141,15 @@ def serve_path(cfg, params, prompt, forced, rules, dev) -> dict:
     out["bf16_launches"] = fak.launches
     out["ids"] = ids.cpu()
     barrier()
+    sync()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     logits, _ = T.prefill(params, cfg, prompt, rules)
     sync()
     out["bf16_prefill_s"] = time.perf_counter() - t0
+    out["prefill_max"] = torch.cuda.max_memory_allocated()
+    out["prefill_extra"] = out["prefill_max"] - before
     out["prefill16"] = full(logits).float().cpu()
     return out
 
@@ -4177,16 +4225,18 @@ def lm_mesh_oracles(cfg, moe_cfg, dev, out_dir: str) -> dict:
 def step_grads(params, cfg, batch, rules) -> list:
     """The gradients a train step takes (make_train_step's, in
     `_leaves` order): loss_and_grads of each of the TRAIN_MICROBATCHES
-    slices, laid out like its param (this rank's part under rules),
+    slices of the whole batch (gathered, as the step gathers a batch laid
+    out over dp), laid out like its param (this rank's part under rules),
     summed in f32 and divided by their count."""
     import torch
 
     from repro_torch.optim.adamw import _leaves, local_part
+    from repro_torch.parallel.sharding import full
     from repro_torch.training import loss_and_grads
 
     n, total = TRAIN_MICROBATCHES, None
     for m in range(n):
-        mb = {k: v.reshape(n, v.shape[0] // n, *v.shape[1:])[m]
+        mb = {k: full(v).reshape(n, v.shape[0] // n, *v.shape[1:])[m]
               for k, v in batch.items()}
         _, grads = loss_and_grads(params, cfg, mb, rules)
         grads = [local_part(g, p).float() for g, p in
@@ -4251,7 +4301,6 @@ def lm_mesh_rank(rank: int, world: int, work: str) -> None:
     from repro_torch.configs import get_config
     from repro_torch.kernels.attention import kernel as fak
     from repro_torch.models import transformer as T
-    from repro_torch.optim.adamw import _leaves
     from repro_torch.parallel.mesh import make_mesh
     from repro_torch.parallel.sharding import ShardingRules, full
 
@@ -4271,8 +4320,15 @@ def lm_mesh_rank(rank: int, world: int, work: str) -> None:
         serve = ShardingRules(mesh=mesh, fsdp=False)
         cfg, moe_cfg = (get_config("qwen2_1_5b"),
                         get_config("qwen2_moe_a2_7b"))
-        prompt = {"tokens": serving_prompts(cfg, dev)}
-        forced = torch.load(os.path.join(out_dir, "forced.pt")).to(dev)
+        # each rank is fed only its dp rows of the same inputs
+        prompt = {"tokens": dp_rows(serving_prompts(cfg, dev), serve)}
+        forced = dp_rows(torch.load(os.path.join(out_dir, "forced.pt"))
+                         .to(dev), serve)
+        report["rows"] = {"prompt": list(prompt["tokens"].to_local().shape),
+                          "forced": list(forced.to_local().shape)}
+        print(f"[lm-mesh] rank {rank} fed its dp rows: prompt ids "
+              f"{report['rows']['prompt']}, teacher-forced ids "
+              f"{report['rows']['forced']}", flush=True)
         for name, mcfg, _ in lm_mesh_models(cfg, moe_cfg):
             t0 = time.perf_counter()
             params = T.init_params(mcfg, SEED, dev, rules=serve)
@@ -4280,8 +4336,14 @@ def lm_mesh_rank(rank: int, world: int, work: str) -> None:
             init_s = time.perf_counter() - t0
             got = serve_path(mcfg, params, prompt, forced, serve, dev)
             got["init_s"] = init_s
-            got["local_gib"] = sum(p.to_local().numel() * 4 for p in
-                                   _leaves(params)) / 2**30
+            got["prefill_peak"] = got["prefill_extra"] + local_bytes(
+                [params, prompt])
+            print(f"[lm-mesh] rank {rank} {name} bf16 prefill: "
+                  f"max_memory_allocated {got['prefill_max'] / 1e9:.3f} GB,"
+                  f" {got['prefill_extra'] / 1e9:.3f} GB above its entry; "
+                  f"with its inputs {got['prefill_peak'] / 1e9:.3f} GB",
+                  flush=True)
+            got["local_gib"] = local_bytes(params) / 2**30
             fan_in_scaled(params, mcfg)
             got["fan16"] = full(T.prefill(params, mcfg, prompt, serve)[0]
                                 ).float().cpu()
@@ -4320,7 +4382,10 @@ def lm_mesh_rank(rank: int, world: int, work: str) -> None:
         train = ShardingRules(mesh=mesh)
         tcfg = get_config("qwen2_1_5b").scaled(
             num_layers=LM_MESH_TRAIN_LAYERS, dtype="float32")
-        batch = train_batch(tcfg, dev)
+        batch = {k: dp_rows(v, train)
+                 for k, v in train_batch(tcfg, dev).items()}
+        report["rows"]["train"] = {k: list(v.to_local().shape)
+                                   for k, v in batch.items()}
         for init in LM_MESH_TRAIN_INITS:
             report[f"train_{init}"] = lm_mesh_train_rank(
                 tcfg, train, batch, init, out_dir, dev)
@@ -4369,14 +4434,21 @@ def lm_mesh_train_rank(tcfg, rules, batch, init: str, out_dir: str,
                            warmup=TRAIN_WARMUP, total_steps=TRAIN_TOTAL)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    inputs = local_bytes([state, batch])
     dist.barrier()
     fak.launches = 0
     t0 = time.perf_counter()
     new, metrics = step(state, batch)
     torch.cuda.synchronize()
+    top = torch.cuda.max_memory_allocated()
     rep = {"step_s": time.perf_counter() - t0, "launches": fak.launches,
-           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "peak_gib": top / 2**30, "peak": top - before + inputs,
            "metrics": {k: float(v) for k, v in metrics.items()}}
+    print(f"[lm-mesh] rank {dist.get_rank()} train step at the {init} init: "
+          f"max_memory_allocated {top / 1e9:.3f} GB, "
+          f"{(top - before) / 1e9:.3f} GB above its entry; with its inputs "
+          f"{rep['peak'] / 1e9:.3f} GB", flush=True)
     update = [p.to_local().detach() - o if k else None
               for p, o, k in zip(_leaves(new.params), old, keep)]
     sums = [leaf_sums([g if k else None for g, k in zip(grads, keep)],
@@ -4652,6 +4724,58 @@ def grouped_einsum_flops(cfg) -> tuple:
     return c, dispatch, experts
 
 
+def lm_mesh_dry_runs(cfg) -> dict:
+    """The dry run's rows for the cells the ranks of [lm-mesh] run, on a
+    fake world of LM_MESH_SHAPE: the bf16 Qwen2-1.5B prefill of the
+    serving prompts (f32 weights, serving rules: no fsdp) and the f32
+    train step at LM_MESH_TRAIN_LAYERS (ZeRO-3 rules)."""
+    from repro_torch.launch import dryrun as D
+
+    data, model = LM_MESH_SHAPE
+    kw = dict(verbose=False, nodes=data, gpus_per_node=model)
+    return {
+        "prefill": D.run_cell(
+            "qwen2_1_5b", "prefill_32k", False, cfg=cfg,
+            shape_info=dict(kind="prefill", seq=PROMPT, batch=BATCH), **kw),
+        "train": D.run_cell(
+            "qwen2_1_5b", "train_4k", False,
+            cfg=cfg.scaled(num_layers=LM_MESH_TRAIN_LAYERS, dtype="float32"),
+            shape_info=dict(kind="train", seq=TRAIN_SEQ, batch=TRAIN_BATCH),
+            microbatches=TRAIN_MICROBATCHES, **kw)}
+
+
+def lm_mesh_memory_report(dry: dict, reports: list) -> None:
+    """Prints and gates each rank's rows and its measured peaks (the
+    Qwen2-1.5B bf16 prefill, each train step) against the dry run's
+    predictions for the same cells."""
+    want = {"prompt": [BATCH // LM_MESH_SHAPE[0], PROMPT],
+            "forced": [BATCH // LM_MESH_SHAPE[0], LM_MESH_STEPS],
+            "train": {k: [TRAIN_BATCH // LM_MESH_SHAPE[0], TRAIN_SEQ]
+                      for k in ("tokens", "labels")}}
+    rows = [rep["rows"] for rep in reports]
+    print(f"[lm-mesh] local rows each rank was fed (whole: {BATCH} x "
+          f"{PROMPT} prompts, {TRAIN_BATCH} x {TRAIN_SEQ} train batch): "
+          f"{rows}")
+    if any(r != want for r in rows):
+        fail(f"[lm-mesh] a rank was fed other than its dp rows {want}")
+    measured = {"prefill": [rep["qwen2"]["prefill_peak"] for rep in reports],
+                "train": [rep[f"train_{init}"]["peak"] for rep in reports
+                          for init in LM_MESH_TRAIN_INITS]}
+    for cell, peaks in measured.items():
+        pred = dry[cell]["peak_mem_bytes"]
+        worst = max(peaks, key=lambda m: abs(pred / m - 1))
+        print(f"[lm-mesh] {cell} peak memory a rank: predicted "
+              f"{pred / 1e9:.3f} GB by the dry run on a fake (2, 2) world "
+              f"(trace {dry[cell]['trace_s']:.1f} s; by kind "
+              f"{dry[cell]['memory']}), measured "
+              f"{[round(m / 1e9, 3) for m in peaks]} GB (ranks"
+              + (" x inits" if cell == "train" else "") + f"), worst "
+              f"{pred / worst - 1:+.1%} (band +-{LAUNCH_MEM_BAND:.0%})")
+        if abs(pred / worst - 1) > LAUNCH_MEM_BAND:
+            fail(f"[lm-mesh] {cell}: predicted peak {pred} B, measured "
+                 f"{worst} B on a rank, past +-{LAUNCH_MEM_BAND:.0%}")
+
+
 def lm_mesh(cfg, moe_cfg, dev, work: str) -> dict:
     """Phase 34 [lm-mesh]; returns the attention kernel's launches summed
     over the ranks: {"f32": ..., "bf16": ...}."""
@@ -4674,7 +4798,9 @@ def lm_mesh(cfg, moe_cfg, dev, work: str) -> dict:
         if os.path.exists(path):
             os.remove(path)
     t0 = time.perf_counter()
-    ranks = spawn_ranks(world, work, LM_MESH_DEADLINE_S, "--lm-mesh-rank")
+    dry = {}
+    ranks = spawn_ranks(world, work, LM_MESH_DEADLINE_S, "--lm-mesh-rank",
+                        meanwhile=lambda: dry.update(lm_mesh_dry_runs(cfg)))
     ranks_s = time.perf_counter() - t0
     for r, (code, tail, report) in enumerate(ranks):
         for line in tail.splitlines():
@@ -4754,6 +4880,7 @@ def lm_mesh(cfg, moe_cfg, dev, work: str) -> dict:
                               dtype="float32"),
                    [rep["train_fan_in"]["ckpt"] for rep in reports],
                    out_dir, dev)
+    lm_mesh_memory_report(dry, reports)
     print(f"[lm-mesh] ranks {ranks_s:.1f} s (spawn to exit), phase "
           f"{time.perf_counter() - t_phase:.1f} s")
     launches["train"] = sum(rep[f"train_{init}"]["launches"]

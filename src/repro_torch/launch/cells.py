@@ -7,11 +7,12 @@ with the step function (the port's `prefill`, `decode_step` or
 `make_train_step` under the cell's `ShardingRules`) and the Shardings of
 its inputs. Parameters, train states and caches are meta tensors, laid
 out by `param_shardings`, `state_shardings` and `cache_specs`; the dry run
-(`launch/dryrun.py`) turns each into this rank's fake local part. The
-batch and the optimizer's step are whole on every rank, as the port's LM
-substrate takes them (their Sharding is None; the reference shards the
-batch over dp). The same specs drive the smoke tests (reduced sizes) via
-`data.pipeline.batch_specs`.
+(`launch/dryrun.py`) turns each into this rank's fake local part. Every
+batch entry is laid out over dp on its leading (batch) dim, as the
+reference's `in_shardings` lay it out: each rank is fed its own rows. The
+optimizer's step is whole on every rank (its Sharding is None: the
+port's step is a plain 0-d tensor). The same specs drive the smoke tests
+(reduced sizes) via `data.pipeline.batch_specs`.
 
 `inference_fsdp` keeps the reference's rule with the TPU figures made
 parameters: the tensor-parallel degree is the mesh's `model` axis, and
@@ -172,7 +173,9 @@ def build_cell(arch: str, shape: str, mesh, fsdp: Optional[bool] = None,
         microbatches = strategy_microbatches(cfg, strategy)
     rules = make_rules(cfg, shape, mesh, strategy, fsdp)
     specs = input_specs(cfg, shape, info)
-    batch_sh = {k: None for k in specs}    # whole on every rank
+    batch_sh = {k: rules.sharding_for_shape(v.shape, "dp",
+                                            *(None,) * (len(v.shape) - 1))
+                for k, v in specs.items()}
     fn_rules = rules if mesh is not None else None
 
     if info["kind"] == "train":

@@ -29,7 +29,7 @@ as rank 0 of a fake world:
   `torch.utils.flop_counter.FlopCounterMode` itself counts a DTensor
   operation at its global size, so it is not used on a mesh.
 * `torch.distributed._tools.mem_tracker.MemTracker` gives the rank's
-  peak memory, its inputs included.
+  peak memory, its inputs included; a meta tensor counts nothing.
 
 Each collective's wire bytes follow the ring algorithm for its group
 (`roofline.CollectiveStats`); a group inside one node is priced at
@@ -323,7 +323,9 @@ def _rank_mem_tracker():
     mode active when it is made (the dry run's), as TraceCounter does:
     the MemTracker of torch 2.11 also counts DTensor's sharding
     propagation, whose tensors have the GLOBAL shape (a train_4k cell's
-    peak read 242 GB a rank on the card's machine, 4.84 GB here)."""
+    peak read 242 GB a rank on the card's machine, 4.84 GB here). Nor
+    does it count a tensor on the meta device, wherever it is made (a
+    cache's layout, an abstract state): on a card it allocates nothing."""
     from torch.distributed._tools.mem_tracker import MemTracker
 
     class RankMemTracker(MemTracker):
@@ -331,6 +333,10 @@ def _rank_mem_tracker():
             if active_fake_mode() is not mode:
                 return func(*args, **(kwargs or {}))
             return super().__torch_dispatch__(func, types, args, kwargs)
+
+        def _track(self, reftype, t):
+            if t.device.type != "meta":
+                super()._track(reftype, t)
 
     mode = active_fake_mode()
     return RankMemTracker()

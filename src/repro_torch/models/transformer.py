@@ -18,12 +18,13 @@ vision (InternVL2) maps precomputed patch embeddings through the trained
 
 Sharding rules (`parallel/sharding.py`): the parameters are DTensors laid
 out by `param_shardings` (`init_params(..., rules=)` and
-`params_from_reference(..., rules=)` place them one leaf at a time), the inputs are whole on every rank and
-are replicated at the embedding, and each block gathers its fsdp-sharded
-weights at use (ZeRO-3, `_gather_block_params`; the MoE's routed experts
-stay sharded unless `gather_moe_experts`). The caches are DTensors laid
-out by `cache_specs`, each rank writing its own part. The outputs are
-DTensors; `.full_tensor()` gathers one.
+`params_from_reference(..., rules=)` place them one leaf at a time), each
+rank embeds only its dp rows of the inputs (a whole batch handed in is
+cut locally, one laid out over dp is taken as it is), and each block
+gathers its fsdp-sharded weights at use (ZeRO-3, `_gather_block_params`;
+the MoE's routed experts stay sharded unless `gather_moe_experts`). The
+caches are DTensors laid out by `cache_specs`, each rank writing its own
+part. The outputs are DTensors; `.full_tensor()` gathers one.
 """
 from __future__ import annotations
 
@@ -275,6 +276,21 @@ def _replicated(t: torch.Tensor, like) -> torch.Tensor:
                               [Replicate()] * mesh.ndim, run_check=False)
 
 
+def _dp_rows(t: torch.Tensor, rules, like) -> torch.Tensor:
+    """A batch entry as this rank's dp rows under `rules` when the weights
+    (`like`) are DTensors: a DTensor laid out over dp on its leading dim
+    (`sharding_for_shape`, which drops the data axes a batch does not
+    divide). A whole tensor is cut locally, with no communication; a
+    DTensor fed with that layout is taken as it is. Without rules, on
+    `like`'s device as `_replicated` leaves it."""
+    if not isinstance(like, DTensor) or rules is None or rules.mesh is None:
+        return _replicated(t.to(like.device), like)
+    sh = rules.sharding_for_shape(t.shape, "dp", *(None,) * (t.ndim - 1))
+    if isinstance(t, DTensor):
+        return reshard(t, sh.placements)
+    return shard_tensor(t, sh, like.device)
+
+
 def _zero_aux(x: torch.Tensor) -> torch.Tensor:
     """A 0-d f32 zero, replicated on x's mesh when x is a DTensor."""
     return _replicated(torch.zeros((), dtype=torch.float32,
@@ -291,24 +307,28 @@ def embed_inputs(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     for audio, whose K codebook embeddings are summed. With
     batch["patch_embeds"] (B, S_img, d_frontend) a vision model's projector
     output comes first: (B, S_img + S, d). Decode batches are text only.
-    With DTensor weights the inputs are replicated onto their mesh, and
-    under rules the output is constrained to (dp, sp, -)."""
+    Under rules with DTensor weights each rank looks up only its dp rows
+    (`_dp_rows`), and the output is constrained to (dp, sp, -); with
+    DTensor weights and no rules the inputs are replicated onto their
+    mesh."""
     dtype = L.torch_dtype(cfg.dtype)
     emb = params["embed"]
-    tokens = _replicated(batch["tokens"].to(emb.device), emb)
+    tokens = _dp_rows(batch["tokens"], rules, emb)
     if _modality(cfg) == "audio":
         x = sum(F.embedding(tokens[:, i], emb[i])
                 for i in range(cfg.frontend.num_positions)).to(dtype)
     else:
         x = F.embedding(tokens, emb).to(dtype)
     if _modality(cfg) == "vision" and "patch_embeds" in batch:
-        pe = _replicated(batch["patch_embeds"].to(device=emb.device,
-                                                  dtype=dtype), emb)
+        pe = _dp_rows(batch["patch_embeds"], rules, emb).to(dtype)
         pr = params["projector"]
         h = L.rmsnorm(pr["norm"], pe, cfg.rms_eps)
         # jax.nn.gelu's default is the tanh approximation
         h = F.gelu(h @ pr["w1"].to(dtype), approximate="tanh")
-        x = torch.cat([h @ pr["w2"].to(dtype), x], dim=1)
+        # On a mesh the lookup leaves a masked partial sum and the
+        # projector a plain one; DTensor joins no two partial kinds, so
+        # each is reduced first (the constraint below would reduce it).
+        x = torch.cat([settled(h @ pr["w2"].to(dtype)), settled(x)], dim=1)
     if rules is not None:
         x = rules.constrain(x, "dp", "sp", None)
     return x
@@ -410,7 +430,8 @@ def _label_logits(logits: torch.Tensor, labels: torch.Tensor
     """logits[..., labels] over the last dim. On a DTensor whose vocab dim
     is sharded each rank picks the labels in its own vocab range (zero
     elsewhere), summed over the vocab-sharding ranks (`summed`): no rank
-    gathers the logits."""
+    gathers the logits. `labels` is whole, or a DTensor (the rank's rows)
+    laid out like the logits' other dims."""
     if not isinstance(logits, DTensor):
         return torch.gather(logits, -1, labels[..., None])[..., 0]
     logits = settled(logits)
@@ -418,9 +439,13 @@ def _label_logits(logits: torch.Tensor, labels: torch.Tensor
     bounds = local_bounds(logits.shape, mesh, pl)
     vdim = logits.ndim - 1
     (v0, vn) = bounds[vdim]
-    lab = labels.to(logits.device)
-    for dim, (off, n) in enumerate(bounds[:-1]):
-        lab = lab.narrow(dim, off, n)
+    if isinstance(labels, DTensor):
+        lab = reshard(labels, [Replicate() if p == Shard(vdim) else p
+                               for p in pl]).to_local()
+    else:
+        lab = labels.to(logits.device)
+        for dim, (off, n) in enumerate(bounds[:-1]):
+            lab = lab.narrow(dim, off, n)
     lab = lab - v0
     inside = (lab >= 0) & (lab < vn)
     local = logits.to_local()
@@ -454,6 +479,19 @@ def _logsumexp(logits: torch.Tensor) -> torch.Tensor:
         + torch.log(total)
 
 
+def _mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean over every element. On a DTensor each rank sums its own
+    part, the parts are summed over the ranks that shard it (`summed`,
+    each term entering once) and divided by the global count; DTensor's
+    own reduction is not used (see `_logsumexp`)."""
+    if not isinstance(x, DTensor):
+        return torch.mean(x)
+    x = settled(x)
+    pl = [Partial() if p.is_shard() else p for p in x.placements]
+    return summed(torch.sum(x.to_local()), x.device_mesh, pl, ()) \
+        / x.numel()
+
+
 def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             rules=None, remat: bool = True
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -466,9 +504,11 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     them).
 
     The positions are 0..S-1 in every row by construction, so the kernel's
-    attention step skips its check (and its host sync). Under rules the
+    attention step skips its check (and its host sync). Under rules each
+    rank takes its dp rows of the tokens and the labels (`_dp_rows`), the
     cross entropy reduces over the vocab-sharded logits in place
-    (`_logsumexp`, `_label_logits`)."""
+    (`_logsumexp`, `_label_logits`), and `ce` is the mean over the GLOBAL
+    count of positions, each rank's terms summed once (`_mean`)."""
     params = _gather_head_params(params, cfg, rules)
     x = embed_inputs(params, cfg, batch, rules)
     b, s = x.shape[0], x.shape[1]
@@ -478,14 +518,15 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
                          check_positions=False)
     x = L.rmsnorm(params["final_norm"], x, cfg.rms_eps)
     logits = _logits(params, cfg, x).to(torch.float32)
-    labels = batch["labels"].to(device=x.device, dtype=torch.int64)
+    labels = _dp_rows(batch["labels"], rules, params["embed"]).to(
+        dtype=torch.int64)
     if _modality(cfg) == "vision":
         logits = logits[:, s - labels.shape[-1]:]       # drop the n_img
     if _modality(cfg) == "audio":
         labels = labels.movedim(1, 2)                   # (B, S, K)
     lse = _logsumexp(logits)
     ll = _label_logits(logits, labels)
-    ce = torch.mean(lse - ll)
+    ce = _mean(lse - ll)
     return ce + aux, {"ce": ce, "aux": aux}
 
 
@@ -656,10 +697,11 @@ def _put(stacked: torch.Tensor, r: int, value: torch.Tensor) -> None:
 
 def decode_step(params, cfg: ModelConfig, cache: DecodeCache,
                 tokens: torch.Tensor, cur_len: int, rules=None):
-    """One decode step. tokens: (B, 1), or (B, K, 1) for audio; cur_len:
-    the position of `tokens` (a Python int; after a vision prompt, its
-    image positions count). Writes the new k, v and the SSM states into
-    `cache` in place.
+    """One decode step. tokens: (B, 1), or (B, K, 1) for audio, whole or
+    (under rules) laid out over dp, each rank embedding its own rows;
+    cur_len: the position of `tokens` (a Python int; after a vision
+    prompt, its image positions count). Writes the new k, v and the SSM
+    states into `cache` in place.
 
     Returns (logits (B, V) or (B, K, V), cache)."""
     params = _gather_head_params(params, cfg, rules)

@@ -322,6 +322,16 @@ def local_bounds(shape, mesh, placements) -> List[Tuple[int, int]]:
     return bounds
 
 
+def contiguous_stride(shape) -> Tuple[int, ...]:
+    """The strides of a contiguous tensor of `shape`, by arithmetic (no
+    tensor is made: a dry run would count a meta tensor as memory)."""
+    stride, step = [], 1
+    for n in reversed(tuple(shape)):
+        stride.append(step)
+        step *= max(int(n), 1)
+    return tuple(reversed(stride))
+
+
 def wrap_local(local: torch.Tensor, mesh, placements, shape) -> DTensor:
     """This rank's `local` part of a contiguous tensor of global `shape`
     (differentiable, no communication). `local` is made contiguous: the
@@ -329,8 +339,7 @@ def wrap_local(local: torch.Tensor, mesh, placements, shape) -> DTensor:
     local = local.contiguous()
     return DTensor.from_local(local, mesh, tuple(placements),
                               run_check=False, shape=torch.Size(shape),
-                              stride=torch.empty(shape, device="meta")
-                              .stride())
+                              stride=contiguous_stride(shape))
 
 
 class _SummedOver(torch.autograd.Function):

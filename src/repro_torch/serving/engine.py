@@ -12,18 +12,23 @@ decodes from s0 and so writes its first steps over image positions
 (ROADMAP.md Queue 3): it is no oracle for a prompt with images.
 
 Under sharding rules the parameters are DTensors (`init_params(...,
-rules=)`), prompts are whole on every rank, and each step's logits are
-gathered for the argmax, so every rank holds the same ids.
+rules=)`); a prompt is whole or laid out over dp, each rank embedding its
+own rows. Each step's argmax runs on the rank's rows with their vocab
+gathered (`_next_ids`), so the next ids stay laid out over dp; each
+step's ids are gathered whole for the result (a stack of DTensors is
+laid out wrong by the card's torch 2.11: its shard moves to the new
+dim).
 """
 from __future__ import annotations
 
 from typing import Any, Dict
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..models import transformer as T
 from ..models.config import ModelConfig
-from ..parallel.sharding import full
+from ..parallel.sharding import full, reshard, settled, wrap_local
 
 PyTree = Any
 
@@ -38,6 +43,19 @@ def make_decode_step(cfg: ModelConfig, rules=None):
     def decode_fn(params, cache, tokens, cur_len):
         return T.decode_step(params, cfg, cache, tokens, cur_len, rules)
     return decode_fn
+
+
+def _next_ids(logits: torch.Tensor) -> torch.Tensor:
+    """The argmax over the last (vocab) dim. On a DTensor, of this rank's
+    rows with their vocab gathered (no other rank's rows move), as a
+    DTensor laid out like those rows."""
+    if not isinstance(logits, DTensor):
+        return torch.argmax(logits, dim=-1)
+    logits = settled(logits)
+    vdim = logits.ndim - 1
+    rows = [Replicate() if p == Shard(vdim) else p for p in logits.placements]
+    ids = torch.argmax(reshard(logits, rows).to_local(), dim=-1)
+    return wrap_local(ids, logits.device_mesh, rows, logits.shape[:-1])
 
 
 def greedy_generate(cfg: ModelConfig, params, prompt: Dict[str, torch.Tensor],
@@ -57,11 +75,11 @@ def greedy_generate(cfg: ModelConfig, params, prompt: Dict[str, torch.Tensor],
     cache = T.extend_cache(cfg, cache, s_max)
 
     out = []
-    cur = torch.argmax(full(logits), dim=-1)  # (B,), or (B, K) for audio
+    cur = _next_ids(logits)          # (B,), or (B, K) for audio
     for t in range(steps):
-        out.append(cur)
+        out.append(full(cur))
         logits, cache = T.decode_step(params, cfg, cache, cur[..., None],
                                       s0 + t, rules)
-        cur = torch.argmax(full(logits), dim=-1)
-    out.append(cur)
+        cur = _next_ids(logits)
+    out.append(full(cur))
     return torch.stack(out, dim=-1)

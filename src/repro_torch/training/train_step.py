@@ -15,8 +15,10 @@ given.
 Under sharding rules the params and moments are DTensors laid out by
 `state_shardings`; each micro-batch's gradients are laid out like the
 params (a reduce-scatter of the fsdp-gathered weights' partial sums) and
-accumulate on the local parts. The batch is whole on every rank; the loss
-and the metrics come back as plain 0-d tensors, the same on every rank.
+accumulate on the local parts. The batch is whole on every rank or laid
+out over dp (each rank fed its rows), and each rank embeds its own rows
+of each micro-batch; the loss and the metrics come back as plain 0-d
+tensors, the same on every rank.
 """
 from __future__ import annotations
 
@@ -140,7 +142,13 @@ def make_train_step(cfg: ModelConfig,
 
     With `microbatches` > 1 each batch entry is cut as the reference cuts
     it, reshape(microbatches, B // microbatches, ...): contiguous slices,
-    in order. Loss and gradients are summed over the slices and divided by
+    in order. Micro-batch m is those rows of the whole batch, spread over
+    the dp ranks as GSPMD lays it out (rank d of the data axes embeds its
+    d-th share of them), not each rank's m-th slice of its own rows: the
+    MoE's capacity drops and its router's loss depend on which tokens
+    share a micro-batch. So an entry fed laid out over dp is first
+    gathered whole (an all-gather of its rows; token ids are a few MB).
+    Loss and gradients are summed over the slices and divided by
     `microbatches`; the schedule is evaluated at opt.step + 1."""
 
     def grads_of(params, batch):
@@ -158,10 +166,11 @@ def make_train_step(cfg: ModelConfig,
                 b = x.shape[0]
                 return x.reshape(microbatches, b // microbatches,
                                  *x.shape[1:])[m]
+            whole = {k: full(v) for k, v in batch.items()}
             loss, grads = None, None
             for m in range(microbatches):
                 mb_loss, mb_grads = grads_of(
-                    params, {k: slice_mb(v, m) for k, v in batch.items()})
+                    params, {k: slice_mb(v, m) for k, v in whole.items()})
                 mb_grads = [g.to(torch.float32) for g in mb_grads]
                 if grads is None:
                     loss, grads = mb_loss, mb_grads

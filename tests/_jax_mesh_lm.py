@@ -7,9 +7,14 @@ devices, of the shape WORK_DIR/lm.json names ("mesh": (2, 2) or (1, 4)).
 ARCH is a smoke config's name, or NAME@CF for its MoE at capacity
 factor CF (`lm_config`; the port's ranks read ARCH the same way).
 
-Reads WORK_DIR/inputs_<ARCH>.npz (the weights and the batch the test wrote)
-and writes WORK_DIR/ref_<ARCH>.npz: the prefill's last logits and every
-cache leaf, two decode steps' logits, loss_fn's loss, ce and aux and its
+Reads WORK_DIR/inputs_<ARCH>.npz (the weights and the batch the test wrote:
+tokens, or audio codes, and a vision prompt's patch_embeds) and writes
+WORK_DIR/ref_<ARCH>.npz: the prefill's last logits and every cache leaf,
+two decode steps' logits (for a config with a frontend, the last logits
+of a full prefill of the prompt and the decoded ids so far: the
+reference's decode takes s0 from the text and grows no cache behind a
+vision prompt's image positions, ROADMAP.md Queue 3), loss_fn's loss, ce
+and aux and its
 gradient with respect to every param (`jax.grad`), and one train step's
 metrics, updated params and first moments, each jitted under
 `ShardingRules(mesh)`; the prefill also under `ShardingRules(mesh,
@@ -86,15 +91,25 @@ def lm(work: str, arch: str, mesh) -> None:
     inputs = dict(np.load(os.path.join(work, f"inputs_{arch}.npz")))
     params = unflatten(inputs, "params")
     tokens = jnp.asarray(inputs["tokens"])
+    prompt = {k: jnp.asarray(inputs[k]) for k in ("tokens", "patch_embeds")
+              if k in inputs}
     out = {}
     for name, rules in (("", ShardingRules(mesh=mesh)),
                         ("nofsdp_", ShardingRules(mesh=mesh, fsdp=False))):
-        logits, cache = jax.jit(lambda p, t: T.prefill(
-            p, cfg, {"tokens": t}, rules))(params, tokens)
+        prefill = jax.jit(lambda p, bt: T.prefill(p, cfg, bt, rules))
+        logits, cache = prefill(params, prompt)
         out[f"{name}prefill_logits"] = np.asarray(logits)
         if name:
             continue
         out.update(flatten(cache, "cache"))
+        if cfg.frontend is not None:
+            for i in range(inputs["decode"].shape[-1]):
+                longer = dict(prompt, tokens=jnp.concatenate(
+                    [tokens, jnp.asarray(inputs["decode"][..., :i + 1])],
+                    axis=-1))
+                out[f"decode_logits_{i}"] = np.asarray(
+                    prefill(params, longer)[0])
+            continue
         b, s0 = tokens.shape
         s_max = s0 + inputs["decode"].shape[1]
         full = T.init_cache(cfg, b, s_max)
@@ -112,27 +127,28 @@ def lm(work: str, arch: str, mesh) -> None:
             tok = jnp.asarray(inputs["decode"][:, i:i + 1])
             logits, cache = step(params, cache, tok, jnp.int32(s0 + i))
             out[f"decode_logits_{i}"] = np.asarray(logits)
-        batch = {"tokens": tokens, "labels": jnp.asarray(inputs["labels"])}
-        loss, parts = jax.jit(lambda p, bt: T.loss_fn(p, cfg, bt, rules))(
-            params, batch)
-        out["loss"] = np.asarray(loss)
-        out["ce"], out["aux"] = np.asarray(parts["ce"]), np.asarray(
-            parts["aux"])
-        grads = jax.jit(jax.grad(lambda p, bt: T.loss_fn(p, cfg, bt,
-                                                         rules)[0]))(
-            params, batch)
-        out.update(flatten(grads, "grads"))
-        zeros = jax.tree.map(jnp.zeros_like, params)
-        ones = jax.tree.map(jnp.ones_like, params)
-        state = TrainState(params, OptState(jnp.zeros((), jnp.int32), zeros,
-                                            ones))
-        train = jax.jit(make_train_step(cfg, rules=rules, microbatches=2,
-                                        warmup=WARMUP))
-        new, metrics = train(state, batch)
-        for k, v in metrics.items():
-            out[f"metric_{k}"] = np.asarray(v)
-        out.update(flatten(new.params, "trained"))
-        out.update(flatten(new.opt.mu, "mu"))
+    batch = dict(prompt, labels=jnp.asarray(inputs["labels"]))
+    rules = ShardingRules(mesh=mesh)
+    loss, parts = jax.jit(lambda p, bt: T.loss_fn(p, cfg, bt, rules))(
+        params, batch)
+    out["loss"] = np.asarray(loss)
+    out["ce"], out["aux"] = np.asarray(parts["ce"]), np.asarray(
+        parts["aux"])
+    grads = jax.jit(jax.grad(lambda p, bt: T.loss_fn(p, cfg, bt,
+                                                     rules)[0]))(
+        params, batch)
+    out.update(flatten(grads, "grads"))
+    zeros = jax.tree.map(jnp.zeros_like, params)
+    ones = jax.tree.map(jnp.ones_like, params)
+    state = TrainState(params, OptState(jnp.zeros((), jnp.int32), zeros,
+                                        ones))
+    train = jax.jit(make_train_step(cfg, rules=rules, microbatches=2,
+                                    warmup=WARMUP))
+    new, metrics = train(state, batch)
+    for k, v in metrics.items():
+        out[f"metric_{k}"] = np.asarray(v)
+    out.update(flatten(new.params, "trained"))
+    out.update(flatten(new.opt.mu, "mu"))
     np.savez(os.path.join(work, f"ref_{arch}.npz"), **out)
 
 

@@ -257,9 +257,14 @@ def lm(rank: int, world: int, init_file: str, work: str) -> None:
     its "mesh" shape: prefill (also under fsdp=False), two decode steps,
     loss_fn, its gradients (`loss_and_grads`) and one train step of 2
     micro-batches with warmup 1 from second moments of 1, as
-    `_jax_mesh_lm.py` runs the reference. Every output is gathered whole
-    (`full`) and rank 0 writes WORK/port_<ARCH>.npz. Then the collectives
-    on a (pod 2, data 2) mesh over the same ranks: each rank's block of
+    `_jax_mesh_lm.py` runs the reference. Each rank is fed only its dp
+    rows of every batch entry (tokens or audio codes, a vision prompt's
+    patch_embeds, labels, the decode ids), laid out as the rules lay a
+    batch out, and records their local shapes; a config without a MoE
+    also runs `greedy_generate` on those rows and records whether its ids
+    equal the unsharded run's. Every output is gathered whole (`full`)
+    and rank 0 writes WORK/port_<ARCH>.npz. Then the collectives on a
+    (pod 2, data 2) mesh over the same ranks: each rank's block of
     WORK/collectives_in.npy through `hierarchical_psum`,
     `hierarchical_psum_scatter` and `psum_tree`, every rank writing
     WORK/port_collectives_<rank>.npz. WORK/lm_<rank>.json records the local
@@ -277,7 +282,9 @@ def lm(rank: int, world: int, init_file: str, work: str) -> None:
     from repro_torch.models import transformer as T
     from repro_torch.optim.adamw import _leaves
     from repro_torch.parallel import collectives as C
-    from repro_torch.parallel.sharding import ShardingRules, full
+    from repro_torch.parallel.sharding import (
+        ShardingRules, full, shard_tensor)
+    from repro_torch.serving import greedy_generate
     from repro_torch.training.train_step import (
         loss_and_grads, make_train_step, train_state_from_reference)
 
@@ -301,22 +308,34 @@ def lm(rank: int, world: int, init_file: str, work: str) -> None:
                     cfg.moe, capacity_factor=float(cf)))
             inputs = dict(np.load(os.path.join(work, f"inputs_{arch}.npz")))
             np_params = _unflatten(inputs, "params")
-            tokens = torch.from_numpy(inputs["tokens"]).long()
+
+            def rows(key, sl=slice(None)):
+                """This rank's dp rows of the batch entry `key` (its last
+                dim cut to `sl`), as the rules lay a batch out."""
+                a = torch.from_numpy(inputs[key][..., sl].copy())
+                a = a.long() if key != "patch_embeds" else a
+                return shard_tensor(a, rules.sharding_for_shape(
+                    a.shape, "dp", *(None,) * (a.ndim - 1)))
+
+            prompt = {k: rows(k) for k in ("tokens", "patch_embeds")
+                      if k in inputs}
             out = {}
             for name, r in (("", rules),
                             ("nofsdp_", ShardingRules(mesh=mesh,
                                                       fsdp=False))):
                 params = T.params_from_reference(np_params, cfg, "cpu", r)
-                logits, cache = T.prefill(params, cfg, {"tokens": tokens}, r)
+                logits, cache = T.prefill(params, cfg, prompt, r)
                 out[f"{name}prefill_logits"] = full(logits)
             params = T.params_from_reference(np_params, cfg, "cpu", rules)
-            report[arch] = {"local_embed": list(
-                params["embed"].to_local().shape)}
+            batch = dict(prompt, labels=rows("labels"))
+            report[arch] = {
+                "local_embed": list(params["embed"].to_local().shape),
+                "local_rows": {k: list(v.to_local().shape)
+                               for k, v in batch.items()}}
             routed, route = [], M.route
             M.route = lambda *a: routed.append(route(*a)) or routed[-1]
             try:
-                logits, cache = T.prefill(params, cfg, {"tokens": tokens},
-                                          rules)
+                logits, cache = T.prefill(params, cfg, prompt, rules)
             finally:
                 M.route = route
             dropped = torch.tensor(sum(int((~r.keep).sum())
@@ -325,15 +344,24 @@ def lm(rank: int, world: int, init_file: str, work: str) -> None:
             report[arch]["dropped"] = int(dropped)
             out.update({k: full(v) for k, v in
                         _flatten(cache, "cache").items()})
-            s0, steps = tokens.shape[1], inputs["decode"].shape[1]
+            s0, steps = T.prompt_len(cfg, prompt), inputs["decode"].shape[-1]
             cache = T.extend_cache(cfg, cache, s0 + steps)
             for i in range(steps):
-                tok = torch.from_numpy(inputs["decode"][:, i:i + 1]).long()
+                tok = rows("decode", slice(i, i + 1))
+                report[arch]["local_rows"]["decode"] = list(
+                    tok.to_local().shape)
                 logits, cache = T.decode_step(params, cfg, cache, tok,
                                               s0 + i, rules)
                 out[f"decode_logits_{i}"] = full(logits)
-            batch = {"tokens": tokens,
-                     "labels": torch.from_numpy(inputs["labels"]).long()}
+            if cfg.moe is None:   # the MoE's token groups differ unsharded
+                ids = greedy_generate(cfg, params, prompt, steps,
+                                      s0 + steps, rules)
+                plain = greedy_generate(
+                    cfg, T.params_from_reference(np_params, cfg, "cpu"),
+                    {k: full(v) for k, v in prompt.items()}, steps,
+                    s0 + steps)
+                report[arch]["greedy"] = {"shape": list(ids.shape),
+                                          "equal": torch.equal(ids, plain)}
             loss, parts = T.loss_fn(params, cfg, batch, rules)
             out["loss"], out["ce"], out["aux"] = (
                 full(loss), full(parts["ce"]), full(parts["aux"]))

@@ -16,6 +16,12 @@ A smoke FDK cell dry-runs on a fake (2, 2) world through the kernel's
 launch operator; the paper's 4k cell on both production meshes through
 the CLI. The fake world is gone after each dry run, and a dry run
 refuses to start beside a real default process group.
+
+The peak memory is a rank's: a meta tensor made inside the trace counts
+nothing (it allocates nothing on a card), the rank's inputs count (an
+FDK cell's projection share, though the cell describes it as a meta
+tensor), and each rank embeds only its dp rows, so a prefill at one row
+a rank peaks and communicates the same on a (2, 2) and a (4, 2) world.
 """
 import json
 import os
@@ -23,12 +29,14 @@ import subprocess
 import sys
 
 import pytest
+import torch
 import torch.distributed as dist
 from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs import get_smoke_config
 from repro_torch.core.geometry import CBCTGeometry
+from repro_torch.data.pipeline import TensorSpec
 from repro_torch.device import fake_card
 from repro_torch.kernels.backproject.kernel import backproject_ops
 from repro_torch.launch import dryrun as D
@@ -173,8 +181,55 @@ def test_fdk_cell_on_a_fake_mesh():
     assert row["kernel_calls"] == {"backproject_dual": 2}
     groups = row["collectives"]["by_group"]
     assert set(groups) == {"all-gather x2", "reduce-scatter x2 across nodes"}
-    assert row["peak_mem_bytes"] >= n // 2 * n * n * 4
+    # the rank's n_proj / 4 projections (an input) beside its slab
+    assert row["peak_mem_bytes"] >= (n // 2 * n * n
+                                     + n_proj // 4 * 32 * 32) * 4
     assert not dist.is_initialized()
+
+
+def test_inputs_count_and_meta_tensors_made_inside_count_nothing():
+    """A cell that makes a 4 GiB meta tensor inside the trace (as a
+    cache's layout or a stride's witness did) reports the peak of one
+    that makes none; a real tensor of that size counts, and so does an
+    input described by a meta tensor (the FDK cell's projections), once
+    it is the rank's local part."""
+    n = 2**30
+
+    def cell(make):
+        def fn(x):
+            extra = make()
+            out = x * 2
+            del extra
+            return out
+        return fn
+
+    spec = TensorSpec((256,), torch.float32)
+    peaks = {name: D.trace(cell(make), (spec,), (None,))["peak_bytes"]
+             for name, make in (
+                 ("none", lambda: None),
+                 ("meta", lambda: torch.empty(n, device="meta")),
+                 ("real", lambda: torch.empty(n)))}
+    assert peaks["meta"] == peaks["none"] == 2 * 256 * 4
+    assert peaks["real"] == peaks["none"] + 4 * n
+    proj = torch.empty((8, 32, 32), device="meta")
+    assert D.trace(lambda p: None, (proj,), (None,))["peak_bytes"] \
+        == 8 * 32 * 32 * 4
+
+
+def test_prefill_rank_peak_does_not_grow_with_the_global_batch():
+    """One row a rank of the smoke prefill on fake (2, 2) and (4, 2)
+    worlds: each rank embeds its own row (the batch laid out over data),
+    so its peak and its collectives are the same on both; when every rank
+    looked up the whole batch both grew with it."""
+    cfg = get_smoke_config("qwen2_1_5b")
+    rows = [D.run_cell("qwen2_1_5b", "prefill_32k", False, verbose=False,
+                       cfg=cfg, shape_info=dict(kind="prefill", seq=16,
+                                                batch=data),
+                       nodes=data, gpus_per_node=2) for data in (2, 4)]
+    assert [r["mesh"] for r in rows] == ["2x2", "4x2"]
+    assert rows[0]["peak_mem_bytes"] == rows[1]["peak_mem_bytes"] > 0
+    groups = rows[0]["collectives"]["by_group"]
+    assert groups and groups == rows[1]["collectives"]["by_group"]
 
 
 def test_cli_dry_runs_the_paper_cell_on_both_production_meshes(tmp_path):

@@ -7,7 +7,8 @@ stacked block weights rescaled to 1 / sqrt(fan_in), as in
 test_torch_window.py) and a batch to a work directory. Then, at once,
 reference subprocesses (`_jax_mesh_lm.py`, one config each and the
 collectives with the last, everything jitted) and the 4 port ranks
-(`_torch_mesh_rank.py ... lm`) run the f32 smoke configs of Qwen2-1.5B
+(`_torch_mesh_rank.py ... lm`, each rank fed only its dp rows of every
+batch entry) run the f32 smoke configs of Qwen2-1.5B
 (dense, GQA 4/2: each rank attends with 2 query heads and their 1 KV head)
 and Mamba-2 (the SSM mixer on each rank's rows), test_torch_parallel_moe.py
 Qwen2-MoE's and test_torch_parallel_kv.py Qwen2-1.5B's on a (data 1, model
@@ -50,6 +51,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import get_smoke_config
 from test_torch_models import close
 from test_torch_window import fan_in_params
 
@@ -75,18 +77,26 @@ def _flat(tree, prefix):
 
 
 def _write_inputs(work, archs, mesh):
-    """Each arch's weights (NAME@CF: NAME's) and batch, the collectives'
+    """Each arch's weights (NAME@CF: NAME's) and batch (an audio config's
+    (B, K, S) codes; a vision config's patch_embeds too), the collectives'
     input, and the (data, model) mesh shape and the archs both sides
     run."""
     rng = np.random.default_rng(22)
     for arch in archs:
-        params = jax.tree.map(np.asarray, fan_in_params(
-            arch.partition("@")[0]))
-        vocab = int(params["embed"].shape[0])
-        tokens = rng.integers(0, vocab, (B, S)).astype(np.int32)
+        name = arch.partition("@")[0]
+        params = jax.tree.map(np.asarray, fan_in_params(name))
+        fe = get_smoke_config(name).frontend
+        vocab = get_smoke_config(name).vocab_size
+        k = (fe.num_positions,) if fe and fe.modality == "audio" else ()
+        tokens = rng.integers(0, vocab, (B, *k, S)).astype(np.int32)
+        batch = dict(tokens=tokens, labels=np.roll(tokens, -1, axis=-1),
+                     decode=rng.integers(0, vocab, (B, *k, STEPS))
+                     .astype(np.int32))
+        if fe and fe.modality == "vision":
+            batch["patch_embeds"] = rng.standard_normal(
+                (B, fe.num_positions, fe.d_frontend), dtype=np.float32)
         np.savez(work / f"inputs_{arch}.npz", **_flat(params, "params"),
-                 tokens=tokens, labels=np.roll(tokens, -1, axis=1),
-                 decode=rng.integers(0, vocab, (B, STEPS)).astype(np.int32))
+                 **batch)
     np.save(work / "collectives_in.npy",
             rng.standard_normal((4 * 3, 8)).astype(np.float32))
     (work / "lm.json").write_text(json.dumps({"mesh": list(mesh),
@@ -219,6 +229,34 @@ def check_train_step(work, arch):
     step_agrees(got, want, _params_of(work, arch), arch)
 
 
+def check_rows(work, archs, mesh=(2, 2)):
+    """Each rank was fed only its dp rows of every batch entry: B / data
+    rows (all of them where the data axis is 1), every other dim whole; a
+    decode step's ids one position."""
+    dp = mesh[0]
+    for arch in archs:
+        inputs = np.load(work / f"inputs_{arch}.npz")
+        want = {k: [B // dp, *inputs[k].shape[1:]]
+                for k in ("tokens", "labels", "patch_embeds") if k in inputs}
+        want["decode"] = [B // dp, *inputs["decode"].shape[1:-1], 1]
+        for r in range(4):
+            report = json.loads((work / f"lm_{r}.json").read_text())
+            assert report[arch]["local_rows"] == want, (arch, r)
+
+
+def check_greedy(work, archs):
+    """`greedy_generate` on each rank's rows gives every rank the whole
+    (B, steps + 1) ids ((B, K, steps + 1) for audio), equal to the
+    unsharded run's."""
+    for arch in archs:
+        inputs = np.load(work / f"inputs_{arch}.npz")
+        want = [B, *inputs["tokens"].shape[1:-1], STEPS + 1]
+        for r in range(4):
+            report = json.loads((work / f"lm_{r}.json").read_text())
+            assert report[arch]["greedy"] == {"shape": want,
+                                              "equal": True}, (arch, r)
+
+
 WRONG = ("unchanged", "one_leaf_unchanged", "one_update_flipped",
          "one_gradient_halved")
 
@@ -300,6 +338,14 @@ def test_checks_reject_a_wrong_step(runs, arch, wrong):
     the other way, or its gradient halved, each fail the checks above."""
     with pytest.raises(AssertionError):
         wrong_step(runs, arch, wrong)()
+
+
+def test_each_rank_is_fed_only_its_dp_rows(runs):
+    check_rows(runs, ARCHS)
+
+
+def test_greedy_ids_on_dp_rows_equal_the_unsharded(runs):
+    check_greedy(runs, ARCHS)
 
 
 @pytest.mark.parametrize("name", COLLECTIVES)

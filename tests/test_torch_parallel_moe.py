@@ -15,7 +15,7 @@ import pytest
 
 from test_torch_parallel_lm import (
     LOGITS, WRONG, check_caches, check_grads, check_logits, check_loss,
-    check_train_step, mesh_runs, wrong_step)
+    check_rows, check_train_step, mesh_runs, wrong_step)
 
 ARCHS = ["qwen2_moe_a2_7b", "qwen2_moe_a2_7b@0.25"]
 
@@ -50,6 +50,10 @@ def test_grads_match_the_reference(runs, arch):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_train_step_matches_the_reference(runs, arch):
     check_train_step(runs, arch)
+
+
+def test_each_rank_is_fed_only_its_dp_rows(runs):
+    check_rows(runs, ARCHS)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
