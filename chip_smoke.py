@@ -563,6 +563,50 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
+class KernelCount:
+    """A kernel counter of the default metrics registry, read as the count
+    since `reset()`."""
+
+    def __init__(self, name: str):
+        self.name, self.base = name, 0
+
+    def total(self) -> int:
+        from repro_torch.obs.metrics import default_registry
+        return default_registry().value(self.name, 0)
+
+    def reset(self) -> None:
+        self.base = self.total()
+
+    @property
+    def n(self) -> int:
+        return self.total() - self.base
+
+
+BP_LAUNCHES = KernelCount("kernels.backproject.launches")
+ATTN_LAUNCHES = KernelCount("kernels.attention.launches")
+ATTN_WINDOW_LAUNCHES = KernelCount("kernels.attention.window_launches")
+
+
+def direct_pairs(fn):
+    """fn() in one fenced span of a fresh enabled tracer: its result, and
+    the directly gathered and all (tile, projection) pairs of the
+    back-projection launches it made, as the registry counts them at the
+    fences that read the launches' counts."""
+    from repro_torch.obs.trace import Tracer, set_tracer
+    direct = KernelCount("kernels.backproject.direct_pairs")
+    pairs = KernelCount("kernels.backproject.tile_pairs")
+    direct.reset()
+    pairs.reset()
+    tracer = Tracer(enabled=True)
+    prev = set_tracer(tracer)
+    try:
+        with tracer.span("smoke.direct_pairs") as sp:
+            out = sp.fence(fn())
+    finally:
+        set_tracer(prev)
+    return out, direct.n, pairs.n
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -700,8 +744,9 @@ def reconstruction(dev) -> tuple:
         rels, shares = [], []
         for codec in CODECS:
             params, qt = kernel_inputs(geom, None, codec, pm=pm, filt=filt)
-            got = bpk.backproject_dual(params, qt, *shape)
-            shares.append(int(bpk.direct_pairs) / bpk.tile_pairs)
+            got, direct, pairs = direct_pairs(
+                lambda: bpk.backproject_dual(params, qt, *shape))
+            shares.append(direct / pairs)
             want = bpk.backproject_dual_torch(params, qt, *shape)
             sync()
             err = float((got - want).abs().max())
@@ -726,13 +771,14 @@ def reconstruction(dev) -> tuple:
         fn(proj)  # warm-up
         sync()
         torch.cuda.reset_peak_memory_stats()
-        bpk.launches = fak.launches = 0
+        BP_LAUNCHES.reset()
+        ATTN_LAUNCHES.reset()
         t0 = time.perf_counter()
         vol = fn(proj)
         sync()
         dt = time.perf_counter() - t0
-        launches[codec] = bpk.launches
-        direct = int(bpk.direct_pairs)
+        launches[codec] = BP_LAUNCHES.n
+        _, direct, pairs = direct_pairs(lambda: fn(proj))
         peak = torch.cuda.max_memory_allocated()
         if tuple(vol.shape) != g.volume_shape() or not torch.isfinite(vol).all():
             fail(f"reconstruction {codec}: bad volume {tuple(vol.shape)}")
@@ -741,7 +787,7 @@ def reconstruction(dev) -> tuple:
               f"{peak / 2**30:.2f} GiB, kernel launches {launches[codec]}, "
               f"interior RMSE vs phantom {rmse:.4f} (bound {RMSE_BOUND}); "
               f"direct-gather (tile, projection) pairs {direct} of "
-              f"{bpk.tile_pairs} ({direct / bpk.tile_pairs:.4%})")
+              f"{pairs} ({direct / pairs:.4%})")
         if launches[codec] < 1:
             fail(f"reconstruction {codec} did not launch the kernel")
         if not rmse < RMSE_BOUND:
@@ -779,7 +825,9 @@ def reconstruction(dev) -> tuple:
         ms = event_ms(lambda: bpk.backproject_dual(params, qt, *shape),
                       TIMED_LAUNCHES)
         sync()
-        direct_share = int(bpk.direct_pairs) / bpk.tile_pairs
+        _, direct, pairs = direct_pairs(
+            lambda: bpk.backproject_dual(params, qt, *shape))
+        direct_share = direct / pairs
         unstaged_ms = event_ms(
             lambda: bpk.backproject_dual(params, qt, *shape, stage_bytes=0),
             TIMED_LAUNCHES)
@@ -869,8 +917,9 @@ def kernel_delta(g, proj, entries) -> None:
     by_codec = dict(zip(MAIN_PATH_CODECS, entries))
     for codec in CODECS:
         params, qt = delta_operands(g, proj, codec, lo, hi)
-        got = bpk.backproject_dual(params, qt, *shape)
-        shares.append(int(bpk.direct_pairs) / bpk.tile_pairs)
+        got, direct, pairs = direct_pairs(
+            lambda: bpk.backproject_dual(params, qt, *shape))
+        shares.append(direct / pairs)
         want = bpk.backproject_dual_torch(params, qt, *shape)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
@@ -1036,7 +1085,7 @@ def streaming_sessions(g, proj, phantom, path, thread, peeked, launches,
         sess = plan.build_incremental(source=ProjectionSource(path))
         sync()
         torch.cuda.reset_peak_memory_stats()
-        bpk.launches = 0
+        BP_LAUNCHES.reset()
         t0 = time.perf_counter()
         peek = ""
         if codec == MAIN_PATH_CODECS[0]:
@@ -1058,7 +1107,7 @@ def streaming_sessions(g, proj, phantom, path, thread, peeked, launches,
         vol = sess.finalize()
         sync()
         dt = time.perf_counter() - t0
-        n_launch = bpk.launches
+        n_launch = BP_LAUNCHES.n
         peak = torch.cuda.max_memory_allocated()
         rel = rel_max(vol, ref)
         rmse = interior_rmse(vol, phantom)
@@ -1082,7 +1131,7 @@ def streaming_sessions(g, proj, phantom, path, thread, peeked, launches,
         # staged (its filter and gather ride along with acquisition),
         # then update(staged, finalize=True) timed.
         tails, fused_s = [], []
-        bpk.launches = 0
+        BP_LAUNCHES.reset()
         for _ in range(TAIL_RUNS):
             s = plan.build_incremental()
             for k in range(N_STEPS - 1):
@@ -1095,7 +1144,7 @@ def streaming_sessions(g, proj, phantom, path, thread, peeked, launches,
             sync()
             tails.append(time.perf_counter() - t0)
             del s, staged
-        n_tail = bpk.launches
+        n_tail = BP_LAUNCHES.n
         for _ in range(TAIL_RUNS):
             t0 = time.perf_counter()
             fused(proj)
@@ -1137,12 +1186,12 @@ def batched(g, proj) -> dict:
         both(scans)     # warm-up
         sync()
         torch.cuda.reset_peak_memory_stats()
-        bpk.launches = 0
+        BP_LAUNCHES.reset()
         t0 = time.perf_counter()
         out = both(scans)
         sync()
         t_batch = time.perf_counter() - t0
-        launches[codec] = bpk.launches
+        launches[codec] = BP_LAUNCHES.n
         peak = torch.cuda.max_memory_allocated()
         t_scans, same = 0.0, []
         for b in range(2):
@@ -1202,13 +1251,13 @@ def io_phase(dev, g, proj, work: str) -> tuple:
         fn = plan.build(source=src, sink=sink)
         tracer = Tracer(enabled=True)
         prev = set_tracer(tracer)
-        bpk.launches = 0
+        BP_LAUNCHES.reset()
         try:
             vol = fn()
             sync()
         finally:
             set_tracer(prev)
-        n_launch = bpk.launches
+        n_launch = BP_LAUNCHES.n
         want = plan.build()(loaded)
         same_vol = torch.equal(vol, want)
         back = sink.read()
@@ -1252,12 +1301,12 @@ def trace_phase(g, proj) -> int:
     torch.cuda.synchronize()
     tracer = Tracer(enabled=True)
     prev = set_tracer(tracer)
-    bpk.launches = 0
+    BP_LAUNCHES.reset()
     try:
         fn(proj)
     finally:
         set_tracer(prev)
-    n_launch = bpk.launches
+    n_launch = BP_LAUNCHES.n
     (span,) = tracer.spans("engine.reconstruct")
     span_ms, dispatch_ms = span["dur"] / 1e3, span["args"]["dispatch_us"] / 1e3
     with tempfile.TemporaryDirectory() as tmp:
@@ -1297,14 +1346,13 @@ def tiles_phase(g, proj) -> dict:
         peak = float(want.abs().max())
         parts = []
         for t in bpk.TILES:
-            got = bpk.backproject_dual(params, qt, *shape, tile=t)
-            torch.cuda.synchronize()
+            got, direct, pairs = direct_pairs(
+                lambda: bpk.backproject_dual(params, qt, *shape, tile=t))
             rel = float((got - want).abs().max()) / peak
-            direct = int(bpk.direct_pairs)
             model = bpk.staging_stats(params, g.n_u, g.n_v, g.n_x, g.n_y,
                                       g.n_z // 2, t, None, qt.dtype)
             parts.append(f"{t} {rel:.3e}, direct "
-                         f"{direct / bpk.tile_pairs:.4%}")
+                         f"{direct / pairs:.4%}")
             if not rel <= REL_TOL:
                 fail(f"tile {t} {codec} disagrees with the plain version: "
                      f"{rel:.3e} > {REL_TOL:.0e}")
@@ -1383,12 +1431,12 @@ def tune_phase(g, proj, phantom, tile_ms) -> dict:
         fn = plan.build()
         fn(proj)
         torch.cuda.synchronize()
-        bpk.launches = 0
+        BP_LAUNCHES.reset()
         t1 = time.perf_counter()
         vol = fn(proj)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t1
-        launches[codec] = bpk.launches
+        launches[codec] = BP_LAUNCHES.n
         dflt = ReconstructionPlan(
             geometry=g, impl="kernel", precision=codec,
             blocks=bpk.DEFAULT_TILE,
@@ -1504,7 +1552,7 @@ def traced_phase(g, proj) -> tuple:
         t_build = time.perf_counter() - t1
         tracer = Tracer(enabled=True)
         prev = set_tracer(tracer)
-        bpk.launches = 0
+        BP_LAUNCHES.reset()
         try:
             for _ in range(TRACED_RUNS):
                 t1 = time.perf_counter()
@@ -1513,7 +1561,7 @@ def traced_phase(g, proj) -> tuple:
                 t_traced = time.perf_counter() - t1
         finally:
             set_tracer(prev)
-        launches[codec] = bpk.launches
+        launches[codec] = BP_LAUNCHES.n
         rel = rel_max(got, want)
         totals = {k: v / TRACED_RUNS for k, v in
                   tracer.stage_totals().items()}
@@ -1544,12 +1592,12 @@ def traced_phase(g, proj) -> tuple:
         sess = dataclasses.replace(plan, schedule="incremental",
                                    n_steps=N_STEPS).build_traced()
         n_d = g.n_proj // N_STEPS
-        bpk.launches = 0
+        BP_LAUNCHES.reset()
         for lo in range(0, g.n_proj, n_d):
             vol = sess.update(proj[lo:lo + n_d], (lo, lo + n_d),
                               finalize=lo + n_d == g.n_proj)
         sync()
-        n_launch = bpk.launches
+        n_launch = BP_LAUNCHES.n
         launches[codec] += n_launch
         rel = rel_max(vol, engine(proj))
         print(f"[traced] incremental {codec}, {N_STEPS} deltas: finalized "
@@ -1627,18 +1675,18 @@ def auto_phase(g, proj, phantom) -> dict:
     fn = measured.build()
     fn(proj)
     torch.cuda.synchronize()
-    bpk.launches = 0
+    BP_LAUNCHES.reset()
     t1 = time.perf_counter()
     vol = fn(proj)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t1
     codec = measured.resolved_precision().storage
     if codec in launches:
-        launches[codec] = bpk.launches
+        launches[codec] = BP_LAUNCHES.n
     rmse = interior_rmse(vol, phantom)
     print(f"[auto] auto_plan(measure=True) picked {head[0].spec()} "
           f"(measured {head[0].measured:.4f} s in refine); its "
-          f"reconstruction {dt:.4f} s, kernel launches {bpk.launches}, "
+          f"reconstruction {dt:.4f} s, kernel launches {BP_LAUNCHES.n}, "
           f"interior RMSE {rmse:.4f} (bound {RMSE_BOUND})")
     if not rmse < RMSE_BOUND or vol.shape != g.volume_shape():
         fail(f"auto plan reconstruction: RMSE {rmse:.4f}")
@@ -1655,12 +1703,12 @@ def count_launches(svc, plans: dict, launches: dict) -> None:
     serve_bucket = svc._serve_bucket
 
     def counted(bucket, *args):
-        n0 = bpk.launches
+        n0 = BP_LAUNCHES.n
         try:
             return serve_bucket(bucket, *args)
         finally:
             codec = plans[bucket.family].resolved_precision().storage
-            launches[codec] = launches.get(codec, 0) + bpk.launches - n0
+            launches[codec] = launches.get(codec, 0) + BP_LAUNCHES.n - n0
 
     svc._serve_bucket = counted
 
@@ -1727,7 +1775,7 @@ def service_phase(g, proj, phantom, work: str) -> tuple:
         prev = set_tracer(tracer)
         sync()
         torch.cuda.reset_peak_memory_stats()
-        bpk.launches = 0
+        BP_LAUNCHES.reset()
         t0 = time.perf_counter()
         try:
             svc.drain()
@@ -1736,7 +1784,7 @@ def service_phase(g, proj, phantom, work: str) -> tuple:
             set_tracer(prev)
         dt = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
-        n_launch = bpk.launches
+        n_launch = BP_LAUNCHES.n
         st = svc.stats()
         bad = [t.scan_id for t in tickets if t.state is not TicketState.DONE]
         if bad:
@@ -1865,7 +1913,7 @@ def serve_loop_phase(svc, g, proj, seconds_a: list) -> dict:
     per_scan = sum(seconds_a) / len(seconds_a)
     deadline = 4 * per_scan
     st0 = svc.stats()
-    bpk.launches = 0
+    BP_LAUNCHES.reset()
     t0 = time.perf_counter()
     svc.serve()
     tickets = [svc.submit(projections=p, geometry=g, impl="kernel",
@@ -1873,7 +1921,7 @@ def serve_loop_phase(svc, g, proj, seconds_a: list) -> dict:
     waited = [t.wait(timeout=120) for t in tickets]
     wall = time.perf_counter() - t0
     svc.shutdown()
-    n_launch = bpk.launches
+    n_launch = BP_LAUNCHES.n
     st = svc.stats()
     if not all(waited) or any(t.state is not TicketState.DONE
                               for t in tickets):
@@ -1952,7 +2000,7 @@ def resumable_phase(g, proj, work: str) -> dict:
             saves.append(time.perf_counter() - t0)
 
         mgr.save = timed_save
-        bpk.launches = 0
+        BP_LAUNCHES.reset()
         r1 = ResumableReconstruction(step, zeros, N_STEPS, mgr,
                                      checkpoint_every=2)
         try:
@@ -1970,7 +2018,7 @@ def resumable_phase(g, proj, work: str) -> dict:
         cursor = r2.state.cursor
         got = r2.run()
         sync()
-        n_launch = bpk.launches
+        n_launch = BP_LAUNCHES.n
     same = torch.equal(got, want)
     fused = ReconstructionPlan(geometry=g, impl="kernel",
                                precision="fp32").build()(proj)
@@ -2038,9 +2086,9 @@ def mesh_one(dev, g, proj) -> dict:
                     sync()
                     want, t_none = timed(base)
                     before = dict(fn.collectives.bytes)
-                    bpk.launches = 0
+                    BP_LAUNCHES.reset()
                     got, t_mesh = timed(fn)
-                    n_launch = bpk.launches
+                    n_launch = BP_LAUNCHES.n
                     moved = {k: v - before[k]
                              for k, v in fn.collectives.bytes.items()}
                     t_mesh = (t_mesh + timed(fn)[1]) / 2
@@ -2110,13 +2158,13 @@ def mesh_sessions(g, proj, mesh) -> int:
     none = fold_session(ReconstructionPlan(**kw), proj, N_STEPS)
     launches, vols = 0, {}
     for red in MESH_SESSION_REDUCES:
-        bpk.launches = 0
+        BP_LAUNCHES.reset()
         t0 = time.perf_counter()
         part = fold_session(ReconstructionPlan(mesh=mesh, reduce=red, **kw),
                             proj, N_STEPS, mesh)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        n_launch = bpk.launches
+        n_launch = BP_LAUNCHES.n
         launches += n_launch
         vol = assemble_volume(part, mesh, red).reshape(g.volume_shape())
         if red == "scatter_bf16":
@@ -2153,23 +2201,23 @@ def mesh_traced(g, proj, mesh) -> int:
 
     kw = dict(geometry=g, impl="kernel", precision="fp32")
     want = ReconstructionPlan(**kw).build_traced()(proj)
-    bpk.launches = 0
+    BP_LAUNCHES.reset()
     got = assemble_volume(
         ReconstructionPlan(mesh=mesh, **kw).build_traced()(proj), mesh,
         "psum")
     torch.cuda.synchronize()
-    n_launch = bpk.launches
+    n_launch = BP_LAUNCHES.n
     engine_ok = torch.equal(got, want)
     kw.update(schedule="incremental", n_steps=N_STEPS)
     none = ReconstructionPlan(**kw)
     want = fold_session(none, proj, N_STEPS, session=none.build_traced())
     plan = ReconstructionPlan(mesh=mesh, **kw)
     sess = plan.build_traced()
-    bpk.launches = 0
+    BP_LAUNCHES.reset()
     got = assemble_volume(fold_session(plan, proj, N_STEPS, mesh, sess),
                           mesh, "psum")
     torch.cuda.synchronize()
-    n_launch += bpk.launches
+    n_launch += BP_LAUNCHES.n
     session_ok = torch.equal(got, want)
     print(f"[mesh-1x1] build_traced() fp32 psum bit-equal to mesh=None's: "
           f"{engine_ok}; the traced session ({N_STEPS} deltas) bit-equal "
@@ -2254,13 +2302,14 @@ def mesh_rank(rank: int, world: int, work: str) -> None:
             fn = plan.build()
             case = {"bp_call_shape": list(plan.bp_call_shape())}
             dist.barrier()
-            bpk.launches = 0
+            BP_LAUNCHES.reset()
             t0 = time.perf_counter()
             part = fn(local)
             torch.cuda.synchronize()
             case["seconds"] = time.perf_counter() - t0
-            case["launches"] = bpk.launches
-            case["direct_share"] = int(bpk.direct_pairs) / bpk.tile_pairs
+            case["launches"] = BP_LAUNCHES.n
+            _, direct, pairs = direct_pairs(lambda: fn(local))
+            case["direct_share"] = direct / pairs
             case["out_shape"] = list(part.shape)
             case["bytes"] = dict(fn.collectives.bytes)
             vol = assemble_volume(part, mesh, red).reshape(g.volume_shape())
@@ -2668,12 +2717,14 @@ def generate(tag: str, cfg, params, prompt, s_max=None) -> dict:
     n_attn = attention_layers(cfg)
     n_window = n_attn if kernel_window(cfg, n_pos) else 0
     torch.cuda.reset_peak_memory_stats()
-    bpk.launches = fak.launches = fak.window_launches = 0
+    BP_LAUNCHES.reset()
+    ATTN_LAUNCHES.reset()
+    ATTN_WINDOW_LAUNCHES.reset()
     t0 = time.perf_counter()
     ids = greedy_generate(cfg, params, prompt, steps=STEPS, s_max=s_max)
     sync()
     total_s = time.perf_counter() - t0
-    launches, window_launches = fak.launches, fak.window_launches
+    launches, window_launches = ATTN_LAUNCHES.n, ATTN_WINDOW_LAUNCHES.n
     peak = torch.cuda.max_memory_allocated()
     if tuple(ids.shape) != (*tokens.shape[:-1], STEPS + 1) or not (
             0 <= int(ids.min()) and int(ids.max()) < cfg.vocab_size):
@@ -2773,20 +2824,21 @@ def logit_checks(cfg, params, prompt, logits_k, cache,
     # inequality, if the kernel path is no further from f32 than the plain
     # one). In f32 only the summation order differs.
     cfg32 = cfg.scaled(dtype="float32")
-    before = fak.launches
+    before = ATTN_LAUNCHES.n
     with plain_attention_step(L):
         logits_p, _ = T.prefill(params, cfg, prompt)
         logits_32p, _ = T.prefill(params, cfg32, prompt)
     sync()
-    if fak.launches != before:
+    if ATTN_LAUNCHES.n != before:
         fail("the plain attention step launched the kernel")
-    fak.launches = fak.window_launches = 0
+    ATTN_LAUNCHES.reset()
+    ATTN_WINDOW_LAUNCHES.reset()
     logits_32k, _ = T.prefill(params, cfg32, prompt)
     sync()
-    f32_launches = fak.launches
-    if f32_launches != n_attn or fak.window_launches != n_window:
+    f32_launches = ATTN_LAUNCHES.n
+    if f32_launches != n_attn or ATTN_WINDOW_LAUNCHES.n != n_window:
         fail(f"{tag} the f32 prefill launched the kernel {f32_launches} "
-             f"times ({fak.window_launches} windowed), not {n_attn} "
+             f"times ({ATTN_WINDOW_LAUNCHES.n} windowed), not {n_attn} "
              f"({n_window})")
     e_plain = rel_rmse(logits_p, logits_32p)
     bf16_bound = 2 * e_plain
@@ -2994,19 +3046,19 @@ def train_check(cfg, dev) -> None:
     res, ce = {}, {}
     for dt in ("float32", "bfloat16"):
         c = cfg_cut.scaled(dtype=dt)
-        fak.launches = 0
+        ATTN_LAUNCHES.reset()
         res[dt, "kernel"] = loss_and_grads(params, c, batch)
         torch.cuda.synchronize()
-        if fak.launches != 2 * TRAIN_CHECK_LAYERS:
+        if ATTN_LAUNCHES.n != 2 * TRAIN_CHECK_LAYERS:
             fail(f"{dt} loss_fn launched the attention kernel "
-                 f"{fak.launches} times, not {2 * TRAIN_CHECK_LAYERS}")
+                 f"{ATTN_LAUNCHES.n} times, not {2 * TRAIN_CHECK_LAYERS}")
         ce[dt, "kernel"] = token_ce(params, c, batch)
-        launched = fak.launches
+        launched = ATTN_LAUNCHES.n
         with plain_attention_step(L):
             res[dt, "plain"] = loss_and_grads(params, c, batch)
             ce[dt, "plain"] = token_ce(params, c, batch)
         torch.cuda.synchronize()
-        if fak.launches != launched:
+        if ATTN_LAUNCHES.n != launched:
             fail("the plain attention step launched the kernel")
 
     def dist(a, b):
@@ -3181,17 +3233,17 @@ def launch_phase(cfg, dev, work: str) -> tuple:
         sync()
         torch.cuda.reset_peak_memory_stats()
         counter = D.TraceCounter()
-        fak.launches = 0
+        ATTN_LAUNCHES.reset()
         with counter:
             run()
         sync()
         peak = torch.cuda.max_memory_allocated() - base
-        launches += fak.launches
+        launches += ATTN_LAUNCHES.n
         calls = dry["kernel_calls"].get("flash_attention", 0)
         print(f"[launch] {tag}: dry run {dry['trace_s']:.1f} s on the host, "
               f"FLOPs {dry['traced_flops_per_dev']} (card "
               f"{counter.flops}), attention operator {calls} calls (card "
-              f"{fak.launches} launches, want {want_calls}); peak memory "
+              f"{ATTN_LAUNCHES.n} launches, want {want_calls}); peak memory "
               f"predicted {dry['peak_mem_bytes'] / 1e9:.3f} GB, measured "
               f"{peak / 1e9:.3f} GB ({dry['peak_mem_bytes'] / peak - 1:+.1%},"
               f" band +-{LAUNCH_MEM_BAND:.0%}); predicted by kind "
@@ -3200,9 +3252,9 @@ def launch_phase(cfg, dev, work: str) -> tuple:
             fail(f"[launch] {tag}: the dry run counts "
                  f"{dry['traced_flops_per_dev']} FLOPs, the card's run "
                  f"{counter.flops}")
-        if not calls == fak.launches == want_calls:
+        if not calls == ATTN_LAUNCHES.n == want_calls:
             fail(f"[launch] {tag}: {calls} operator calls dry, "
-                 f"{fak.launches} launches on the card, want {want_calls}")
+                 f"{ATTN_LAUNCHES.n} launches on the card, want {want_calls}")
         if abs(dry["peak_mem_bytes"] / peak - 1) > LAUNCH_MEM_BAND:
             fail(f"[launch] {tag}: predicted peak {dry['peak_mem_bytes']} "
                  f"B, measured {peak} B, past +-{LAUNCH_MEM_BAND:.0%}")
@@ -3321,13 +3373,13 @@ def training(cfg, dev) -> dict:
 
     def one(batch):
         nonlocal state
-        fak.launches = 0
+        ATTN_LAUNCHES.reset()
         state, metrics = step(state, batch)
         sync()
-        if fak.launches != per_step:
+        if ATTN_LAUNCHES.n != per_step:
             fail(f"a train step launched the attention kernel "
-                 f"{fak.launches} times, not {per_step}")
-        count["launches"] += fak.launches
+                 f"{ATTN_LAUNCHES.n} times, not {per_step}")
+        count["launches"] += ATTN_LAUNCHES.n
         count["steps"] += 1
         values = {k: float(v) for k, v in metrics.items()}
         if not all(math.isfinite(v) for v in values.values()):
@@ -4106,13 +4158,13 @@ def serve_path(cfg, params, prompt, forced, rules, dev) -> dict:
     barrier = dist.barrier if sharded else (lambda: None)
     out = {}
     barrier()
-    fak.launches = 0
+    ATTN_LAUNCHES.reset()
     t0 = time.perf_counter()
     with recorded_routing() as calls:
         logits, cache = T.prefill(params, f32, prompt, rules)
         sync()
     out["f32_prefill_s"] = time.perf_counter() - t0
-    out["f32_launches"] = fak.launches
+    out["f32_launches"] = ATTN_LAUNCHES.n
     drops = torch.tensor([float((~r.keep).sum()) for r in calls],
                          device=dev)
     kept = torch.tensor([float(r.keep.numel()) for r in calls], device=dev)
@@ -4132,13 +4184,13 @@ def serve_path(cfg, params, prompt, forced, rules, dev) -> dict:
     del cache, logits
     torch.cuda.empty_cache()
     barrier()
-    fak.launches = 0
+    ATTN_LAUNCHES.reset()
     t0 = time.perf_counter()
     ids = greedy_generate(cfg, params, prompt, LM_MESH_STEPS,
                           PROMPT + LM_MESH_STEPS, rules)
     sync()
     out["greedy_s"] = time.perf_counter() - t0
-    out["bf16_launches"] = fak.launches
+    out["bf16_launches"] = ATTN_LAUNCHES.n
     out["ids"] = ids.cpu()
     barrier()
     sync()
@@ -4437,12 +4489,12 @@ def lm_mesh_train_rank(tcfg, rules, batch, init: str, out_dir: str,
     before = torch.cuda.memory_allocated()
     inputs = local_bytes([state, batch])
     dist.barrier()
-    fak.launches = 0
+    ATTN_LAUNCHES.reset()
     t0 = time.perf_counter()
     new, metrics = step(state, batch)
     torch.cuda.synchronize()
     top = torch.cuda.max_memory_allocated()
-    rep = {"step_s": time.perf_counter() - t0, "launches": fak.launches,
+    rep = {"step_s": time.perf_counter() - t0, "launches": ATTN_LAUNCHES.n,
            "peak_gib": top / 2**30, "peak": top - before + inputs,
            "metrics": {k: float(v) for k, v in metrics.items()}}
     print(f"[lm-mesh] rank {dist.get_rank()} train step at the {init} init: "

@@ -5,7 +5,6 @@ layer (core/plan.py) with `mesh=None, schedule="fused"`.
 """
 from __future__ import annotations
 
-import time
 import warnings
 from typing import Callable, Literal
 
@@ -70,28 +69,3 @@ def gups(g: CBCTGeometry, seconds: float) -> float:
     """The paper's metric: giga voxel-updates per second (§2.3)."""
     updates = g.n_x * g.n_y * g.n_z * float(g.n_proj)
     return updates / (seconds * 2**30)
-
-
-def timed_reconstruct(g: CBCTGeometry, projections,
-                      impl: BpImpl = "factorized", iters: int = 3,
-                      precision: Precision | str | None = "fp32",
-                      device="cuda"):
-    """Benchmark helper returning (volume, seconds_per_run, gups).
-
-    Times on the CUDA card only (host clock around work that ends in
-    `torch.cuda.synchronize()`, after one warm-up run); a CPU device raises.
-    """
-    from .plan import ReconstructionPlan
-    if torch.device(device).type != "cuda":
-        raise ValueError(
-            f"timed_reconstruct measures the CUDA card; got device={device!r}")
-    fn = ReconstructionPlan(geometry=g, impl=impl, precision=precision,
-                            device=device).build()
-    vol = fn(projections)  # warm-up
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        vol = fn(projections)
-    torch.cuda.synchronize()
-    dt = (time.perf_counter() - t0) / iters
-    return vol, dt, gups(g, dt)

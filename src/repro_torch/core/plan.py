@@ -49,7 +49,13 @@ reference does:
                             planner's calibration store
 
 Every engine call, fold and stage runs in a span of the process tracer
-(obs/trace.py), fenced on the card when the tracer is enabled.
+(obs/trace.py), fenced on the card when the tracer is enabled. Inside, the
+engine's own stages are device stages (`obs.trace.device_stage`, the
+``stage.*`` names of `obs.attribution.STAGE_FIELDS`): ``stage.filter``,
+``stage.backproject`` and ``stage.reduce`` (the row reduce, the FDK scale
+and, in a batched engine, the lane's store), whose device times the
+enclosing fence attaches to its span as ``device_ms`` without a wait of
+their own.
 
 For impl="kernel" the kernel's launch shape (tile, staging bytes) is
 resolved once at plan time by the tuner (kernels/backproject/tune.py,
@@ -70,7 +76,7 @@ from torch.distributed.device_mesh import DeviceMesh
 from torch._guards import detect_fake_mode
 
 from ..device import resolve_device
-from ..obs.trace import get_tracer, wait_for
+from ..obs.trace import device_stage, get_tracer, wait_for
 from ..parallel.mesh import (
     AXIS_DATA, AXIS_MODEL, AXIS_POD, axis_size, dp_axes,
 )
@@ -443,7 +449,8 @@ class ReconstructionPlan:
         # `filter_encode` is collective-free, `gather_cols` moves the wire
         # bytes over the model axis.
         def filter_encode(raw_b):
-            return tuple(codec.encode(filt(raw_b)))
+            with device_stage("stage.filter", self.device):
+                return tuple(codec.encode(filt(raw_b)))
 
         def gather_cols(pm_col, cols, async_op=False):
             if coll is None:
@@ -505,11 +512,17 @@ class ReconstructionPlan:
             red = coll.reduce_scatter_y(half, data_axis).to(torch.float32)
             return red, part - half.to(torch.float32)
 
+        impl = self._resolve_backprojector()
+
+        def backproject(*args, **kwargs):
+            with device_stage("stage.backproject", self.device):
+                return impl(*args, **kwargs)
+
         return _Stages(gather_batch=gather_batch,
                        filter_encode=filter_encode, gather_cols=gather_cols,
                        slab_pmats=slab_pmats, reduce_slab=reduce_slab,
                        scatter_compensated=scatter_compensated,
-                       backproject=self._resolve_backprojector(),
+                       backproject=backproject,
                        nx_slab=nx_slab, scale=fdk_scale(g), coll=coll, dp=dp,
                        data_axis=data_axis,
                        pod_axis=AXIS_POD if AXIS_POD in dp else None)
@@ -545,7 +558,8 @@ class ReconstructionPlan:
                                                      proj_local)()
                 slab = backproject(slab_pmats(pm_col), q_col,
                                    nx_slab, g.n_y, g.n_z, scales=sc_col)
-                return reduce_slab(slab) * scale
+                with device_stage("stage.reduce", proj_local.device):
+                    return reduce_slab(slab) * scale
             return fused
 
         if self.schedule == "pipelined":
@@ -556,7 +570,8 @@ class ReconstructionPlan:
                     acc = acc + backproject(slab_pmats(pm_col), q_col,
                                             nx_slab, g.n_y, g.n_z,
                                             scales=sc_col)
-                return reduce_slab(acc) * scale
+                with device_stage("stage.reduce", proj_local.device):
+                    return reduce_slab(acc) * scale
             return pipelined
 
         # chunked: per-y-chunk back-projection with an immediate per-chunk
@@ -581,22 +596,25 @@ class ReconstructionPlan:
                     part = backproject(shift_pmats_j(pm_slab, float(ci * yc)),
                                        q_col, nx_slab, yc, g.n_z,
                                        scales=sc_col)
-                    if compensated:
-                        red, err[:, ci] = st.scatter_compensated(part,
-                                                                 err[:, ci])
-                    elif scatter:
-                        red = coll.reduce_scatter_y(part, data_axis)
-                    elif data_axis is not None:
-                        red = coll.all_reduce(part, data_axis)
-                    else:
-                        red = part
-                    acc[:, ci] = acc[:, ci] + red
-            if pod_axis is not None:
-                acc = coll.all_reduce(acc, pod_axis)
-            if not scatter:
-                # dims 1,2 are contiguous locally when nothing is scattered
-                acc = acc.reshape(nx_slab, g.n_y, g.n_z)
-            return acc * scale
+                    with device_stage("stage.reduce", dev):
+                        if compensated:
+                            red, err[:, ci] = st.scatter_compensated(
+                                part, err[:, ci])
+                        elif scatter:
+                            red = coll.reduce_scatter_y(part, data_axis)
+                        elif data_axis is not None:
+                            red = coll.all_reduce(part, data_axis)
+                        else:
+                            red = part
+                        acc[:, ci] = acc[:, ci] + red
+            with device_stage("stage.reduce", dev):
+                if pod_axis is not None:
+                    acc = coll.all_reduce(acc, pod_axis)
+                if not scatter:
+                    # dims 1,2 are contiguous locally when nothing is
+                    # scattered
+                    acc = acc.reshape(nx_slab, g.n_y, g.n_z)
+                return acc * scale
         return chunked
 
     def _cache_key(self):
@@ -746,7 +764,11 @@ class ReconstructionPlan:
         another count, and a batch must not straddle two scans), and only
         one lane's intermediates are live at a time.
 
-        Engines are cached per (plan, batch_size) in build()'s LRU.
+        Engines are cached per (plan, batch_size) in build()'s LRU. With
+        the tracer on, the engine's fenced ``engine.batched`` span carries
+        `lanes` and the device times of every lane's stages summed
+        (``device_ms``; the lane's store into the output counts as
+        ``stage.reduce``).
         """
         if self.schedule == "incremental":
             raise ValueError(
@@ -774,15 +796,17 @@ class ReconstructionPlan:
             out = None
             for b in range(bsz):
                 lane = rank_fn(pm_steps, proj[b])
-                if out is None:
-                    out = torch.empty((bsz,) + tuple(lane.shape),
-                                      dtype=lane.dtype, device=lane.device)
-                out[b] = lane
+                with device_stage("stage.reduce", dev):
+                    if out is None:
+                        out = torch.empty((bsz,) + tuple(lane.shape),
+                                          dtype=lane.dtype,
+                                          device=lane.device)
+                    out[b] = lane
                 del lane
             return out
 
         attrs = self._span_attrs()
-        attrs["batch"] = bsz
+        attrs["batch"] = attrs["lanes"] = bsz
         batched_fn = _traced_call(batched_fn, "engine.batched", attrs)
         batched_fn.collectives = st.coll
         _ENGINE_CACHE.put(key, batched_fn)

@@ -25,8 +25,9 @@ kernel's online-softmax recurrence over ``bq x bk`` blocks (what its
 interpret mode runs); `flash_attention_bhsd` takes it only for tensors on
 the CPU. For a CUDA tensor it launches the kernel, whose tiles (64 queries
 for bf16, 128 for f32, by 64 keys) are fixed in its source, or raises;
-`bq` and `bk` only block the plain version. `launches` counts kernel
-launches, `window_launches` those with a window.
+`bq` and `bk` only block the plain version. The default metrics registry
+(obs/metrics.py) counts kernel launches, ``kernels.attention.launches``,
+and those with a window, ``kernels.attention.window_launches``.
 
 The launch is the operator `torch.ops.repro_torch.flash_attention_fwd`
 (`flash_attention_fwd`): on fake tensors (a dry run, `launch/dryrun.py`)
@@ -50,6 +51,7 @@ import torch
 from torch.utils.flop_counter import register_flop_formula
 
 from ...device import on_card
+from ...obs import metrics
 from ..build import CudaLibrary
 
 LIBRARY = CudaLibrary(
@@ -61,8 +63,10 @@ MAX_HEAD_DIM = 128
 # Codes of the C entry point's `dtype` argument.
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-launches = 0  # kernel launches by flash_attention_bhsd (never the plain path)
-window_launches = 0  # those of them with a sliding window
+# Registry counters of kernel launches (never the plain path's), and of
+# those with a sliding window.
+LAUNCHES = "kernels.attention.launches"
+WINDOW_LAUNCHES = "kernels.attention.window_launches"
 
 
 def _bound_library() -> ctypes.CDLL:
@@ -193,7 +197,6 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     0 for none): a fake tensor gets its output's shape and dtype from the
     fake implementation below, without the library, and a FlopCounterMode
     the count of `attention_flops`."""
-    global launches, window_launches
     lib = _bound_library()
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     bh, sq, d = q.shape
@@ -208,8 +211,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(
             f"flash-attention kernel launch failed: "
             f"{lib.fa_error_string(rc).decode()} (cudaError {rc})")
-    launches += 1
-    window_launches += window > 0
+    metrics.counter(LAUNCHES).inc()
+    if window > 0:
+        metrics.counter(WINDOW_LAUNCHES).inc()
     return out
 
 

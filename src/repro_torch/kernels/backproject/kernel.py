@@ -19,7 +19,7 @@ deterministic summation order), and gathers the taps from the footprint
 boxes of Q^T that it stages in shared memory. `footprint_boxes` is that
 rule in plain torch. A (tile, projection) whose boxes exceed the staging
 buffer is gathered from global memory inside the same kernel with the same
-arithmetic; `direct_pairs` counts them.
+arithmetic; the kernel counts them on the card.
 
 The launch shape is (tile, staging bytes). The tile is a template
 parameter of the kernel, compiled for each of `TILES` (the library lists
@@ -31,7 +31,15 @@ card: the tuner (tune.py) ranks launch shapes with them.
 `backproject_dual_torch` is the plain torch version of the same function
 with the kernel's arithmetic in the kernel's order; `backproject_dual`
 takes it only for tensors on the CPU. For a CUDA tensor it launches the
-kernel or raises. `launches` counts kernel launches.
+kernel or raises.
+
+The launches count into the default metrics registry (obs/metrics.py):
+``kernels.backproject.launches`` every launch. The count of directly
+gathered pairs stays on the card unless the tracer is on: then each launch
+hands it, with its number of (tile, projection) pairs, to the enclosing
+fencing span (`obs.trace.device_count`), which reads it after its wait,
+carries both as its ``direct_pairs`` and ``tile_pairs`` args and advances
+``kernels.backproject.direct_pairs`` and ``kernels.backproject.tile_pairs``.
 
 The launch is the operator `torch.ops.repro_torch.backproject_dual_launch`
 (`backproject_dual_launch`): on fake tensors (a dry run,
@@ -47,9 +55,12 @@ from pathlib import Path
 from typing import Optional, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 from torch.utils.flop_counter import register_flop_formula
 
 from ...device import on_card
+from ...obs import metrics
+from ...obs.trace import device_count
 from ..build import CudaLibrary
 
 LIBRARY = CudaLibrary(
@@ -85,12 +96,10 @@ STAGE_PIXELS = 26 * 1024
 COLUMN_OPS = 21
 PAIR_OPS = 35
 
-launches = 0  # kernel launches by backproject_dual (never by the plain path)
-# (tile, projection) pairs of the last launch whose boxes exceeded the
-# staging buffer and were gathered from global memory, as a 1-element
-# int64 tensor on the card (read it after a synchronize), and all pairs.
-direct_pairs: Optional[torch.Tensor] = None
-tile_pairs = 0
+# The registry counters this module advances (see the module docstring).
+LAUNCHES = "kernels.backproject.launches"
+TILE_PAIRS = "kernels.backproject.tile_pairs"
+DIRECT_PAIRS = "kernels.backproject.direct_pairs"
 
 _BOUND: Optional[ctypes.CDLL] = None
 
@@ -450,9 +459,10 @@ def backproject_dual(params13: torch.Tensor, qt: torch.Tensor,
     `tile` is one of `TILES` (None: the default, TILES[0]). `stage_bytes`
     is the kernel's shared-memory staging budget (None: the CUDA source's
     default); a (tile, projection) whose boxes exceed half of it is
-    gathered from global memory with the same arithmetic, and counted in
-    `direct_pairs`. With 0, every projection is gathered so. A launch
-    shape the card refuses (too much shared memory) raises."""
+    gathered from global memory with the same arithmetic, and counted on
+    the card (read at a traced fence, see the module docstring). With 0,
+    every projection is gathered so. A launch shape the card refuses (too
+    much shared memory) raises."""
     _check(params13, qt, nx, ny, nz)
     t = DEFAULT_TILE if tile is None else tuple(int(x) for x in tile)
     t_index = _tile_index(t)
@@ -462,12 +472,14 @@ def backproject_dual(params13: torch.Tensor, qt: torch.Tensor,
         if qt.device.type == "cpu":
             return backproject_dual_torch(params13, qt, nx, ny, nz)
         raise ValueError(f"no back-projection kernel for device {qt.device}")
-    global direct_pairs, tile_pairs
-    out, direct_pairs = backproject_dual_launch(
+    out, direct = backproject_dual_launch(
         params13.contiguous(), qt.contiguous(), nx, ny, nz, t_index,
         -1 if stage_bytes is None else stage_bytes)
-    tile_pairs = qt.shape[0] * math.prod(-(-n // d) for n, d in
-                                         zip((nx, ny, nz // 2), t))
+    pairs = qt.shape[0] * math.prod(-(-n // d) for n, d in
+                                    zip((nx, ny, nz // 2), t))
+    device_count("tile_pairs", pairs, TILE_PAIRS)
+    if not is_fake(direct):    # a dry run's launch counts nothing
+        device_count("direct_pairs", direct, DIRECT_PAIRS)
     return out
 
 
@@ -483,7 +495,6 @@ def backproject_dual_launch(params13: torch.Tensor, qt: torch.Tensor,
     int64 tensor. A fake tensor gets both shapes from the fake
     implementation below, without the library, and a FlopCounterMode the
     count of `backproject_ops`."""
-    global launches
     lib = _bound_library()
     n_p, nu, nv = qt.shape
     out = torch.empty((nx, ny, 2, nz // 2), dtype=torch.float32,
@@ -500,7 +511,7 @@ def backproject_dual_launch(params13: torch.Tensor, qt: torch.Tensor,
             f"back-projection kernel launch failed (tile "
             f"{TILES[tile_index]}, stage_bytes {stage_bytes}): "
             f"{lib.bp_error_string(rc).decode()} (cudaError {rc})")
-    launches += 1
+    metrics.counter(LAUNCHES).inc()
     return out, count
 
 

@@ -12,7 +12,12 @@ Port of `repro/kernels/backproject/ops.py`:
                        is no projection-batch block and no padding. The
                        launch shape (tile, staging bytes) not given
                        explicitly comes from the tuner (tune.pick_blocks),
-                       as the reference's block shape does.
+                       as the reference's block shape does. With the
+                       tracer on, its three parts are device stages of
+                       the enclosing fence (`obs.trace.device_stage`):
+                       ``bp.operands`` (the Q^T relayout and parameter
+                       rows), ``bp.kernel`` (the launch) and ``bp.unfold``
+                       (the dual slab restored).
   backproject_mxu    : the gather-free formulation — bilinear
                        interpolation recast as two products with relu-hat
                        weight matrices — in plain torch (the reference
@@ -26,6 +31,7 @@ from typing import Optional, Tuple
 import torch
 
 from ...core.backprojection import _stream_scales, from_dual_slab
+from ...obs.trace import device_stage
 from . import tune
 from .kernel import backproject_dual
 
@@ -65,15 +71,19 @@ def backproject_kernel(pmats: torch.Tensor, proj: torch.Tensor,
     device's shared-memory budget; a given one is pinned and the other
     tuned around it. Plans resolve both once, at build time.
     """
-    params, qt = kernel_operands(pmats, proj, scales)
+    dev = proj.device
+    with device_stage("bp.operands", dev):
+        params, qt = kernel_operands(pmats, proj, scales)
     if tile is None or stage_bytes is None:
         n_p, nu, nv = qt.shape
         tile, stage_bytes = tune.pick_blocks(
             nx, ny, nz, params, nu, nv, qt_dtype=qt.dtype,
             fix_tile=tile, fix_stage=stage_bytes)
-    return from_dual_slab(backproject_dual(params, qt, nx, ny, nz,
-                                           tile=tile,
-                                           stage_bytes=stage_bytes))
+    with device_stage("bp.kernel", dev):
+        dual = backproject_dual(params, qt, nx, ny, nz, tile=tile,
+                                stage_bytes=stage_bytes)
+    with device_stage("bp.unfold", dev):
+        return from_dual_slab(dual)
 
 
 # backproject_mxu's f32 working set per projection above which it refuses

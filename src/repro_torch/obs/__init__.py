@@ -5,15 +5,42 @@ Port of `repro/obs/__init__.py`, with the same exports:
 
   trace.py        nested monotonic-clock spans with explicit fencing (a
                   CUDA event per device, so a span covers dispatch and
-                  device compute), thread-safe, near-zero overhead when
-                  disabled, exported as Chrome/Perfetto ``trace_event``
-                  JSON.
+                  device compute), device stages timed by CUDA event
+                  pairs and resolved at the enclosing fence, device-side
+                  counts read there too, async per-request events,
+                  thread-safe, near-zero overhead when disabled, exported
+                  as Chrome/Perfetto ``trace_event`` JSON.
   metrics.py      named counters / gauges / fixed-bucket histograms behind
                   a process-global default registry; the engine cache, the
                   prefetcher and the write-behind executor report through
                   it.
   attribution.py  joins measured engine-stage spans onto the planner's
                   `PerfBreakdown` prediction — per-stage model error.
+
+The serving path (service/scheduler.py, core/plan.py, kernels/), with
+the tracer on:
+
+  service.loop.wait        the serve thread waiting for work
+  service.schedule         a pass's buckets formed, its loads queued
+  service.drain            one pass over its buckets
+  service.bucket           one bucket: args scan_ids, queue_ms (each
+                           scan's arrival to the bucket's start), pads;
+                           fenced, device_ms {"service.stack": ...}
+    service.bucket.assemble   its lanes made device tensors
+      service.lane.get        one lane's prefetch wait
+      service.lane.h2d        one lane's copy to the device: args bytes,
+                              src ("host"/"device"), pinned, scan_id
+    engine.batched         the batched engine, fenced: args lanes,
+                           device_ms {"stage.filter", "stage.backproject",
+                           "bp.operands", "bp.kernel", "bp.unfold",
+                           "stage.reduce"} summed over its lanes, and
+                           direct_pairs / tile_pairs of its kernel launches
+  scan (async, cat "scan") one scan's life from arrival to DONE or FAILED,
+                           id its scan_id
+
+The kernels count into the default registry: kernels.backproject.launches,
+.tile_pairs and .direct_pairs (the last two for launches read at a
+traced fence), kernels.attention.launches and .window_launches.
 
 Quick start::
 

@@ -88,8 +88,9 @@ class ScanTicket:
     `wait(timeout=)` blocks until the ticket is terminal (DONE or FAILED —
     the loop fires `_done_event` exactly at that transition), and
     `deadline_s` is the caller's time-to-volume SLO target, measured from
-    `submitted_at` (the scheduler counts `service.slo.met/missed` against
-    the absolute `deadline` at completion time).
+    the scan's arrival (`start`; the scheduler counts
+    `service.slo.met/missed` against the absolute `deadline` at
+    completion time).
     """
 
     scan_id: str
@@ -98,23 +99,35 @@ class ScanTicket:
     volume: Optional[object] = None
     error: Optional[BaseException] = None
     # Monotonic submit timestamp (time.perf_counter()), stamped by the
-    # scheduler at admission — the zero point for the queue-wait and
-    # time-to-volume latency histograms. None for hand-built tickets.
+    # scheduler at admission. None for hand-built tickets.
     submitted_at: Optional[float] = None
-    # Time-to-volume SLO target in seconds from submit (None = no SLO).
+    # Time-to-volume SLO target in seconds from arrival (None = no SLO).
     deadline_s: Optional[float] = None
+    # When the scan arrived, on the same clock: the caller's (a scanner's
+    # last projection, a request's receipt) or, by default, submit time.
+    # The zero point of the queue-wait and time-to-volume histograms and
+    # of the deadline. None for hand-built tickets.
+    arrived_at: Optional[float] = None
     _done_event: threading.Event = dataclasses.field(
         default_factory=threading.Event, repr=False, compare=False)
     _state_lock: threading.Lock = dataclasses.field(
         default_factory=threading.Lock, repr=False, compare=False)
 
     @property
+    def start(self) -> Optional[float]:
+        """Where the scan's latencies start: `arrived_at`, else
+        `submitted_at` (None for a hand-built ticket with neither)."""
+        return (self.arrived_at if self.arrived_at is not None
+                else self.submitted_at)
+
+    @property
     def deadline(self) -> Optional[float]:
         """Absolute SLO deadline on the `time.perf_counter()` clock, or
-        None when the scan has no SLO (or no submit timestamp)."""
-        if self.deadline_s is None or self.submitted_at is None:
+        None when the scan has no SLO (or no timestamp)."""
+        start = self.start
+        if self.deadline_s is None or start is None:
             return None
-        return self.submitted_at + self.deadline_s
+        return start + self.deadline_s
 
     @property
     def done(self) -> bool:

@@ -71,6 +71,16 @@ Serving modes:
 I/O overlap: all admitted scans' projection loads run on a prefetch thread
 (double-buffered — scan k+1 loads while scan k computes) and finished
 volumes are written behind (AsyncWriteback) while the next bucket runs.
+
+Tracing (obs/__init__.py lists the spans): with the process tracer on, the
+serving thread's time is spans of its own — waiting for work
+(``service.loop.wait``), forming buckets (``service.schedule``), each
+bucket's lanes fetched and copied (``service.lane.get``,
+``service.lane.h2d``, with the bytes copied) and stacked (the
+``service.stack`` device stage) — and each scan's life from arrival to its
+terminal state is one async event pair (category ``scan``, id its
+scan_id). Latencies start at the scan's arrival: `submit(arrived_at=)`,
+submit time by default.
 """
 from __future__ import annotations
 
@@ -88,7 +98,7 @@ from ..core.geometry import CBCTGeometry
 from ..device import resolve_device
 from ..io.streams import AsyncWriteback, SourcePrefetcher
 from ..obs.metrics import DEFAULT_TIME_BUCKETS, MetricsRegistry
-from ..obs.trace import get_tracer, wait_for
+from ..obs.trace import device_stage, get_tracer, wait_for
 from ..planner import (
     DEFAULT_HBM_BYTES, check_feasible, plan_footprint, point_from_plan,
 )
@@ -127,6 +137,15 @@ class _Bucket(NamedTuple):
         ds = [s.ticket.deadline for s in self.scans
               if s.ticket.deadline is not None]
         return min(ds) if ds else math.inf
+
+
+def _trace_scan(ticket: ScanTicket, t_end: float, tracer) -> None:
+    """The scan's life, from its arrival to `t_end` (its terminal
+    transition), as one async event pair of category ``scan``."""
+    if tracer.enabled and ticket.start is not None:
+        tracer.async_pair("scan", ticket.scan_id, round(ticket.start * 1e9),
+                          round(t_end * 1e9), cat="scan",
+                          state=ticket.state.value)
 
 
 class ReconstructionService:
@@ -233,14 +252,18 @@ class ReconstructionService:
 
     def submit(self, projections=None, *, geometry: CBCTGeometry,
                source=None, sink=None, scan_id: Optional[str] = None,
-               deadline_s: Optional[float] = None, **pins) -> ScanTicket:
+               deadline_s: Optional[float] = None,
+               arrived_at: Optional[float] = None, **pins) -> ScanTicket:
         """Admit one scan. Exactly one of `projections` (in-memory
         (N_p, N_v, N_u) array) / `source` (ProjectionSource, loaded by the
         prefetch thread at drain time) carries the data; `sink`
         (VolumeSink) enables write-behind store of the result. `deadline_s`
-        is the scan's time-to-volume SLO target (seconds from now; counted
-        in `service.slo.met/missed` at completion, and the `deadline`
-        policy schedules against it). `pins` are planner pins
+        is the scan's time-to-volume SLO target (seconds from its arrival;
+        counted in `service.slo.met/missed` at completion, and the
+        `deadline` policy schedules against it). `arrived_at` is when the
+        scan arrived, on the `time.perf_counter()` clock (None: now); the
+        queue wait, the time to volume and the deadline are measured from
+        it. `pins` are planner pins
         (precision=..., schedule=...) and widen the scan's family. Returns
         the scan's ticket; raises AdmissionError / QueueFullError instead
         of queueing work that cannot be served. Every rejection path counts
@@ -248,7 +271,8 @@ class ReconstructionService:
         try:
             return self._submit(projections, geometry=geometry,
                                 source=source, sink=sink, scan_id=scan_id,
-                                deadline_s=deadline_s, pins=pins)
+                                deadline_s=deadline_s, arrived_at=arrived_at,
+                                pins=pins)
         except AdmissionError:     # includes QueueFullError
             self._c["rejected"].inc()
             raise
@@ -260,7 +284,7 @@ class ReconstructionService:
                 "shed load")
 
     def _submit(self, projections, *, geometry: CBCTGeometry, source,
-                sink, scan_id, deadline_s, pins) -> ScanTicket:
+                sink, scan_id, deadline_s, arrived_at, pins) -> ScanTicket:
         if (projections is None) == (source is None):
             raise AdmissionError(
                 "pass exactly one of projections= (in-memory scan) or "
@@ -268,7 +292,13 @@ class ReconstructionService:
         if deadline_s is not None and deadline_s < 0:
             raise AdmissionError(
                 f"deadline_s={deadline_s} must be >= 0 (seconds from "
-                "submission)")
+                "arrival)")
+        if arrived_at is not None and not (
+                math.isfinite(arrived_at)
+                and arrived_at <= time.perf_counter()):
+            raise AdmissionError(
+                f"arrived_at={arrived_at} must be a time.perf_counter() "
+                "reading no later than now")
         if projections is not None:
             want = (geometry.n_proj, geometry.n_v, geometry.n_u)
             if tuple(projections.shape) != want:
@@ -285,9 +315,11 @@ class ReconstructionService:
         with self._cv:
             self._check_queue_bound()   # re-check: racing submitters
             self._seq += 1
+            now = time.perf_counter()
             ticket = ScanTicket(
                 scan_id=scan_id or f"scan-{self._seq}", family=family,
-                submitted_at=time.perf_counter(), deadline_s=deadline_s)
+                submitted_at=now, deadline_s=deadline_s,
+                arrived_at=now if arrived_at is None else arrived_at)
             self._queue.append(_QueuedScan(ticket=ticket,
                                            projections=projections,
                                            source=source, sink=sink,
@@ -340,9 +372,11 @@ class ReconstructionService:
                 plan = self.plan_cache.resolve(fam)
                 cap = self._bucket_capacity(fam, plan)
             except BaseException as e:
+                t_end = time.perf_counter()
                 for item in scans:
                     item.ticket._set_state(TicketState.FAILED, error=e)
                     self._observe_slo(item.ticket, t_done=None)
+                    _trace_scan(item.ticket, t_end, get_tracer())
                     failed.append(item.ticket)
                 self._c["failed"].inc(len(scans))
                 continue
@@ -414,12 +448,29 @@ class ReconstructionService:
         else:
             self._c["slo_missed"].inc()
 
-    def _lane(self, item: _QueuedScan, data) -> torch.Tensor:
+    def _lane(self, item: _QueuedScan, data, tracer) -> torch.Tensor:
         """One scan's lane on the device: this rank's rows of an in-memory
-        scan (all of it without a mesh), or a source's loaded rows."""
+        scan (all of it without a mesh), or a source's loaded rows. Its
+        copy is the ``service.lane.h2d`` span: `bytes` copied to the
+        device (0 when the scan is a tensor on it already, `src`
+        "device"), `src`, `pinned` (page-locked host memory) and
+        `scan_id`."""
         if item.source is None and self.mesh is not None:
             data = local_projections(data, self.mesh)
-        return torch.as_tensor(data, dtype=torch.float32, device=self.device)
+        with tracer.span("service.lane.h2d") as sp:
+            lane = torch.as_tensor(data, dtype=torch.float32,
+                                   device=self.device)
+            if tracer.enabled:
+                on_device = (isinstance(data, torch.Tensor)
+                             and data.device == lane.device)
+                sp.set(bytes=0 if on_device
+                       else lane.numel() * lane.element_size(),
+                       src="device" if on_device else "host",
+                       pinned=bool(isinstance(data, torch.Tensor)
+                                   and data.device.type == "cpu"
+                                   and data.is_pinned()),
+                       scan_id=item.ticket.scan_id)
+        return lane
 
     def _store(self, item: _QueuedScan, vol, layout, spec) -> Future:
         """Hand a finished volume to its sink: written behind without a
@@ -450,8 +501,13 @@ class ReconstructionService:
         tickets = [s.ticket for s in scans]
         for t in tickets:
             t._set_state(TicketState.BATCHED)
-            if t.submitted_at is not None:
-                self._h_queue_wait.observe(t_bucket0 - t.submitted_at)
+            if t.start is not None:
+                self._h_queue_wait.observe(t_bucket0 - t.start)
+        if tracer.enabled:
+            bucket_span.set(
+                scan_ids=[t.scan_id for t in tickets], pads=bsz - len(scans),
+                queue_ms=[None if t.start is None
+                          else 1e3 * (t_bucket0 - t.start) for t in tickets])
         # Consume EXACTLY len(scans) prefetch items FIRST, before
         # anything else in the bucket can fail: the prefetch queue
         # is positional (load job k belongs to scan k), so a
@@ -466,7 +522,8 @@ class ReconstructionService:
         lane_err: Optional[BaseException] = None
         for _ in scans:
             try:
-                lanes.append(prefetch.get())
+                with tracer.span("service.lane.get"):
+                    lanes.append(prefetch.get())
             except BaseException as e:
                 lanes.append(None)
                 if lane_err is None:
@@ -476,12 +533,14 @@ class ReconstructionService:
                 raise lane_err
             plan = self.plan_cache.resolve(fam)
             engine = plan.build_batched(bsz)
-            lanes = [self._lane(item, l) for item, l in zip(scans, lanes)]
+            lanes = [self._lane(item, l, tracer)
+                     for item, l in zip(scans, lanes)]
             n_loads = sum(1 for s in scans if s.source is not None)
             n_pad = bsz - len(lanes)
-            if n_pad:
-                lanes.extend([torch.zeros_like(lanes[0])] * n_pad)
-            batch = torch.stack(lanes)
+            with device_stage("service.stack", lanes[0].device):
+                if n_pad:
+                    lanes.extend([torch.zeros_like(lanes[0])] * n_pad)
+                batch = torch.stack(lanes)
             del lanes
             asm_span.__exit__(None, None, None)
             asm_span = None
@@ -503,9 +562,10 @@ class ReconstructionService:
             for i, item in enumerate(scans):
                 vol = out[i]
                 item.ticket._set_state(TicketState.DONE, volume=vol)
-                if item.ticket.submitted_at is not None:
-                    self._h_ttv.observe(t_done - item.ticket.submitted_at)
+                if item.ticket.start is not None:
+                    self._h_ttv.observe(t_done - item.ticket.start)
                 self._observe_slo(item.ticket, t_done)
+                _trace_scan(item.ticket, t_done, tracer)
                 if item.sink is not None:
                     writes.append((item.ticket,
                                    self._store(item, vol, layout, spec)))
@@ -516,8 +576,12 @@ class ReconstructionService:
             self._c["writebacks"].inc(
                 sum(1 for s in scans if s.sink is not None))
         except BaseException as e:
+            t_end = time.perf_counter()
             for item in scans:
+                ended = item.ticket.terminal   # its life is traced already
                 item.ticket._set_state(TicketState.FAILED, error=e)
+                if not ended:
+                    _trace_scan(item.ticket, t_end, tracer)
                 self._observe_slo(item.ticket, t_done=None)
             self._c["failed"].inc(len(scans))
         finally:
@@ -547,17 +611,18 @@ class ReconstructionService:
         serve every bucket, join the write-behind stores. `prefetch` is
         the serve loop's persistent prefetcher (extended with this pass's
         jobs); None builds a one-shot one (the synchronous drain() path)."""
-        buckets, served = self._make_buckets()
-        if not buckets:
-            return served
-        jobs = self._load_jobs(buckets)
-        own_prefetch = prefetch is None
-        if own_prefetch:
-            prefetch = SourcePrefetcher(jobs,
-                                        depth=self.prefetch_depth).start()
-        else:
-            prefetch.extend(jobs)
         tracer = get_tracer()
+        own_prefetch = prefetch is None
+        with tracer.span("service.schedule"):
+            buckets, served = self._make_buckets()
+            if not buckets:
+                return served
+            jobs = self._load_jobs(buckets)
+            if own_prefetch:
+                prefetch = SourcePrefetcher(
+                    jobs, depth=self.prefetch_depth).start()
+            else:
+                prefetch.extend(jobs)
         writes: List[Tuple[ScanTicket, object]] = []
         drain_span = tracer.span("service.drain", n_buckets=len(buckets))
         drain_span.__enter__()
@@ -645,8 +710,11 @@ class ReconstructionService:
                 with self._cv:
                     while not self._queue and not self._shutdown_requested:
                         # The timeout is a lost-wakeup safety net; normal
-                        # wakeup is submit()/shutdown() notifying.
-                        self._cv.wait(timeout=0.1)
+                        # wakeup is submit()/shutdown() notifying. One span
+                        # a wait, so a tracer turned on meanwhile sees the
+                        # next.
+                        with get_tracer().span("service.loop.wait"):
+                            self._cv.wait(timeout=0.1)
                     if not self._queue and self._shutdown_requested:
                         return
                 try:

@@ -33,6 +33,7 @@ from repro_torch.kernels.attention import attention_ref as t_ref
 from repro_torch.kernels.attention import flash_attention as t_flash
 from repro_torch.kernels.attention import kernel as tk
 from repro_torch.kernels.attention.ref import attention_f64
+from repro_torch.obs.metrics import default_registry
 
 torch.set_num_threads(1)
 
@@ -128,9 +129,10 @@ def test_folded_kv_heads_index_like_the_repeat():
 
 
 def test_cpu_tensors_never_launch_the_kernel():
-    before = tk.launches
+    reg = default_registry()
+    before = reg.value(tk.LAUNCHES)
     t_flash(*_torch(_qkv(1, 32, 2, 1, 8)), True)
-    assert tk.launches == before
+    assert reg.value(tk.LAUNCHES) == before
 
 
 @pytest.mark.parametrize("shapes,dtypes,match", [

@@ -32,6 +32,7 @@ from repro_torch.kernels.backproject.ops import (backproject_kernel,
                                                  MXU_MAX_WORKING_SET,
                                                  mxu_working_set)
 from repro_torch.kernels.backproject.ref import backproject_dual_ref
+from repro_torch.obs.metrics import default_registry
 
 # Tiny shapes gain nothing from intra-op threads, and the suite runs several
 # test workers on one host: one thread each keeps them from contending.
@@ -184,11 +185,11 @@ def test_ops_wrapper_matches_pallas_on_cpu(case, name):
     data, scales = enc[name]
     want = backproject_pallas(jnp.asarray(pm), data, *SHAPE, bi=5, bj=4,
                               bs=4, interpret=True, scales=scales)
-    before = tker.launches
+    before = default_registry().value(tker.LAUNCHES)
     got = backproject_kernel(torch.from_numpy(pm), to_torch(data), *SHAPE,
                              scales=None if scales is None
                              else to_torch(scales))
-    assert tker.launches == before
+    assert default_registry().value(tker.LAUNCHES) == before
     assert_close(got, want)
 
 
@@ -196,9 +197,9 @@ def test_wrapper_on_cpu_is_the_plain_version(case):
     pm, enc = case
     params = torch.from_numpy(_params13(pm, enc["fp16"].scales))
     qt = to_torch(enc["fp16"].data).transpose(-1, -2).contiguous()
-    before = tker.launches
+    before = default_registry().value(tker.LAUNCHES)
     got = tker.backproject_dual(params, qt, *SHAPE)
-    assert tker.launches == before
+    assert default_registry().value(tker.LAUNCHES) == before
     torch.testing.assert_close(
         got, tker.backproject_dual_torch(params, qt, *SHAPE), rtol=0, atol=0)
 

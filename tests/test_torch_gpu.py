@@ -34,6 +34,8 @@ from repro_torch.kernels.backproject.ops import kernel_operands
 from repro_torch.kernels.build import CudaLibrary
 from repro_torch.models import layers
 from repro_torch.models.transformer import init_params, prefill
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs.trace import Tracer, set_tracer
 from repro_torch.optim import AdamWConfig
 from repro_torch.serving import greedy_generate
 from repro_torch.training import (
@@ -48,6 +50,31 @@ G = CBCTGeometry(n_proj=7, n_u=40, n_v=28, d_u=4.8 / 40, d_v=4.8 / 40,
                  d=4.0, dsd=8.0, n_x=20, n_y=12, n_z=36,
                  d_x=0.1, d_y=2 / 12, d_z=2 / 36)
 SHAPE = (G.n_x, G.n_y, G.n_z)
+
+
+def counted(name):
+    """A kernel counter of the default metrics registry."""
+    return obs_metrics.default_registry().value(name, 0)
+
+
+def launch_counts(fn):
+    """fn() in one fenced span of an enabled tracer, whose fence reads the
+    back-projection launches' direct counts: its result, and how far it
+    advanced the registry's `kernels.backproject.*` counters."""
+    names = (bpk.LAUNCHES, bpk.TILE_PAIRS, bpk.DIRECT_PAIRS)
+    before = [counted(n) for n in names]
+    tracer = Tracer(enabled=True)
+    prev = set_tracer(tracer)
+    try:
+        with tracer.span("test.launch") as sp:
+            out = sp.fence(fn())
+    finally:
+        set_tracer(prev)
+    moved = {n.rsplit(".", 1)[1]: counted(n) - b
+             for n, b in zip(names, before)}
+    assert (sp.args.get("direct_pairs", 0), sp.args.get("tile_pairs", 0)) \
+        == (moved["direct_pairs"], moved["tile_pairs"])
+    return out, moved
 
 
 @pytest.fixture
@@ -71,9 +98,9 @@ def test_kernel_matches_plain_version(cuda, codec):
     q = make_filter(G, device=cuda)(forward_project(G, device=cuda))
     data, scales = CODECS[codec].encode(q)
     params, qt = kernel_operands(projection_matrices(G), data, scales)
-    before = bpk.launches
+    before = counted(bpk.LAUNCHES)
     got = bpk.backproject_dual(params, qt, *SHAPE)
-    assert bpk.launches == before + 1
+    assert counted(bpk.LAUNCHES) == before + 1
     want = bpk.backproject_dual_torch(params, qt, *SHAPE)
     torch.cuda.synchronize()
     assert got.shape == want.shape == (G.n_x, G.n_y, 2, G.n_z // 2)
@@ -110,10 +137,11 @@ def test_kernel_matches_plain_version_at_the_detector_edge(cuda, codec):
         int(((b[:, 0] <= b[:, 1]) & ((b[:, 0] == 0) | (b[:, 1] == G.n_u - 1)))
             .sum()) for b in _tile_boxes(params))
     assert clipped > 0
-    got = bpk.backproject_dual(params, qt, *SHAPE)
+    got, moved = launch_counts(lambda: bpk.backproject_dual(params, qt,
+                                                            *SHAPE))
     want = bpk.backproject_dual_torch(params, qt, *SHAPE)
     torch.cuda.synchronize()
-    assert int(bpk.direct_pairs) == 0
+    assert moved["direct_pairs"] == 0 and moved["launches"] == 1
     assert float((got - want).abs().max() / want.abs().max()) <= REL
 
 
@@ -126,10 +154,11 @@ def test_direct_gather_matches_plain_version(cuda, codec):
     nonempty = sum(int(((b[:, 0] <= b[:, 1]) & ((b[:, 2] <= b[:, 3])
                                                  | (b[:, 4] <= b[:, 5])))
                        .sum()) for b in _tile_boxes(params))
-    got = bpk.backproject_dual(params, qt, *SHAPE, stage_bytes=64)
+    got, moved = launch_counts(lambda: bpk.backproject_dual(
+        params, qt, *SHAPE, stage_bytes=64))
     want = bpk.backproject_dual_torch(params, qt, *SHAPE)
     torch.cuda.synchronize()
-    assert int(bpk.direct_pairs) == nonempty > 0
+    assert moved["direct_pairs"] == nonempty > 0
     assert float((got - want).abs().max() / want.abs().max()) <= REL
 
 
@@ -143,15 +172,15 @@ def test_every_tile_matches_plain_version(cuda, codec, t, stage_bytes):
     the plain version's sums, and as many direct gathers as the tuner's
     staging model (kernel.staging_stats) counts."""
     params, qt = _edge_operands(cuda, codec)
-    got = bpk.backproject_dual(params, qt, *SHAPE, tile=t,
-                               stage_bytes=stage_bytes)
+    got, moved = launch_counts(lambda: bpk.backproject_dual(
+        params, qt, *SHAPE, tile=t, stage_bytes=stage_bytes))
     want = bpk.backproject_dual_torch(params, qt, *SHAPE)
     torch.cuda.synchronize()
     assert float((got - want).abs().max() / want.abs().max()) <= REL
     model = bpk.staging_stats(params, G.n_u, G.n_v, G.n_x, G.n_y,
                               G.n_z // 2, t, stage_bytes, qt.dtype)
-    assert int(bpk.direct_pairs) == model["direct"]
-    assert bpk.tile_pairs == model["pairs"]
+    assert moved["direct_pairs"] == model["direct"]
+    assert moved["tile_pairs"] == model["pairs"]
 
 
 def test_compiled_tiles_and_shared_memory_model(cuda):
@@ -188,19 +217,18 @@ def test_measured_autotune_times_compiled_tiles(cuda, codec):
 
 @pytest.mark.parametrize("codec", ["fp32", "fp16"])
 def test_build_traced_matches_build_on_the_card(cuda, codec):
-    from repro_torch.obs.trace import Tracer, set_tracer
     proj = forward_project(G16, device=cuda)
     plan = ReconstructionPlan(geometry=G16, impl="kernel", precision=codec)
     want = plan.build()(proj)
     prev = set_tracer(Tracer(enabled=True))
     try:
-        before = bpk.launches
+        before = counted(bpk.LAUNCHES)
         got = plan.build_traced()(proj)
         torch.cuda.synchronize()
         tracer = set_tracer(prev)
     finally:
         set_tracer(prev)
-    assert bpk.launches == before + 1 and got.device.type == "cuda"
+    assert counted(bpk.LAUNCHES) == before + 1 and got.device.type == "cuda"
     assert float((got - want).abs().max() / want.abs().max()) <= REL
     stages = {e["name"] for e in tracer.spans("stage.")}
     assert stages == {"stage.filter", "stage.allgather",
@@ -252,10 +280,10 @@ def test_kernel_matches_plain_version_on_mesh_shapes(cuda, codec, call):
 
 def test_main_path_runs_the_kernel_and_matches_the_cpu(cuda):
     proj = forward_project(G, device="cpu")
-    before = bpk.launches
+    before = counted(bpk.LAUNCHES)
     vol = ReconstructionPlan(geometry=G, impl="kernel").build()(proj)
     torch.cuda.synchronize()
-    assert bpk.launches == before + 1
+    assert counted(bpk.LAUNCHES) == before + 1
     assert vol.device.type == "cuda"
     ref = ReconstructionPlan(geometry=G, impl="kernel",
                              device="cpu").build()(proj)
@@ -291,12 +319,12 @@ def test_session_of_four_deltas_matches_build(cuda):
     sess = ReconstructionPlan(geometry=G16, impl="kernel",
                               schedule="incremental",
                               n_steps=4).build_incremental()
-    before = bpk.launches
+    before = counted(bpk.LAUNCHES)
     for lo in range(0, 16, 4):
         sess.update(proj[lo:lo + 4], (lo, lo + 4))
     vol = sess.finalize()
     torch.cuda.synchronize()
-    assert bpk.launches == before + 4 and vol.device.type == "cuda"
+    assert counted(bpk.LAUNCHES) == before + 4 and vol.device.type == "cuda"
     assert float((vol - ref).abs().max() / ref.abs().max()) <= REL
 
 
@@ -394,9 +422,9 @@ ATTN_SHAPES = [(4, 4, 128, 128, 64), (8, 2, 200, 200, 128),
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_attention_kernel_matches_plain_version(cuda, shape, causal, dtype):
     q, k, v = _qkv(*shape, dtype, cuda)
-    before = fak.launches
+    before = counted(fak.LAUNCHES)
     got = fak.flash_attention_bhsd(q, k, v, causal=causal)
-    assert fak.launches == before + 1
+    assert counted(fak.LAUNCHES) == before + 1
     want = fak.flash_attention_bhsd_torch(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert got.dtype == want.dtype == dtype and got.shape == want.shape
@@ -468,10 +496,10 @@ def test_attention_build_failure_raises(cuda, tmp_path, monkeypatch):
     bad.write_text("this is not CUDA C++\n")
     monkeypatch.setattr(fak, "LIBRARY", CudaLibrary("broken", [bad]))
     q, k, v = _qkv(2, 2, 64, 64, 32, torch.float32, cuda)
-    before = fak.launches
+    before = counted(fak.LAUNCHES)
     with pytest.raises(RuntimeError, match="nvcc failed"):
         fak.flash_attention_bhsd(q, k, v)
-    assert fak.launches == before
+    assert counted(fak.LAUNCHES) == before
 
 
 def test_attention_rejects_unsupported_head_dim(cuda):
@@ -498,11 +526,11 @@ def test_greedy_generate_on_the_card_runs_the_kernel(cuda):
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (3, 37)))
     want = greedy_generate(cfg, params, {"tokens": tokens}, steps=5,
                            s_max=48)
-    before = fak.launches
+    before = counted(fak.LAUNCHES)
     got = greedy_generate(cfg, _to(params, cuda),
                           {"tokens": tokens.to(cuda)}, steps=5, s_max=48)
     torch.cuda.synchronize()
-    assert fak.launches == before + cfg.num_layers
+    assert counted(fak.LAUNCHES) == before + cfg.num_layers
     assert got.device.type == "cuda"
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
 
@@ -520,9 +548,9 @@ def test_prefill_kernel_path_matches_the_plain_step_on_the_card(
     got, cache = prefill(params, cfg, {"tokens": tokens})
     monkeypatch.setattr(layers, "prefill_attention",
                         layers.prefill_attention_plain)
-    before = fak.launches
+    before = counted(fak.LAUNCHES)
     want, want_cache = prefill(params, cfg, {"tokens": tokens})
-    assert fak.launches == before
+    assert counted(fak.LAUNCHES) == before
     for g, w in ((got, want), (cache.attn_v["sub_0"],
                                want_cache.attn_v["sub_0"])):
         torch.testing.assert_close(g, w, rtol=0,
@@ -556,9 +584,9 @@ WINDOW_SHAPES = [(8, 2, 300, 128, 100), (56, 8, 520, 128, 200),
 def test_windowed_kernel_matches_plain_version(cuda, shape, dtype):
     bh, kvh, s, d, window = shape
     q, k, v = _qkv(bh, kvh, s, s, d, dtype, cuda, seed=window)
-    before = fak.launches
+    before = counted(fak.LAUNCHES)
     got = fak.flash_attention_bhsd(q, k, v, window=window)
-    assert fak.launches == before + 1
+    assert counted(fak.LAUNCHES) == before + 1
     want = fak.flash_attention_bhsd_torch(q, k, v, window=window)
     torch.cuda.synchronize()
     assert got.dtype == want.dtype == dtype and got.shape == want.shape
@@ -603,11 +631,11 @@ def test_new_configs_greedy_generate_on_the_card(cuda, arch, s0, s_max):
         prompt["patch_embeds"] = torch.from_numpy(rng.standard_normal(
             (3, fe.num_positions, fe.d_frontend), dtype=np.float32))
     want = greedy_generate(cfg, params, prompt, steps=5, s_max=s_max)
-    before = fak.launches
+    before = counted(fak.LAUNCHES)
     got = greedy_generate(cfg, _to(params, cuda), _to(prompt, cuda),
                           steps=5, s_max=s_max)
     torch.cuda.synchronize()
-    assert fak.launches == before + cfg.num_layers
+    assert counted(fak.LAUNCHES) == before + cfg.num_layers
     assert got.device.type == "cuda"
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
 
@@ -689,11 +717,11 @@ def test_family_greedy_generate_on_the_card(cuda, arch, per_prefill):
         0, cfg.vocab_size, (3, 37)))
     want = greedy_generate(cfg, params, {"tokens": tokens}, steps=5,
                            s_max=48)
-    before = fak.launches
+    before = counted(fak.LAUNCHES)
     got = greedy_generate(cfg, _to(params, cuda), {"tokens": tokens.to(cuda)},
                           steps=5, s_max=48)
     torch.cuda.synchronize()
-    assert fak.launches == before + per_prefill
+    assert counted(fak.LAUNCHES) == before + per_prefill
     assert got.device.type == "cuda"
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
 
@@ -705,17 +733,17 @@ def test_raw_attention_wrapper_raises_under_grad(cuda):
     that require grad while grad is enabled, and launches under no_grad."""
     q, k, v = _qkv(8, 2, 64, 64, 32, torch.bfloat16, cuda)
     q.requires_grad_()
-    before = fak.launches
+    before = counted(fak.LAUNCHES)
     with pytest.raises(RuntimeError, match="flash_attention_trainable"):
         fak.flash_attention_bhsd(q, k, v)
     with pytest.raises(RuntimeError, match="flash_attention_trainable"):
         flash_attention(q.view(1, 8, 64, 32).transpose(1, 2),
                         k.view(1, 2, 64, 32).transpose(1, 2),
                         v.view(1, 2, 64, 32).transpose(1, 2))
-    assert fak.launches == before
+    assert counted(fak.LAUNCHES) == before
     with torch.no_grad():
         fak.flash_attention_bhsd(q, k, v)
-    assert fak.launches == before + 1
+    assert counted(fak.LAUNCHES) == before + 1
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -742,11 +770,11 @@ def test_trainable_attention_gradients_bit_equal_on_the_card(cuda, dtype):
     for step in (lambda *a: flash_attention_trainable(*a, plain=plain),
                  lambda *a: layers.prefill_attention(cfg, *a, pos)):
         leaves = [x.clone().requires_grad_() for x in (q, k, v)]
-        before = fak.launches
+        before = counted(fak.LAUNCHES)
         out = step(*leaves)
         got = torch.autograd.grad(out, leaves, d_out)
         torch.cuda.synchronize()
-        assert fak.launches == before + 1
+        assert counted(fak.LAUNCHES) == before + 1
         for g, w in zip(got, want):
             assert g.dtype == dtype and torch.equal(g, w)
         oracle = attention_ref(q, k, v)
@@ -795,10 +823,10 @@ def test_smoke_train_step_on_the_card_matches_the_cpu(cuda):
             0, cfg.vocab_size, (4, 24)).astype(np.int32))
             for k in ("labels", "tokens")}
         cpu, want = step(cpu, batch)
-        before = fak.launches
+        before = counted(fak.LAUNCHES)
         card, got = step(card, {k: v.to(cuda) for k, v in batch.items()})
         torch.cuda.synchronize()
-        assert fak.launches == before + 2 * 2 * 2
+        assert counted(fak.LAUNCHES) == before + 2 * 2 * 2
         for key in ("loss", "grad_norm", "lr_scale"):
             np.testing.assert_allclose(float(got[key]), float(want[key]),
                                        rtol=1e-5, err_msg=key)
@@ -834,14 +862,14 @@ def test_service_lanes_bit_equal_to_build_on_the_card(cuda, tmp_path):
     svc = ReconstructionService(max_batch=4)
     try:
         assert svc.device.type == "cuda"
-        before = bpk.launches
+        before = counted(bpk.LAUNCHES)
         tickets = [svc.submit(projections=p, geometry=g, impl="kernel")
                    for p in scans]
         tickets.append(svc.submit(source=src, geometry=g, sink=sink,
                                   impl="kernel"))
         svc.drain()
         assert all(t.state is TicketState.DONE for t in tickets)
-        assert bpk.launches - before >= 4
+        assert counted(bpk.LAUNCHES) - before >= 4
         build = svc.plan_cache.resolve(tickets[0].family).build()
         for p, t in zip(scans + [src.load(device=cuda)], tickets):
             assert t.result().device.type == "cuda"
@@ -874,6 +902,55 @@ def test_serve_loop_on_the_card(cuda):
         assert st["loop"]["errors"] == 0 and st["slo"]["met"] == 3
     finally:
         svc.close()
+
+
+def test_traced_bucket_on_the_card(cuda):
+    """A traced bucket of three host scans and a pad lane, impl="kernel"
+    and the fused schedule (one launch a lane): the engine span's stage
+    times come from CUDA events (the launch inside
+    its back-projection stage, both inside the span), it carries the
+    launches' direct and tile pair counts the registry advanced by, the
+    bucket span the stack's time, and each lane copy its bytes."""
+    from repro_torch.service import ReconstructionService
+    proj = forward_project(G16, device="cpu")
+    svc = ReconstructionService(max_batch=4)
+    # the family's plan resolved (and the planner's measured launches
+    # made) before the traced drain
+    pins = {"impl": "kernel", "schedule": "fused"}
+    svc.submit(projections=proj, geometry=G16, **pins)
+    svc.drain()
+    names = (bpk.LAUNCHES, bpk.TILE_PAIRS, bpk.DIRECT_PAIRS)
+    before = [counted(n) for n in names]
+    tracer = Tracer(enabled=True)
+    prev = set_tracer(tracer)
+    try:
+        tickets = [svc.submit(projections=proj * (1 + k), geometry=G16,
+                              **pins) for k in range(3)]
+        svc.drain()
+    finally:
+        set_tracer(prev)
+        svc.close()
+    assert all(t.done for t in tickets)
+    assert svc.plan_cache.resolve(tickets[0].family).schedule == "fused"
+    launches, pairs, direct = (counted(n) - b for n, b in zip(names, before))
+    (eng,) = tracer.spans("engine.batched")
+    args = eng["args"]
+    assert args["lanes"] == 4 == launches
+    ms = args["device_ms"]
+    assert sorted(ms) == ["bp.kernel", "bp.operands", "bp.unfold",
+                          "stage.backproject", "stage.filter",
+                          "stage.reduce"]
+    assert 0 < ms["bp.kernel"] <= ms["stage.backproject"] <= eng["dur"] / 1e3
+    assert (args["tile_pairs"], args["direct_pairs"]) == (pairs, direct)
+    assert pairs > 0 and 0 <= direct <= pairs
+    (bucket,) = [e for e in tracer.spans("service.bucket")
+                 if e["name"] == "service.bucket"]
+    assert bucket["args"]["pads"] == 1
+    assert 0 < bucket["args"]["device_ms"]["service.stack"] \
+        <= bucket["dur"] / 1e3
+    h2d = tracer.spans("service.lane.h2d")
+    assert [e["args"]["bytes"] for e in h2d] == [proj.numel() * 4] * 3
+    assert {e["args"]["src"] for e in h2d} == {"host"}
 
 
 def test_service_budget_defaults_to_the_card_memory(cuda):

@@ -6,8 +6,8 @@ operators whose fake implementations give the output's shape and dtype,
 and whose FLOPs `torch.utils.flop_counter` counts by the kernels' own
 formulas. The wrappers take them for fake CUDA tensors, and for fake CPU
 tensors inside `device.fake_card()` (the dry run's); neither touches the
-library, and `launches` counts real launches only. Real CPU tensors still
-run the plain versions.
+library, and the registry's launch counters count real launches only. Real
+CPU tensors still run the plain versions.
 """
 import math
 
@@ -19,6 +19,8 @@ from torch.utils.flop_counter import FlopCounterMode
 from repro_torch.device import fake_card, on_card
 from repro_torch.kernels.attention import kernel as fak
 from repro_torch.kernels.backproject import kernel as bpk
+from repro_torch.obs import trace
+from repro_torch.obs.metrics import default_registry
 
 BH, GROUP, S, D = 8, 4, 96, 32
 
@@ -43,7 +45,9 @@ def test_attention_operator_on_fake_tensors(device, dtype, window):
     """Shape, dtype and device of the output; the registered count, in
     FlopCounterMode's total, equal to the pair-by-pair count; no launch
     counted; the library never loaded."""
-    before = (fak.launches, fak.window_launches, fak.LIBRARY._lib)
+    reg = default_registry()
+    counts = lambda: (reg.value(fak.LAUNCHES), reg.value(fak.WINDOW_LAUNCHES))
+    before = (counts(), fak.LIBRARY._lib)
     with FakeTensorMode(), fake_card():
         q = torch.empty(BH, S, D, dtype=dtype, device=device)
         kv = torch.empty(BH // GROUP, S, D, dtype=dtype, device=device)
@@ -54,7 +58,7 @@ def test_attention_operator_on_fake_tensors(device, dtype, window):
     want = attention_flops_by_pairs(BH, S, S, D, True, window)
     assert fc.get_total_flops() == want
     assert fak.attention_flops(BH, S, S, D, True, window) == want
-    assert (fak.launches, fak.window_launches, fak.LIBRARY._lib) == before
+    assert (counts(), fak.LIBRARY._lib) == before
 
 
 def test_attention_formula_matches_the_smoke_script():
@@ -75,24 +79,36 @@ def test_attention_formula_matches_the_smoke_script():
                                    torch.float8_e4m3fn])
 def test_backprojection_operator_on_fake_tensors(device, dtype):
     """The dual-slab volume's shape in f32; the registered count (every
-    mirrored pair counted as touching the detector); `tile_pairs` set,
-    `launches` and the library untouched."""
+    mirrored pair counted as touching the detector); under a traced
+    fence, `tile_pairs` counted and no direct pair (a fake launch has no
+    count to read); `launches` and the library untouched."""
     n_p, nu, nv, nx, ny, nz = 6, 40, 24, 16, 12, 20
-    before = (bpk.launches, bpk._BOUND)
-    with FakeTensorMode(), fake_card():
-        params = torch.empty(n_p, 13, device=device)
-        qt = torch.empty(n_p, nu, nv, dtype=dtype, device=device)
-        with FlopCounterMode(display=False) as fc:
-            vol = bpk.backproject_dual(params, qt, nx, ny, nz,
-                                       tile=(16, 8, 32))
+    reg = default_registry()
+    names = (bpk.LAUNCHES, bpk.TILE_PAIRS, bpk.DIRECT_PAIRS)
+    before = [reg.value(n) for n in names]
+    bound = bpk._BOUND
+    tracer = trace.Tracer(enabled=True)
+    prev = trace.set_tracer(tracer)
+    try:
+        with tracer.span("dry") as sp, FakeTensorMode(), fake_card():
+            params = torch.empty(n_p, 13, device=device)
+            qt = torch.empty(n_p, nu, nv, dtype=dtype, device=device)
+            with FlopCounterMode(display=False) as fc:
+                vol = bpk.backproject_dual(params, qt, nx, ny, nz,
+                                           tile=(16, 8, 32))
+            sp.fence(None)
+    finally:
+        trace.set_tracer(prev)
     assert vol.shape == (nx, ny, 2, nz // 2) and vol.dtype == torch.float32
     assert vol.device.type == device
     want = n_p * nx * ny * (21 + 35 * (nz // 2))
     assert bpk.backproject_ops(n_p, nx, ny, nz) == want
     assert fc.get_total_flops() == want
-    assert (bpk.launches, bpk._BOUND) == before
-    assert bpk.tile_pairs == n_p * math.ceil(nx / 16) * math.ceil(ny / 8) \
+    pairs = n_p * math.ceil(nx / 16) * math.ceil(ny / 8) \
         * math.ceil(nz // 2 / 32)
+    assert [reg.value(n) - b for n, b in zip(names, before)] == [0, pairs, 0]
+    assert bpk._BOUND is bound
+    assert sp.args["tile_pairs"] == pairs and "direct_pairs" not in sp.args
 
 
 def test_real_cpu_tensors_run_the_plain_versions():

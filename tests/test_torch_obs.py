@@ -138,7 +138,10 @@ def test_export_has_the_reference_keys(tmp_path):
     j, t = (record_spans(tr) for tr in (jtrace, ttrace))
     je, te = j.export(), t.export()
     assert set(te) == set(je)
-    assert te["otherData"] == je["otherData"] == {"dropped": 0}
+    assert je["otherData"] == {"dropped": 0}
+    # the port also names its clock, for merging with a profiler's trace
+    assert te["otherData"] == {"dropped": 0, "clock": "perf_counter_ns",
+                               "epoch_ns": t._epoch_ns}
     for a, b in zip(te["traceEvents"], je["traceEvents"]):
         assert set(a) == set(b)
     path = t.save(str(tmp_path / "trace.json"))
@@ -232,7 +235,7 @@ def test_engine_cache_counts_into_the_default_registry():
 def test_engine_span_matches_the_reference():
     """build()'s engine runs in an `engine.reconstruct` span with the
     reference's attributes and a dispatch time, only while the tracer is
-    on."""
+    on; the port's span also carries its stages' device times."""
     g, tg = jdefault_geometry(8, n_proj=4), default_geometry(8, n_proj=4)
     proj = np.zeros(g.proj_shape(), np.float32)
     events = {}
@@ -256,6 +259,10 @@ def test_engine_span_matches_the_reference():
     dispatch = ev["args"].pop("dispatch_us")
     assert 0 <= dispatch <= ev["dur"]
     ref["args"].pop("dispatch_us")
+    stages = ev["args"].pop("device_ms")
+    assert sorted(stages) == ["stage.backproject", "stage.filter",
+                              "stage.reduce"]
+    assert all(0 <= ms <= ev["dur"] / 1e3 for ms in stages.values())
     assert ev["args"] == ref["args"]
 
 

@@ -248,8 +248,6 @@ def test_fdk_helpers_match():
     assert tfdk.gups(tg, 0.25) == jfdk.gups(G, 0.25)
     with pytest.raises(ValueError, match="unknown back-projection impl"):
         tfdk._get_backprojector("mxu")
-    with pytest.raises(ValueError, match="measures the CUDA card"):
-        tfdk.timed_reconstruct(tg, None, device="cpu")
 
 
 def test_slab_reparameterization_matches():
