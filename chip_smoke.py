@@ -9,10 +9,11 @@ Phases, in order; any failure exits non-zero:
 
 1. Device: the card's name and power limit (nvidia-smi), its torch name and
    the device count.
-2. Build: both hand-written kernels from the checkout's sources, one nvcc
-   per library, both started together; build seconds and the -Xptxas -v
-   reports (registers, static shared memory and spill bytes of each
-   kernel: the back-projector once per compiled tile and wire type).
+2. Build: the three hand-written kernel libraries from the checkout's
+   sources, one nvcc per library, all started together; build seconds and
+   the -Xptxas -v reports (registers, static shared memory and spill bytes
+   of each kernel: the back-projector once per compiled tile and wire
+   type, the ramp filter once per compiled pad).
 3. Back-projection kernel vs plain version: the kernel against its plain
    torch version on the same encoded stream, for all five codecs, at the
    full 512^3 width on the first 32 RabbitCT projections, at
@@ -35,6 +36,12 @@ Phases, in order; any failure exits non-zero:
    staging budget of 0, so that every projection is gathered from global
    memory (the design without staged taps); the plain version's time, and
    the kernel's beside it, on the 32-projection subset.
+   [filter] The ramp filter kernel on the RabbitCT projections, every
+   window, against the torch.fft chain that filtered on the card before it
+   (FILTER_REL of the max) and, on two projections, against the CPU's
+   plain version; one projection alone, the first 32 and all 496
+   bit-equal where they overlap; its time (CUDA events) beside its bytes
+   bound, its torch twin's on the 32-projection subset, and the chain's.
 6. [kernel-delta] The kernel against its plain version at the streaming
    session's call shape, the 512^3 volume from the last delta of 62
    projections, five codecs (same bound), with the direct-gather share,
@@ -376,8 +383,11 @@ Phases, in order; any failure exits non-zero:
    its launches by path; the back-projector's launches sum every path
    that runs it: phases 4, 7-10, 12, 14-18, 19 and 20's ranks, the
    attention kernel's the serving prefills (phases 23, 27, 28-34, phase 34
-   summed over its ranks) and the training steps (26, 27), each counted from 0
-   just before the path; a path on
+   summed over its ranks) and the training steps (26, 27), the ramp
+   filter's the same reconstruction paths as the back-projector's, both
+   codecs together, gated at one launch a filter_fn call (a
+   reconstruction's micro-batch, a delta, a lane, a rank's share); each
+   counted from 0 just before the path; a path on
    another wire type's instantiation, such as the auto plan's, is printed
    beside it; the attention entries also carry the windowed kernel's,
    the DP = 64 instantiation's and group 7's times and bounds), the
@@ -432,7 +442,14 @@ COLUMN_OPS = 21
 PAIR_OPS = 35
 # The change that made each kernel's design.
 DESIGN = {"bp_dual_kernel<float>": "PR 13", "bp_dual_kernel<__half>": "PR 13",
-          "fa_fwd_bf16_kernel": "PR 13", "fa_fwd_f32_kernel": "PR 16"}
+          "fa_fwd_bf16_kernel": "PR 13", "fa_fwd_f32_kernel": "PR 16",
+          "ramp_filter_kernel<11>": "PR 28"}
+# The ramp filter kernel against the torch.fft chain: two f32 transforms
+# of length 4096 agree to a few ulps of a row's largest output times
+# log2(pad); 1e-5 of the max is the JAX package's bound between two f32
+# FFTs.
+FILTER_REL = 1e-5
+FILTER_WINDOWS = ("ramlak", "shepp-logan", "hann", "hamming")
 TIMED_LAUNCHES = 10
 PLAIN_RUNS = 3
 CODECS = ("fp32", "bf16", "fp16", "fp8_e4m3", "fp8_e5m2")
@@ -583,8 +600,35 @@ class KernelCount:
 
 
 BP_LAUNCHES = KernelCount("kernels.backproject.launches")
+FILTER_LAUNCHES = KernelCount("kernels.filter.launches")
 ATTN_LAUNCHES = KernelCount("kernels.attention.launches")
 ATTN_WINDOW_LAUNCHES = KernelCount("kernels.attention.window_launches")
+# The filter kernel's launches by reconstruction path (the paths of the
+# back-projector's `launches_by_path`), each counted from 0 just before it.
+FILTER_BY_PATH: dict = {}
+
+
+def reset_launches() -> None:
+    """The back-projector's and the filter's counts to 0, before a path."""
+    BP_LAUNCHES.reset()
+    FILTER_LAUNCHES.reset()
+
+
+def filter_calls(plan) -> int:
+    """filter_fn calls of one scan (or one lane) through `plan`'s engine:
+    one a micro-batch."""
+    return 1 if plan.schedule == "fused" else plan.n_steps
+
+
+def count_filter(path: str, calls: int) -> int:
+    """The filter kernel's launches since `reset_launches()`, gated at one
+    a filter_fn call (`calls` of them) and added to FILTER_BY_PATH[path]."""
+    n = FILTER_LAUNCHES.n
+    if n != calls:
+        fail(f"{path}: {n} filter kernel launches, expected {calls} (one a "
+             "filter_fn call)")
+    FILTER_BY_PATH[path] = FILTER_BY_PATH.get(path, 0) + n
+    return n
 
 
 def direct_pairs(fn):
@@ -771,13 +815,14 @@ def reconstruction(dev) -> tuple:
         fn(proj)  # warm-up
         sync()
         torch.cuda.reset_peak_memory_stats()
-        BP_LAUNCHES.reset()
+        reset_launches()
         ATTN_LAUNCHES.reset()
         t0 = time.perf_counter()
         vol = fn(proj)
         sync()
         dt = time.perf_counter() - t0
         launches[codec] = BP_LAUNCHES.n
+        count_filter("single-device", 1)
         _, direct, pairs = direct_pairs(lambda: fn(proj))
         peak = torch.cuda.max_memory_allocated()
         if tuple(vol.shape) != g.volume_shape() or not torch.isfinite(vol).all():
@@ -872,6 +917,95 @@ def reconstruction(dev) -> tuple:
         })
 
     return entries, g, proj, phantom
+
+
+def filter_phase(g, proj) -> dict:
+    """[filter] (see the module's docstring); returns the ramp filter
+    kernel's entry of the `kernels` line."""
+    import torch
+
+    from repro_torch.core import filtering as F
+    from repro_torch.kernels.filter import kernel as rf
+    from repro_torch.obs import metrics
+
+    dev = proj.device
+    pad = F.fft_length(g.n_u)
+    fcos = torch.as_tensor(F.cosine_weights(g), device=dev)
+
+    def chain(window, p):
+        """The torch.fft chain: `_filter_batch` on 32 projections at a
+        time, as make_filter ran on the card before the kernel."""
+        hf = torch.as_tensor(F.ramp_frequency_response(g, window, pad),
+                             device=dev)
+        out = torch.empty_like(p)
+        for b in range(0, p.shape[0], F._FILTER_BATCH):
+            out[b:b + F._FILTER_BATCH] = F._filter_batch(
+                p[b:b + F._FILTER_BATCH], fcos, hf, pad, g.tau_u)
+        return out
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    launches = metrics.counter(rf.LAUNCHES)
+    rows = metrics.counter(rf.ROWS)
+    worst = 0.0
+    for window in FILTER_WINDOWS:
+        n0, r0 = launches.value, rows.value
+        got = F.make_filter(g, window, out_dtype=torch.float32,
+                            device=dev)(proj)
+        torch.cuda.synchronize()
+        if (launches.value - n0, rows.value - r0) != (1, g.n_proj * g.n_v):
+            fail(f"[filter] {window}: {launches.value - n0} launches, "
+                 f"{rows.value - r0} rows; expected 1, {g.n_proj * g.n_v}")
+        by_chain = rel(got, chain(window, proj))
+        plain = F.make_filter(g, window, out_dtype=torch.float32,
+                              device="cpu")(proj[:2].cpu())
+        by_plain = rel(got[:2].cpu(), plain)
+        worst = max(worst, by_chain, by_plain)
+        print(f"[filter] {window}: kernel vs torch.fft chain {by_chain:.3e}, "
+              f"vs the CPU's plain version (2 projections) {by_plain:.3e} "
+              f"of the max (bound {FILTER_REL})")
+        if not max(by_chain, by_plain) <= FILTER_REL:
+            fail(f"[filter] {window}: kernel off by {by_chain:.3e} / "
+                 f"{by_plain:.3e} > {FILTER_REL}")
+    filt = F.make_filter(g, "ramlak", out_dtype=torch.float32, device=dev)
+    whole, first, alone = filt(proj), filt(proj[:32]), filt(proj[5:6])
+    if not (torch.equal(alone[0], whole[5]) and torch.equal(first,
+                                                            whole[:32])):
+        fail("[filter] a projection's rows depend on the batch it came in")
+    del whole, first, alone
+    tables = rf.filter_tables(F._response(g, "ramlak", pad), g.tau_u, dev)
+    ms = event_ms(lambda: rf.filter_rows(proj, fcos, *tables),
+                  TIMED_LAUNCHES)
+    sub = proj[:SUBSET].contiguous()
+    sub_ms = event_ms(lambda: rf.filter_rows(sub, fcos, *tables),
+                      TIMED_LAUNCHES)
+    plain_ms = event_ms(lambda: rf.filter_rows_torch(sub, fcos, *tables),
+                        PLAIN_RUNS)
+    library_ms = event_ms(lambda: chain("ramlak", proj), PLAIN_RUNS)
+    n_bytes = 2 * proj.numel() * 4     # raw read once, filtered written once
+    bound_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+    print(f"[filter] time at {tuple(proj.shape)}, pad {pad}: kernel "
+          f"{ms:.3f} ms, bound {bound_ms:.3f} ms (bytes, {n_bytes / 1e9:.3f} "
+          f"GB), {bound_ms / ms:.1%} of bound; torch.fft chain {library_ms:.3f}"
+          f" ms; on {SUBSET} projections: kernel {sub_ms:.3f} ms, torch twin "
+          f"{plain_ms:.1f} ms")
+    name = "ramp_filter_kernel<11>"
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/filter/csrc/filter.cu",
+        "replaces": None,
+        "max_rel_err": worst,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "plain_n_proj": SUBSET,
+        "ms_at_plain_n_proj": sub_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes",
+        "library_ms": library_ms,
+        "design": DESIGN[name],
+    }
 
 
 def last_delta(g) -> tuple:
@@ -1085,7 +1219,7 @@ def streaming_sessions(g, proj, phantom, path, thread, peeked, launches,
         sess = plan.build_incremental(source=ProjectionSource(path))
         sync()
         torch.cuda.reset_peak_memory_stats()
-        BP_LAUNCHES.reset()
+        reset_launches()
         t0 = time.perf_counter()
         peek = ""
         if codec == MAIN_PATH_CODECS[0]:
@@ -1108,6 +1242,7 @@ def streaming_sessions(g, proj, phantom, path, thread, peeked, launches,
         sync()
         dt = time.perf_counter() - t0
         n_launch = BP_LAUNCHES.n
+        count_filter("incremental", N_STEPS)
         peak = torch.cuda.max_memory_allocated()
         rel = rel_max(vol, ref)
         rmse = interior_rmse(vol, phantom)
@@ -1131,7 +1266,7 @@ def streaming_sessions(g, proj, phantom, path, thread, peeked, launches,
         # staged (its filter and gather ride along with acquisition),
         # then update(staged, finalize=True) timed.
         tails, fused_s = [], []
-        BP_LAUNCHES.reset()
+        reset_launches()
         for _ in range(TAIL_RUNS):
             s = plan.build_incremental()
             for k in range(N_STEPS - 1):
@@ -1145,6 +1280,7 @@ def streaming_sessions(g, proj, phantom, path, thread, peeked, launches,
             tails.append(time.perf_counter() - t0)
             del s, staged
         n_tail = BP_LAUNCHES.n
+        count_filter("incremental", TAIL_RUNS * N_STEPS)
         for _ in range(TAIL_RUNS):
             t0 = time.perf_counter()
             fused(proj)
@@ -1186,12 +1322,13 @@ def batched(g, proj) -> dict:
         both(scans)     # warm-up
         sync()
         torch.cuda.reset_peak_memory_stats()
-        BP_LAUNCHES.reset()
+        reset_launches()
         t0 = time.perf_counter()
         out = both(scans)
         sync()
         t_batch = time.perf_counter() - t0
         launches[codec] = BP_LAUNCHES.n
+        count_filter("batched", 2)     # one a lane
         peak = torch.cuda.max_memory_allocated()
         t_scans, same = 0.0, []
         for b in range(2):
@@ -1251,13 +1388,14 @@ def io_phase(dev, g, proj, work: str) -> tuple:
         fn = plan.build(source=src, sink=sink)
         tracer = Tracer(enabled=True)
         prev = set_tracer(tracer)
-        BP_LAUNCHES.reset()
+        reset_launches()
         try:
             vol = fn()
             sync()
         finally:
             set_tracer(prev)
         n_launch = BP_LAUNCHES.n
+        count_filter("io", 1)
         want = plan.build()(loaded)
         same_vol = torch.equal(vol, want)
         back = sink.read()
@@ -1301,12 +1439,13 @@ def trace_phase(g, proj) -> int:
     torch.cuda.synchronize()
     tracer = Tracer(enabled=True)
     prev = set_tracer(tracer)
-    BP_LAUNCHES.reset()
+    reset_launches()
     try:
         fn(proj)
     finally:
         set_tracer(prev)
     n_launch = BP_LAUNCHES.n
+    count_filter("trace", 1)
     (span,) = tracer.spans("engine.reconstruct")
     span_ms, dispatch_ms = span["dur"] / 1e3, span["args"]["dispatch_us"] / 1e3
     with tempfile.TemporaryDirectory() as tmp:
@@ -1431,12 +1570,13 @@ def tune_phase(g, proj, phantom, tile_ms) -> dict:
         fn = plan.build()
         fn(proj)
         torch.cuda.synchronize()
-        BP_LAUNCHES.reset()
+        reset_launches()
         t1 = time.perf_counter()
         vol = fn(proj)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t1
         launches[codec] = BP_LAUNCHES.n
+        count_filter("tuned", filter_calls(plan))
         dflt = ReconstructionPlan(
             geometry=g, impl="kernel", precision=codec,
             blocks=bpk.DEFAULT_TILE,
@@ -1552,7 +1692,7 @@ def traced_phase(g, proj) -> tuple:
         t_build = time.perf_counter() - t1
         tracer = Tracer(enabled=True)
         prev = set_tracer(tracer)
-        BP_LAUNCHES.reset()
+        reset_launches()
         try:
             for _ in range(TRACED_RUNS):
                 t1 = time.perf_counter()
@@ -1562,6 +1702,7 @@ def traced_phase(g, proj) -> tuple:
         finally:
             set_tracer(prev)
         launches[codec] = BP_LAUNCHES.n
+        count_filter("traced", TRACED_RUNS * filter_calls(plan))
         rel = rel_max(got, want)
         totals = {k: v / TRACED_RUNS for k, v in
                   tracer.stage_totals().items()}
@@ -1592,12 +1733,13 @@ def traced_phase(g, proj) -> tuple:
         sess = dataclasses.replace(plan, schedule="incremental",
                                    n_steps=N_STEPS).build_traced()
         n_d = g.n_proj // N_STEPS
-        BP_LAUNCHES.reset()
+        reset_launches()
         for lo in range(0, g.n_proj, n_d):
             vol = sess.update(proj[lo:lo + n_d], (lo, lo + n_d),
                               finalize=lo + n_d == g.n_proj)
         sync()
         n_launch = BP_LAUNCHES.n
+        count_filter("traced", N_STEPS)
         launches[codec] += n_launch
         rel = rel_max(vol, engine(proj))
         print(f"[traced] incremental {codec}, {N_STEPS} deltas: finalized "
@@ -1675,11 +1817,12 @@ def auto_phase(g, proj, phantom) -> dict:
     fn = measured.build()
     fn(proj)
     torch.cuda.synchronize()
-    BP_LAUNCHES.reset()
+    reset_launches()
     t1 = time.perf_counter()
     vol = fn(proj)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t1
+    count_filter("auto", filter_calls(measured))
     codec = measured.resolved_precision().storage
     if codec in launches:
         launches[codec] = BP_LAUNCHES.n
@@ -1697,9 +1840,9 @@ def auto_phase(g, proj, phantom) -> dict:
 
 def count_launches(svc, plans: dict, launches: dict) -> None:
     """Tally the back-projector's launches per codec of each bucket's plan
-    while `svc` serves: the wrapper's count read at the bucket's ends."""
-    from repro_torch.kernels.backproject import kernel as bpk
-
+    while `svc` serves: the wrapper's count read at the bucket's ends. The
+    wrapper's `filter_calls` adds up the filter_fn calls the buckets make,
+    one a lane (pads too) and micro-batch, for `count_filter`."""
     serve_bucket = svc._serve_bucket
 
     def counted(bucket, *args):
@@ -1707,9 +1850,12 @@ def count_launches(svc, plans: dict, launches: dict) -> None:
         try:
             return serve_bucket(bucket, *args)
         finally:
-            codec = plans[bucket.family].resolved_precision().storage
+            plan = plans[bucket.family]
+            codec = plan.resolved_precision().storage
             launches[codec] = launches.get(codec, 0) + BP_LAUNCHES.n - n0
+            counted.filter_calls += bucket.bsz * filter_calls(plan)
 
+    counted.filter_calls = 0
     svc._serve_bucket = counted
 
 
@@ -1775,7 +1921,8 @@ def service_phase(g, proj, phantom, work: str) -> tuple:
         prev = set_tracer(tracer)
         sync()
         torch.cuda.reset_peak_memory_stats()
-        BP_LAUNCHES.reset()
+        reset_launches()
+        svc._serve_bucket.filter_calls = 0
         t0 = time.perf_counter()
         try:
             svc.drain()
@@ -1785,6 +1932,7 @@ def service_phase(g, proj, phantom, work: str) -> tuple:
         dt = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
         n_launch = BP_LAUNCHES.n
+        count_filter("service", svc._serve_bucket.filter_calls)
         st = svc.stats()
         bad = [t.scan_id for t in tickets if t.state is not TicketState.DONE]
         if bad:
@@ -1913,7 +2061,7 @@ def serve_loop_phase(svc, g, proj, seconds_a: list) -> dict:
     per_scan = sum(seconds_a) / len(seconds_a)
     deadline = 4 * per_scan
     st0 = svc.stats()
-    BP_LAUNCHES.reset()
+    reset_launches()
     t0 = time.perf_counter()
     svc.serve()
     tickets = [svc.submit(projections=p, geometry=g, impl="kernel",
@@ -1928,6 +2076,8 @@ def serve_loop_phase(svc, g, proj, seconds_a: list) -> dict:
         fail(f"serve-loop: tickets {[t.state for t in tickets]}, waited "
              f"{waited}: {[repr(t.error) for t in tickets if t.error]}")
     plan = svc.plan_cache.resolve(tickets[0].family)
+    lanes = len(scans) + st["padded_lanes"] - st0["padded_lanes"]
+    count_filter("serve-loop", lanes * filter_calls(plan))
     fn = plan.build()
     same = [torch.equal(fn(p), t.result()) for p, t in zip(scans, tickets)]
     met = st["slo"]["met"] - st0["slo"]["met"]
@@ -2000,7 +2150,7 @@ def resumable_phase(g, proj, work: str) -> dict:
             saves.append(time.perf_counter() - t0)
 
         mgr.save = timed_save
-        BP_LAUNCHES.reset()
+        reset_launches()
         r1 = ResumableReconstruction(step, zeros, N_STEPS, mgr,
                                      checkpoint_every=2)
         try:
@@ -2019,6 +2169,7 @@ def resumable_phase(g, proj, work: str) -> dict:
         got = r2.run()
         sync()
         n_launch = BP_LAUNCHES.n
+        count_filter("resumable", n_launch)    # a stage a fold
     same = torch.equal(got, want)
     fused = ReconstructionPlan(geometry=g, impl="kernel",
                                precision="fp32").build()(proj)
@@ -2077,18 +2228,19 @@ def mesh_one(dev, g, proj) -> dict:
                     base = ReconstructionPlan(
                         geometry=g, impl="kernel", precision=codec,
                         schedule=sched, **kw).build()
-                    fn = ReconstructionPlan(
+                    plan = ReconstructionPlan(
                         geometry=g, mesh=mesh, impl="kernel",
-                        precision=codec, schedule=sched, reduce=red,
-                        **kw).build()
+                        precision=codec, schedule=sched, reduce=red, **kw)
+                    fn = plan.build()
                     base(proj)  # warm-ups
                     fn(proj)
                     sync()
                     want, t_none = timed(base)
                     before = dict(fn.collectives.bytes)
-                    BP_LAUNCHES.reset()
+                    reset_launches()
                     got, t_mesh = timed(fn)
                     n_launch = BP_LAUNCHES.n
+                    count_filter("mesh 1x1", filter_calls(plan))
                     moved = {k: v - before[k]
                              for k, v in fn.collectives.bytes.items()}
                     t_mesh = (t_mesh + timed(fn)[1]) / 2
@@ -2158,13 +2310,14 @@ def mesh_sessions(g, proj, mesh) -> int:
     none = fold_session(ReconstructionPlan(**kw), proj, N_STEPS)
     launches, vols = 0, {}
     for red in MESH_SESSION_REDUCES:
-        BP_LAUNCHES.reset()
+        reset_launches()
         t0 = time.perf_counter()
         part = fold_session(ReconstructionPlan(mesh=mesh, reduce=red, **kw),
                             proj, N_STEPS, mesh)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         n_launch = BP_LAUNCHES.n
+        count_filter("mesh 1x1", N_STEPS)
         launches += n_launch
         vol = assemble_volume(part, mesh, red).reshape(g.volume_shape())
         if red == "scatter_bf16":
@@ -2201,23 +2354,25 @@ def mesh_traced(g, proj, mesh) -> int:
 
     kw = dict(geometry=g, impl="kernel", precision="fp32")
     want = ReconstructionPlan(**kw).build_traced()(proj)
-    BP_LAUNCHES.reset()
+    reset_launches()
     got = assemble_volume(
         ReconstructionPlan(mesh=mesh, **kw).build_traced()(proj), mesh,
         "psum")
     torch.cuda.synchronize()
     n_launch = BP_LAUNCHES.n
+    count_filter("mesh 1x1", 1)
     engine_ok = torch.equal(got, want)
     kw.update(schedule="incremental", n_steps=N_STEPS)
     none = ReconstructionPlan(**kw)
     want = fold_session(none, proj, N_STEPS, session=none.build_traced())
     plan = ReconstructionPlan(mesh=mesh, **kw)
     sess = plan.build_traced()
-    BP_LAUNCHES.reset()
+    reset_launches()
     got = assemble_volume(fold_session(plan, proj, N_STEPS, mesh, sess),
                           mesh, "psum")
     torch.cuda.synchronize()
     n_launch += BP_LAUNCHES.n
+    count_filter("mesh 1x1", N_STEPS)
     session_ok = torch.equal(got, want)
     print(f"[mesh-1x1] build_traced() fp32 psum bit-equal to mesh=None's: "
           f"{engine_ok}; the traced session ({N_STEPS} deltas) bit-equal "
@@ -2302,12 +2457,13 @@ def mesh_rank(rank: int, world: int, work: str) -> None:
             fn = plan.build()
             case = {"bp_call_shape": list(plan.bp_call_shape())}
             dist.barrier()
-            BP_LAUNCHES.reset()
+            reset_launches()
             t0 = time.perf_counter()
             part = fn(local)
             torch.cuda.synchronize()
             case["seconds"] = time.perf_counter() - t0
             case["launches"] = BP_LAUNCHES.n
+            case["filter_launches"] = FILTER_LAUNCHES.n
             _, direct, pairs = direct_pairs(lambda: fn(local))
             case["direct_share"] = direct / pairs
             case["out_shape"] = list(part.shape)
@@ -2434,6 +2590,9 @@ def mesh_four(g, proj) -> int:
         cases = [rep["cases"][i] for _, _, rep in results]
         label = f"fp32 {sched} {kw} {red}"
         launches += sum(c["launches"] for c in cases)
+        filters = [c["filter_launches"] for c in cases]
+        FILTER_BY_PATH["mesh 2x2, all ranks"] = (
+            FILTER_BY_PATH.get("mesh 2x2, all ranks", 0) + sum(filters))
         rel = cases[0]["rel"]
         bounds = ({"plain shifted": BF16_REDUCE_RTOL,
                    "mesh=None": BF16_REDUCE_RTOL} if red == "scatter_bf16"
@@ -2446,12 +2605,15 @@ def mesh_four(g, proj) -> int:
         print(f"[mesh-2x2] {label}: kernel call (nx, ny, n_p) "
               f"{cases[0]['bp_call_shape']}, per-rank output "
               f"{cases[0]['out_shape']}; seconds (first call) {seconds}; "
-              f"kernel launches per rank {[c['launches'] for c in cases]}; "
-              f"direct-gather share of each rank's last launch [{shares}]; "
+              f"kernel launches per rank {[c['launches'] for c in cases]}, "
+              f"filter kernel launches per rank {filters}; direct-gather share of each rank's last launch [{shares}]; "
               f"rank 0 bytes {cases[0]['bytes']}; assembled volume, max "
               f"abs / max: {checks}")
         if min(c["launches"] for c in cases) < 1:
             fail(f"mesh 2x2 {label}: a rank did not launch the kernel")
+        if filters != [kw.get("n_steps", 1)] * len(cases):
+            fail(f"mesh 2x2 {label}: filter kernel launches per rank "
+                 f"{filters}, expected one a micro-batch")
         if not all(rel[k] <= b for k, b in bounds.items()):
             fail(f"mesh 2x2 {label}: {checks}")
     return launches
@@ -4979,6 +5141,7 @@ def run(work: str) -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels.attention import kernel as fak
     from repro_torch.kernels.backproject import kernel as bpk
+    from repro_torch.kernels.filter import kernel as rfk
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4993,13 +5156,14 @@ def run(work: str) -> int:
     print(f"[device] torch: {kind}, count {count}, torch {torch.__version__},"
           f" CUDA {torch.version.cuda}")
 
-    # 2. Build both libraries at once, one nvcc each -------------------------
+    # 2. Build the libraries at once, one nvcc each ------------------------
     t0 = time.perf_counter()
-    libs = (bpk.LIBRARY, fak.LIBRARY)
+    libs = (bpk.LIBRARY, fak.LIBRARY, rfk.LIBRARY)
     with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
         for fut in [pool.submit(lib.build) for lib in libs]:
             fut.result()
-    print(f"[build] both libraries in {time.perf_counter() - t0:.2f} s wall")
+    print(f"[build] {len(libs)} libraries in {time.perf_counter() - t0:.2f} s "
+          "wall")
     for lib in libs:
         print(f"[build] {lib.path.name}: nvcc {lib.build_seconds} s (None = "
               "already built)")
@@ -5007,6 +5171,7 @@ def run(work: str) -> int:
 
     # 3-5. Reconstruction ----------------------------------------------------
     entries, g, proj, phantom = reconstruction(dev)
+    filter_entry = filter_phase(g, proj)
     torch.cuda.empty_cache()
 
     # 6-10. The streaming, batched and I/O paths, the tracer ------------------
@@ -5058,6 +5223,13 @@ def run(work: str) -> int:
         print(f"[kernels] {entry['name']} launches: {entry['launches']} = "
               + " + ".join(f"{p.get(codec, 0)} ({name})"
                            for name, p in paths.items()))
+    filter_entry["launches_by_path"] = {name: FILTER_BY_PATH.get(name, 0)
+                                        for name in paths}
+    filter_entry["launches"] = sum(filter_entry["launches_by_path"].values())
+    print(f"[kernels] {filter_entry['name']} launches, every codec: "
+          f"{filter_entry['launches']} = " + " + ".join(
+              f"{n} ({name})"
+              for name, n in filter_entry["launches_by_path"].items()))
     other = {f"{name}, {c}": n for name, p in paths.items()
              for c, n in p.items() if c not in MAIN_PATH_CODECS and n}
     print(f"[kernels] back-projector launches on the other wire types' "
@@ -5158,7 +5330,7 @@ def run(work: str) -> int:
         entry["launches"] = sum(entry["launches_by_path"].values())
         print(f"[kernels] {entry['name']} launches with [lm-mesh]: "
               f"{entry['launches']}")
-    entries += attn
+    entries += attn + [filter_entry]
 
     finish_production_cells(production)
 

@@ -2,10 +2,11 @@
 
 Port of `repro/core/filtering.py`. The numpy tables (`cosine_weights`,
 `ramp_kernel`, `ramp_frequency_response`, `fft_length`) are the reference's
-own code, so they are bit-equal. The convolution runs on `torch.fft`
-(cuFFT on the card) at the same padded length, in f32, a batch of
-projections at a time so that the complex spectrum of a clinical-size
-stream never lives in memory whole.
+own code, so they are bit-equal. The convolution runs at the same padded
+length, in f32. On the card it is one launch of the hand-written kernel
+(`kernels/filter`), which filters every detector row in shared memory. On
+the CPU it runs on `torch.fft`, a batch of projections at a time so that the
+complex spectrum of a clinical-size stream never lives in memory whole.
 
 Q_i(j, .) = (E_i * F_cos)(j, .)  (x)  F_ramp        for every detector row j
 """
@@ -14,13 +15,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import on_card, resolve_device
+from ..kernels.filter import kernel as filter_kernel
 from .geometry import CBCTGeometry
 
 _WINDOWS = ("ramlak", "shepp-logan", "hann", "hamming")
 
-# Projections filtered per FFT batch: bounds the (B, N_v, pad/2+1) complex
-# spectrum and the (B, N_v, pad) inverse transform.
+# Projections filtered per FFT batch on the CPU: bounds the (B, N_v,
+# pad/2+1) complex spectrum and the (B, N_v, pad) inverse transform.
 _FILTER_BATCH = 32
 
 
@@ -57,6 +59,11 @@ def ramp_kernel(n: int, tau: float) -> np.ndarray:
 def ramp_frequency_response(g: CBCTGeometry, window: str = "ramlak",
                             pad: int | None = None) -> np.ndarray:
     """rfft of the (apodized) ramp kernel at padded length."""
+    return _response(g, window, pad).astype(np.complex64)
+
+
+def _response(g: CBCTGeometry, window: str, pad: int | None) -> np.ndarray:
+    """`ramp_frequency_response` in float64 (complex128), before rounding."""
     if window not in _WINDOWS:
         raise ValueError(f"unknown window {window!r}; choose from {_WINDOWS}")
     n = pad or fft_length(g.n_u)
@@ -72,7 +79,7 @@ def ramp_frequency_response(g: CBCTGeometry, window: str = "ramlak",
         w = 0.54 + 0.46 * np.cos(2.0 * np.pi * freq)
     else:
         w = np.ones_like(freq)
-    return (hf * w).astype(np.complex64)
+    return hf * w
 
 
 def fft_length(n_u: int) -> int:
@@ -102,14 +109,28 @@ def make_filter(g: CBCTGeometry, window: str = "ramlak", out_dtype=None,
     `out_dtype` is the storage dtype of the emitted filtered projections;
     the FFT convolution itself always runs in f32. None keeps the input
     dtype.
+
+    On the card (a CUDA tensor, or a fake one in a dry run) filter_fn is
+    one launch of the filter kernel, `filter_kernel.filter_rows`, which
+    filters every row on its own and raises for a pad it is not compiled
+    for. On the CPU it is `_filter_batch` on torch.fft, _FILTER_BATCH
+    projections at a time.
     """
     dev = resolve_device(device)
     pad = fft_length(g.n_u)
     fcos = torch.as_tensor(cosine_weights(g), device=dev)
-    hf = torch.as_tensor(ramp_frequency_response(g, window, pad), device=dev)
+    hf64 = _response(g, window, pad)
+    tables = filter_kernel.filter_tables(hf64, g.tau_u, dev)
+    # Only the CPU's torch.fft path reads the complex64 response.
+    hf = (torch.as_tensor(hf64.astype(np.complex64), device=dev)
+          if dev.type == "cpu" else None)
 
     def filter_fn(proj: torch.Tensor) -> torch.Tensor:
         proj = torch.as_tensor(proj, device=dev)
+        if on_card(proj):
+            q = filter_kernel.filter_rows(
+                proj.to(torch.float32).contiguous(), fcos, *tables)
+            return q.to(out_dtype or proj.dtype)
         out = torch.empty(proj.shape, dtype=out_dtype or proj.dtype,
                           device=dev)
         for b0 in range(0, proj.shape[0], _FILTER_BATCH):

@@ -759,10 +759,11 @@ class ReconstructionPlan:
         Exactness contract: lane b of the output is BIT-IDENTICAL to
         `self.build()(projections[b])`, so a junk or NaN lane cannot
         perturb the real ones. Each lane runs build()'s schedule body in
-        turn, so the filter's FFT batches see the same projections and
-        batch counts as build()'s (cuFFT may pick another algorithm for
-        another count, and a batch must not straddle two scans), and only
-        one lane's intermediates are live at a time.
+        turn, so only one lane's intermediates are live at a time. On the
+        card the filter kernel filters every detector row alone, so a
+        lane's rows filter as build()'s do by construction; on the CPU the
+        FFT batches of a lane are build()'s (a batch never straddles two
+        scans).
 
         Engines are cached per (plan, batch_size) in build()'s LRU. With
         the tracer on, the engine's fenced ``engine.batched`` span carries

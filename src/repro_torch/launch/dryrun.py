@@ -72,7 +72,8 @@ DEVICE = torch.device("cpu")
 
 # The kernels' launch operators, by the name the rows give them.
 KERNEL_OPS = {"repro_torch::flash_attention_fwd": "flash_attention",
-              "repro_torch::backproject_dual_launch": "backproject_dual"}
+              "repro_torch::backproject_dual_launch": "backproject_dual",
+              "repro_torch::filter_rows_launch": "filter_rows"}
 
 # Collective operators by name: (kind, the argument whose bytes count,
 # whether they count once per rank of the group). The all-gather counts

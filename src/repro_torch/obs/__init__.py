@@ -40,7 +40,9 @@ the tracer on:
 
 The kernels count into the default registry: kernels.backproject.launches,
 .tile_pairs and .direct_pairs (the last two for launches read at a
-traced fence), kernels.attention.launches and .window_launches.
+traced fence), kernels.attention.launches and .window_launches, and
+kernels.filter.launches and .rows (the detector rows each launch
+filtered: every filter_fn call on the card is one launch).
 
 Quick start::
 

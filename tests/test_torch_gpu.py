@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_smoke_config
+from repro_torch.core import filtering as tfilt
 from repro_torch.core.distributed import shift_pmats_i
 from repro_torch.core.filtering import make_filter
 from repro_torch.core.geometry import CBCTGeometry, projection_matrices
@@ -32,6 +33,7 @@ from repro_torch.kernels.backproject import kernel as bpk
 from repro_torch.kernels.backproject import tune
 from repro_torch.kernels.backproject.ops import kernel_operands
 from repro_torch.kernels.build import CudaLibrary
+from repro_torch.kernels.filter import kernel as rfk
 from repro_torch.models import layers
 from repro_torch.models.transformer import init_params, prefill
 from repro_torch.obs import metrics as obs_metrics
@@ -287,7 +289,8 @@ def test_main_path_runs_the_kernel_and_matches_the_cpu(cuda):
     assert vol.device.type == "cuda"
     ref = ReconstructionPlan(geometry=G, impl="kernel",
                              device="cpu").build()(proj)
-    # cuFFT and the CPU FFT differ at f32 round-off before the kernel
+    # the filter kernel and the CPU FFT differ at f32 round-off before the
+    # back-projector
     rel = float((vol.cpu() - ref).abs().max() / ref.abs().max())
     assert rel <= REL
 
@@ -332,8 +335,9 @@ def test_session_of_four_deltas_matches_build(cuda):
     ("fp32", {}), ("fp16", {}),
     ("fp16", {"schedule": "pipelined", "n_steps": 8})])
 def test_batched_lanes_bit_equal_at_496_projections(cuda, codec, kw):
-    """cuFFT sees each lane in build()'s batches (the whole scan, or each
-    micro-batch of 62): lanes bit-equal to build()."""
+    """The filter kernel filters every row alone, so each lane (the whole
+    scan, or each micro-batch of 62) is filtered as build() filters it:
+    lanes bit-equal to build()."""
     proj = forward_project(G496, device=cuda)
     plan = ReconstructionPlan(geometry=G496, impl="kernel", precision=codec,
                               **kw)
@@ -375,6 +379,119 @@ def test_encoded_source_and_write_behind_on_the_card(cuda, tmp_path):
     finally:
         wb.close()
     assert torch.equal(sink.read(), torch.full((32, 32, 32), 3.0))
+
+
+# -- the ramp filter kernel ---------------------------------------------------
+
+WINDOWS = ("ramlak", "shepp-logan", "hann", "hamming")
+# RabbitCT's detector (the benchmark's cells), pad 4096.
+RCT = CBCTGeometry(n_proj=496, n_u=1248, n_v=960, d_u=4.8 / 1248,
+                   d_v=4.8 / 1248, d=4.0, dsd=8.0, n_x=512, n_y=512,
+                   n_z=512, d_x=2 / 512, d_y=2 / 512, d_z=2 / 512)
+# The small geometries: G (pad 128), an odd detector row, N_u = pad / 2,
+# and a detector of one row.
+FILTER_GEOMS = {"G": G, "odd": dataclasses.replace(G, n_u=41),
+                "half": dataclasses.replace(G, n_u=64),
+                "one-row": dataclasses.replace(G, n_v=1)}
+# Two f32 transforms of length pad agree to a few ulps of the row's
+# largest output times log2(pad) (measured ~2e-7 of the max on the CPU);
+# 1e-5 of the max is the JAX package's own bound between two f32 FFTs
+# (tests/test_torch_filtering.py), well above both.
+FILTER_REL = 1e-5
+
+
+def fft_chain(g, window, proj):
+    """The torch.fft chain that filtered on the card before the kernel:
+    `_filter_batch` a batch of 32 projections at a time."""
+    pad = tfilt.fft_length(g.n_u)
+    fcos = torch.as_tensor(tfilt.cosine_weights(g), device=proj.device)
+    hf = torch.as_tensor(tfilt.ramp_frequency_response(g, window, pad),
+                         device=proj.device)
+    return torch.cat([tfilt._filter_batch(proj[b:b + 32], fcos, hf, pad,
+                                          g.tau_u)
+                      for b in range(0, proj.shape[0], 32)])
+
+
+def rel_max(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+def rct_projections(n: int, device) -> torch.Tensor:
+    gen = torch.Generator(device=device).manual_seed(0)
+    return torch.rand((n, RCT.n_v, RCT.n_u), generator=gen, device=device)
+
+
+@pytest.mark.parametrize("window", WINDOWS)
+@pytest.mark.parametrize("geom", sorted(FILTER_GEOMS))
+def test_filter_kernel_matches_plain_version_and_fft_chain(cuda, geom,
+                                                           window):
+    g = FILTER_GEOMS[geom]
+    proj = forward_project(g, device=cuda)
+    before = counted(rfk.LAUNCHES)
+    got = make_filter(g, window, device=cuda)(proj)
+    assert counted(rfk.LAUNCHES) == before + 1
+    plain = make_filter(g, window, device="cpu")(proj.cpu())
+    assert got.shape == plain.shape and got.dtype == torch.float32
+    assert rel_max(got.cpu(), plain) <= FILTER_REL
+    assert rel_max(got, fft_chain(g, window, proj)) <= FILTER_REL
+
+
+@pytest.mark.parametrize("window", WINDOWS)
+def test_filter_kernel_at_rabbitct(cuda, window):
+    """All 496 x 960 rows against the torch.fft chain on the card; the
+    first two projections also against the CPU's plain version and the
+    kernel's torch twin."""
+    proj = rct_projections(RCT.n_proj, cuda)
+    got = make_filter(RCT, window, device=cuda)(proj)
+    assert rel_max(got, fft_chain(RCT, window, proj)) <= FILTER_REL
+    sub = proj[:2].clone()
+    del proj
+    plain = make_filter(RCT, window, device="cpu")(sub.cpu())
+    assert rel_max(got[:2].cpu(), plain) <= FILTER_REL
+    pad = tfilt.fft_length(RCT.n_u)
+    fcos = torch.as_tensor(tfilt.cosine_weights(RCT), device=cuda)
+    tables = rfk.filter_tables(tfilt._response(RCT, window, pad), RCT.tau_u,
+                               cuda)
+    twin = rfk.filter_rows_torch(sub, fcos, *tables)
+    assert rel_max(got[:2], twin) <= FILTER_REL
+
+
+def test_filter_kernel_rows_do_not_depend_on_the_batch(cuda):
+    """One projection filtered alone is bit-equal to the same projection
+    inside a batch of 32 and of 496."""
+    proj = rct_projections(RCT.n_proj, cuda)
+    filt = make_filter(RCT, device=cuda)
+    whole, first, alone = filt(proj), filt(proj[:32]), filt(proj[5:6])
+    assert torch.equal(alone[0], first[5]) and torch.equal(alone[0], whole[5])
+    assert torch.equal(first, whole[:32])
+
+
+def test_filter_kernel_counts_launches_and_rows(cuda):
+    filt = make_filter(G, device=cuda)
+    proj = forward_project(G, device=cuda)
+    for _ in range(2):
+        launches, rows = counted(rfk.LAUNCHES), counted(rfk.ROWS)
+        filt(proj)
+        assert counted(rfk.LAUNCHES) == launches + 1
+        assert counted(rfk.ROWS) == rows + G.n_proj * G.n_v
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+def test_filter_kernel_reads_16_bit_projections(cuda, dtype):
+    """make_filter upcasts a 16-bit batch for the kernel, which reads f32:
+    it filters bit-equal to its f32 upcast, and keeps the input dtype by
+    default."""
+    proj = forward_project(G, device=cuda).to(dtype)
+    got = make_filter(G, out_dtype=torch.float32, device=cuda)(proj)
+    assert torch.equal(got, make_filter(G, device=cuda)(proj.float()))
+    assert make_filter(G, device=cuda)(proj).dtype == dtype
+
+
+def test_filter_kernel_refuses_an_uncompiled_pad(cuda):
+    g = dataclasses.replace(G, n_u=8)    # pad 16
+    with pytest.raises(ValueError, match="compiled pad"):
+        make_filter(g, device=cuda)(forward_project(g, device=cuda))
 
 
 def test_wrapper_rejects_mixed_devices(cuda):

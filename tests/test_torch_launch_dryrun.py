@@ -165,7 +165,8 @@ def test_one_rank_counts_equal_flop_counter_mode(shape):
 
 
 def test_fdk_cell_on_a_fake_mesh():
-    """The smoke FDK cell through the kernel's launch operator: its count
+    """The smoke FDK cell through the kernels' launch operators (the
+    filter's and the back-projector's, once per micro-batch each): its count
     per rank is the kernel's formula for the rank's projections and slab
     (each micro-batch's call), gathered over `model`, reduce-scattered
     over `data`."""
@@ -178,7 +179,7 @@ def test_fdk_cell_on_a_fake_mesh():
     # R = 2 slabs of n/2 x-planes, C = 2 column groups of n_proj/2
     assert row["traced_flops_per_dev"] == backproject_ops(
         n_proj // 2, n // 2, n, n)
-    assert row["kernel_calls"] == {"backproject_dual": 2}
+    assert row["kernel_calls"] == {"backproject_dual": 2, "filter_rows": 2}
     groups = row["collectives"]["by_group"]
     assert set(groups) == {"all-gather x2", "reduce-scatter x2 across nodes"}
     # the rank's n_proj / 4 projections (an input) beside its slab

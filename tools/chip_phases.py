@@ -3,7 +3,7 @@ after the card tests: the quick check of those phases on the card.
 
     python3 tools/chip_phases.py  # one H100, about 15 minutes
 
-Builds both kernel libraries (one nvcc each, at once), runs the card
+Builds the three kernel libraries (one nvcc each, at once), runs the card
 tests (`pytest --noconftest -m gpu tests/test_torch_gpu.py`), then
 `chip_smoke.launch_phase` and `chip_smoke.lm_mesh` on full-width
 Qwen2-1.5B and Qwen2-MoE-A2.7B, and joins the production cells that
@@ -29,6 +29,7 @@ import chip_smoke as C  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels.attention import kernel as fak  # noqa: E402
 from repro_torch.kernels.backproject import kernel as bpk  # noqa: E402
+from repro_torch.kernels.filter import kernel as rfk  # noqa: E402
 
 
 def main() -> int:
@@ -39,7 +40,7 @@ def main() -> int:
     t0 = time.perf_counter()
     print(f"[check] {C.nvidia_smi_line()}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}", flush=True)
-    libs = (bpk.LIBRARY, fak.LIBRARY)
+    libs = (bpk.LIBRARY, fak.LIBRARY, rfk.LIBRARY)
     with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
         for fut in [pool.submit(lib.build) for lib in libs]:
             fut.result()
