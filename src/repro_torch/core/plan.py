@@ -979,6 +979,12 @@ class IncrementalSession:
     permuted projection stream. impl="kernel" folds `acc + bp(delta)` (the
     kernel owns its accumulator) and matches to f32 reassociation
     tolerance.
+
+    With the tracer on, the fold's device work is timed in the
+    ``stage.filter`` and ``stage.backproject`` device stages, the add in
+    ``stream.accumulate`` and the epilogue in ``stream.finalize``; they
+    resolve into the span that fences the fold (``session.fold`` or
+    ``session.finalize``).
     """
 
     def __init__(self, plan: ReconstructionPlan, source=None, sink=None):
@@ -1023,7 +1029,18 @@ class IncrementalSession:
         return [(int(idx[i]), int(idx[i + 1]))
                 for i in range(0, len(idx), 2)]
 
-    def _check_slice(self, angle_slice) -> Tuple[int, int]:
+    def check(self, projection_delta, angle_slice,
+              taken: Optional[np.ndarray] = None) -> Tuple[int, int]:
+        """The checks `update` makes of a raw delta, without folding it:
+        its (lo, hi), or ValueError for a slice out of range, over angles
+        folded already (or marked in `taken`, a caller's (N_p,) bool mask
+        of angles claimed by deltas not folded yet), that does not divide
+        over the rank grid, or a delta of the wrong shape."""
+        lo, hi = self._check_slice(angle_slice, taken)
+        self._check_delta_shape(projection_delta, lo, hi)
+        return lo, hi
+
+    def _check_slice(self, angle_slice, taken=None) -> Tuple[int, int]:
         if isinstance(angle_slice, slice):
             if angle_slice.step not in (None, 1):
                 raise ValueError("angle_slice must be contiguous (step 1)")
@@ -1037,7 +1054,8 @@ class IncrementalSession:
         if not (0 <= lo < hi <= n_proj):
             raise ValueError(
                 f"angle_slice [{lo}, {hi}) out of range for N_p={n_proj}")
-        if self._covered[lo:hi].any():
+        if self._covered[lo:hi].any() or (taken is not None
+                                          and taken[lo:hi].any()):
             raise ValueError(
                 f"angle_slice [{lo}, {hi}) overlaps angles already folded "
                 "into this session — double-folding corrupts the volume")
@@ -1082,8 +1100,10 @@ class IncrementalSession:
                                            g.n_z, scales=sc_col,
                                            init=self._acc)
             else:
-                self._acc = self._acc + st.backproject(
-                    pm_s, q_col, st.nx_slab, g.n_y, g.n_z, scales=sc_col)
+                part = st.backproject(pm_s, q_col, st.nx_slab, g.n_y, g.n_z,
+                                      scales=sc_col)
+                with device_stage("stream.accumulate", self._acc.device):
+                    self._acc = self._acc + part
             return
         self._accumulate(st.backproject(pm_s, q_col, st.nx_slab, g.n_y,
                                         g.n_z, scales=sc_col))
@@ -1098,7 +1118,8 @@ class IncrementalSession:
             red, self._carry = st.scatter_compensated(part, self._carry)
         else:
             red = st.coll.reduce_scatter_y(part, st.data_axis)
-        self._acc = self._acc + red
+        with device_stage("stream.accumulate", self._acc.device):
+            self._acc = self._acc + red
 
     def _epilogue(self) -> torch.Tensor:
         """Row-reduce epilogue + FDK scale of a COPY of the accumulator:
@@ -1113,11 +1134,12 @@ class IncrementalSession:
             axes = (st.pod_axis,) if st.pod_axis is not None else ()
         else:
             axes = st.dp
-        if axes:
-            slab = slab.clone()
-        for a in axes:
-            slab = st.coll.all_reduce(slab, a)
-        return slab * st.scale
+        with device_stage("stream.finalize", slab.device):
+            if axes:
+                slab = slab.clone()
+            for a in axes:
+                slab = st.coll.all_reduce(slab, a)
+            return slab * st.scale
 
     def _store(self, volume) -> None:
         wait_for(volume)
@@ -1171,8 +1193,7 @@ class IncrementalSession:
         else:
             if angle_slice is None:
                 raise TypeError("angle_slice is required for a raw delta")
-            lo, hi = self._check_slice(angle_slice)
-            self._check_delta_shape(projection_delta, lo, hi)
+            lo, hi = self.check(projection_delta, angle_slice)
         volume = None
         with get_tracer().span("session.fold", lo=lo, hi=hi, staged=staged,
                                final=finalize) as sp:

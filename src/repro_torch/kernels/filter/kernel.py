@@ -46,7 +46,11 @@ The launch is the operator `torch.ops.repro_torch.filter_rows_launch`: on
 fake tensors (a dry run, `launch/dryrun.py`) its fake implementation gives
 the output's shape and launches nothing. A real launch advances
 ``kernels.filter.launches`` by one and ``kernels.filter.rows`` by the rows it
-filtered in the default metrics registry (obs/metrics.py).
+filtered in the default metrics registry (obs/metrics.py). With the tracer
+on, the launch alone is the ``filter.kernel`` device stage of the enclosing
+fence (`obs.trace.device_stage`), as ``bp.kernel`` is the back-projector's:
+the ``stage.filter`` around it also holds the host's way to the launch,
+which an idle card waits out inside the stage.
 """
 from __future__ import annotations
 
@@ -59,6 +63,7 @@ import torch
 
 from ...device import on_card
 from ...obs import metrics
+from ...obs.trace import device_stage
 from ..build import CudaLibrary
 
 LIBRARY = CudaLibrary("filter", [Path(__file__).parent / "csrc" / "filter.cu"])
@@ -296,10 +301,11 @@ def filter_rows_launch(proj: torch.Tensor, fcos: torch.Tensor,
                          "16-byte aligned (filter_tables makes them so)")
     with torch.cuda.device(proj.device):
         stream = torch.cuda.current_stream(proj.device).cuda_stream
-        rc = lib.rf_launch(proj.data_ptr(),
-                           fcos.data_ptr(), twiddles.data_ptr(),
-                           table.data_ptr(), out.data_ptr(), b, nv, nu,
-                           (2 * table.shape[0]).bit_length() - 1, stream)
+        with device_stage("filter.kernel", proj.device):
+            rc = lib.rf_launch(proj.data_ptr(),
+                               fcos.data_ptr(), twiddles.data_ptr(),
+                               table.data_ptr(), out.data_ptr(), b, nv, nu,
+                               (2 * table.shape[0]).bit_length() - 1, stream)
     if rc != 0:
         raise RuntimeError(
             f"filter kernel launch failed (B {b}, N_v {nv}, N_u {nu}, pad "

@@ -21,6 +21,7 @@ The serving path (service/scheduler.py, core/plan.py, kernels/), with
 the tracer on:
 
   service.loop.wait        the serve thread waiting for work
+  service.loop.poll        the same while a stream is open: it polls
   service.schedule         a pass's buckets formed, its loads queued
   service.drain            one pass over its buckets
   service.bucket           one bucket: args scan_ids, queue_ms (each
@@ -31,12 +32,27 @@ the tracer on:
       service.lane.h2d        one lane's copy to the device: args bytes,
                               src ("host"/"device"), pinned, scan_id
     engine.batched         the batched engine, fenced: args lanes,
-                           device_ms {"stage.filter", "stage.backproject",
+                           device_ms {"stage.filter", "filter.kernel",
+                           "stage.backproject", "bp.operands", "bp.kernel",
+                           "bp.unfold", "stage.reduce"} summed over its
+                           lanes, and direct_pairs / tile_pairs of its
+                           kernel launches
+  service.stream.fold      one delta of an open stream folded into its
+                           session (`open_stream`/`push`): args scan_id,
+                           lo, hi, final (the fold that completes the
+                           angles and runs the epilogue), wait_ms (the
+                           delta's arrival to the fold's start)
+    session.fold           the session's fold (core/plan.py
+                           IncrementalSession.update), fenced: args lo,
+                           hi, final, device_ms {"stage.filter",
+                           "filter.kernel", "stage.backproject",
                            "bp.operands", "bp.kernel", "bp.unfold",
-                           "stage.reduce"} summed over its lanes, and
-                           direct_pairs / tile_pairs of its kernel launches
-  scan (async, cat "scan") one scan's life from arrival to DONE or FAILED,
-                           id its scan_id
+                           "stream.accumulate", "stream.finalize"}
+  scan (async, cat "scan") one scan's life from arrival to DONE or FAILED
+                           (a stream's from its open), id its scan_id
+
+The service counts streams in its own registry:
+service.streams.opened and service.stream.deltas (deltas folded).
 
 The kernels count into the default registry: kernels.backproject.launches,
 .tile_pairs and .direct_pairs (the last two for launches read at a

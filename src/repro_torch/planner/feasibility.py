@@ -101,32 +101,53 @@ def plan_footprint(g: CBCTGeometry, point: PlanPoint) -> MemoryFootprint:
     elif point.schedule == "pipelined":
         slab = 2 * slab_f32
     elif point.schedule == "incremental":
-        # Resident session state: the fold returns a NEW accumulator while
-        # the old one is still live (no donation), so 2x the resident acc;
-        # the scatter modes keep the acc 1/data-scattered but materialize
-        # one full-width partial per delta before its psum_scatter.
-        scatter_div = (point.data_size or grid.c) if scatter else 1
-        slab = 2 * slab_f32 // scatter_div
+        # The session's resident state (`session_resident_bytes`, the
+        # scatter_bf16 carry included) and what a fold holds beside it: the
+        # NEW accumulator while the old one is still live (no donation),
+        # and under the scatter modes one full-width partial per delta
+        # before its psum_scatter.
+        slab = session_resident_bytes(g, point) + slab_f32 // _scatter_div(
+            point)
         if scatter:
             slab += slab_f32
     else:  # chunked
         y_chunks = point.y_chunks or 1
-        # The engine's accumulator is scattered over the DATA axis only
-        # (the pod axis finishes with a replicated psum) — grid.c is the
-        # right divisor only when the whole column group is the data axis.
-        scatter_div = (point.data_size or grid.c) if scatter else 1
         chunk = nx_slab * (g.n_y // y_chunks) * g.n_z * 4
-        slab = slab_f32 // scatter_div + 2 * chunk
-    if point.reduce == "scatter_bf16":
-        # The half-width reduce is not free in memory: chunked (and the
-        # incremental session, which turns the same carry along the time
-        # axis) holds the full-slab f32 error-feedback buffer;
-        # fused/pipelined materialize a bf16 copy of the slab for the wire.
-        slab += (slab_f32 if point.schedule in ("chunked", "incremental")
+        slab = slab_f32 // _scatter_div(point) + 2 * chunk
+    if point.reduce == "scatter_bf16" and point.schedule != "incremental":
+        # The half-width reduce is not free in memory: chunked holds the
+        # full-slab f32 error-feedback buffer; fused/pipelined materialize
+        # a bf16 copy of the slab for the wire.
+        slab += (slab_f32 if point.schedule == "chunked"
                  else slab_f32 // 2)
 
     temps = 2 * (np_local // max(1, point.n_steps)) * pix * 4
     return MemoryFootprint(proj_shard, gathered, slab, temps)
+
+
+def session_resident_bytes(g: CBCTGeometry, point: PlanPoint) -> int:
+    """What one incremental session (core/plan.py IncrementalSession)
+    holds on a device between its folds: the f32 slab accumulator,
+    1/data-scattered under the scatter reduces, plus scatter_bf16's
+    full-slab error-feedback carry. The part of `plan_footprint`'s slab
+    term that stays resident while a stream waits for its next delta; the
+    service prices its open streams by it."""
+    slab_f32 = (g.n_x // point.grid.r) * g.n_y * g.n_z * 4
+    resident = slab_f32 // _scatter_div(point)
+    if point.reduce == "scatter_bf16":
+        # the error-feedback carry turned along the time axis
+        resident += slab_f32
+    return resident
+
+
+def _scatter_div(point: PlanPoint) -> int:
+    """What a scatter reduce divides the slab accumulator by (1 for the
+    others): it is scattered over the DATA axis only (the pod axis
+    finishes with a replicated psum), so grid.c is the divisor only when
+    the whole column group is the data axis."""
+    if point.reduce not in SCATTER_REDUCES:
+        return 1
+    return point.data_size or point.grid.c
 
 
 def check_feasible(g: CBCTGeometry, point: PlanPoint,

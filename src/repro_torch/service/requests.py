@@ -9,6 +9,12 @@ and every array shape in the pipeline. It is also the plan-cache key
 (plan_cache.py), so "same family" and "planner search already paid" are
 the same statement.
 
+A **stream** is a scan whose projections arrive as deltas while the
+scanner still rotates (`ReconstructionService.open_stream` / `push`): its
+ticket is admitted once, its deltas fold into one resident
+`IncrementalSession` as they land, and it turns DONE on the fold of the
+delta that completes its angles.
+
 A **ticket** is the caller's handle on one submitted scan: its lifecycle
 (QUEUED -> BATCHED -> SERVING -> DONE | FAILED; REJECTED never enters the
 queue), the reconstructed volume once served, and the error if its bucket
@@ -24,6 +30,8 @@ import dataclasses
 import enum
 import threading
 from typing import Optional
+
+import numpy as np
 
 from ..core.geometry import CBCTGeometry
 
@@ -194,3 +202,32 @@ class _QueuedScan:
     source: Optional[object] = None          # io.streams.ProjectionSource
     sink: Optional[object] = None            # io.streams.VolumeSink
     seq: int = 0
+
+
+@dataclasses.dataclass
+class _Stream:
+    """Internal record of an open stream: its ticket and session, the
+    angles its pushed deltas claim (`claimed`, (N_p,) bool), the bytes its
+    session holds between folds (`resident`), and when it was opened (the
+    start of its ``scan`` async event; the ticket's `arrived_at` becomes
+    its last delta's arrival)."""
+
+    ticket: ScanTicket
+    session: object                          # core.plan.IncrementalSession
+    claimed: np.ndarray
+    resident: int
+    opened_at: float
+
+
+@dataclasses.dataclass
+class _QueuedDelta:
+    """Internal queue entry: one pushed delta of raw projections for angles
+    [lo, hi) of `stream`, when it arrived, and whether it completes the
+    stream's angles (`final`: its fold runs the epilogue)."""
+
+    stream: _Stream
+    delta: object
+    lo: int
+    hi: int
+    arrived_at: float
+    final: bool

@@ -35,8 +35,8 @@ Bucketing rules:
     through one plan).
   * Bucket sizes are powers of two, capped by `max_batch` AND by the
     memory budget: the largest b with b * footprint(plan) <= hbm_bytes
-    (planner/feasibility prices one scan's per-rank footprint; the batched
-    engine replicates it per lane). Power-of-two buckets bound the number
+    less the open streams' resident state (planner/feasibility prices one
+    scan's per-rank footprint; the batched engine replicates it per lane). Power-of-two buckets bound the number
     of distinct batch engines at log2(max_batch) per family.
   * A partial bucket is padded with zero scans; padding lanes are dropped
     from the output. The batched engine is bit-exact per lane
@@ -60,13 +60,32 @@ Serving modes:
   drain()               synchronous, on the caller's thread (the unit of
                         one scheduling pass).
   serve()/shutdown()    the background drain loop: a dedicated thread waits
-                        on a condition variable, wakes on submit(), and
-                        runs drain passes whenever work is queued — callers
-                        never block, they `ticket.wait(timeout=)`. One
-                        persistent SourcePrefetcher spans all passes
-                        (extend() per pass — no thread churn), and a pass
-                        that raises is counted and survived: the loop must
-                        keep serving (graceful degradation).
+                        on a condition variable, wakes on submit() and
+                        push(), and runs drain passes whenever work is
+                        queued — callers never block, they
+                        `ticket.wait(timeout=)`. One persistent
+                        SourcePrefetcher spans all passes (extend() per
+                        pass — no thread churn), and a pass that raises is
+                        counted and survived: the loop must keep serving
+                        (graceful degradation).
+
+Streams (a scan whose projections arrive while the scanner rotates, the
+paper's instant CT): `open_stream()` admits a family whose plan has
+schedule="incremental" and builds its `IncrementalSession`; `push()` queues
+one delta of raw projections for angles [lo, hi), checked on the caller's
+thread against the angles the stream's earlier pushes claimed. A pass folds
+the queued deltas in arrival order before its buckets and again after each
+bucket, on the serving thread; the delta that completes the stream's angles
+also runs the epilogue, and its ticket turns DONE once the volume is
+computed. Its `arrived_at` is that delta's arrival, so the time to volume
+and the SLO count from the last projection. Admission prices each open
+stream's resident accumulator (planner/feasibility
+`session_resident_bytes`) against the memory budget, next to the largest
+bucket of a pass being served; whole scans and buckets get the budget the
+open streams leave. A fold that raises fails its own stream only, and
+close() fails every stream still open.
+While a stream is open the serve loop polls for work rather than sleeping
+(`_serve_loop`).
 
 I/O overlap: all admitted scans' projection loads run on a prefetch thread
 (double-buffered — scan k+1 loads while scan k computes) and finished
@@ -79,8 +98,11 @@ bucket's lanes fetched and copied (``service.lane.get``,
 ``service.lane.h2d``, with the bytes copied) and stacked (the
 ``service.stack`` device stage) — and each scan's life from arrival to its
 terminal state is one async event pair (category ``scan``, id its
-scan_id). Latencies start at the scan's arrival: `submit(arrived_at=)`,
-submit time by default.
+scan_id). A stream's folds are ``service.stream.fold`` spans, each around
+its session's fenced ``session.fold`` with the fold's device stages, and
+its async event runs from its open.
+Latencies start at the scan's arrival: `submit(arrived_at=)`, submit time
+by default; a stream's at its last delta's `push(arrived_at=)`.
 """
 from __future__ import annotations
 
@@ -91,6 +113,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 
 from concurrent.futures import Future
 
+import numpy as np
 import torch
 
 from ..core.distributed import SCATTER_REDUCES, local_projections
@@ -102,16 +125,21 @@ from ..obs.trace import device_stage, get_tracer, wait_for
 from ..planner import (
     DEFAULT_HBM_BYTES, check_feasible, plan_footprint, point_from_plan,
 )
+from ..planner.feasibility import session_resident_bytes
 
 from .plan_cache import PlanCache
 from .requests import (
     AdmissionError, QueueFullError, ScanFamily, ScanTicket, TicketState,
-    _QueuedScan,
+    _QueuedDelta, _QueuedScan, _Stream,
 )
 
 #: Cross-family bucket execution orders `ReconstructionService(policy=)`
 #: accepts — see the module docstring for their semantics.
 SCHEDULING_POLICIES = ("fifo", "largest_bucket", "deadline")
+
+#: Seconds between the serve loop's looks for work while a stream is open
+#: (`_serve_loop`).
+POLL_S = 50e-6
 
 
 def _next_pow2(n: int) -> int:
@@ -124,12 +152,14 @@ def _next_pow2(n: int) -> int:
 class _Bucket(NamedTuple):
     """One schedulable unit: same-family scans sharing a batched dispatch.
     `seq` is the bucket's earliest admission sequence number — the
-    arrival-order key every policy tie-breaks on."""
+    arrival-order key every policy tie-breaks on. `footprint` is what its
+    dispatch holds on a device: bsz times one scan's footprint."""
 
     family: ScanFamily
     scans: List[_QueuedScan]
     bsz: int
     seq: int
+    footprint: int
 
     def deadline(self) -> float:
         """The bucket's most urgent ticket deadline (+inf when no lane
@@ -139,11 +169,14 @@ class _Bucket(NamedTuple):
         return min(ds) if ds else math.inf
 
 
-def _trace_scan(ticket: ScanTicket, t_end: float, tracer) -> None:
-    """The scan's life, from its arrival to `t_end` (its terminal
-    transition), as one async event pair of category ``scan``."""
-    if tracer.enabled and ticket.start is not None:
-        tracer.async_pair("scan", ticket.scan_id, round(ticket.start * 1e9),
+def _trace_scan(ticket: ScanTicket, t_end: float, tracer,
+                t_start: Optional[float] = None) -> None:
+    """The scan's life, from its arrival (`t_start`: a stream's open) to
+    `t_end` (its terminal transition), as one async event pair of category
+    ``scan``."""
+    t_start = ticket.start if t_start is None else t_start
+    if tracer.enabled and t_start is not None:
+        tracer.async_pair("scan", ticket.scan_id, round(t_start * 1e9),
                           round(t_end * 1e9), cat="scan",
                           state=ticket.state.value)
 
@@ -194,10 +227,18 @@ class ReconstructionService:
                                     device=str(self.device))
         self._writeback = AsyncWriteback(max_pending=writeback_depth)
         self._queue: List[_QueuedScan] = []
+        # open streams by scan_id, their pushed deltas not folded yet (in
+        # arrival order), and the bytes their sessions hold
+        self._streams: Dict[str, _Stream] = {}
+        self._deltas: List[_QueuedDelta] = []
+        self._stream_bytes = 0
+        # the largest bucket footprint of the pass being served (0 between
+        # passes): open_stream prices a stream next to it
+        self._bucket_bytes = 0
         self._lock = threading.Lock()
-        # Background-loop wakeup: submit()/shutdown() notify, the serve
-        # thread waits. Shares self._lock so queue state and wakeup are
-        # one atomic picture.
+        # Background-loop wakeup: submit()/push()/shutdown() notify, the
+        # serve thread waits. Shares self._lock so queue state and wakeup
+        # are one atomic picture.
         self._cv = threading.Condition(self._lock)
         self._serve_thread: Optional[threading.Thread] = None
         self._shutdown_requested = False
@@ -218,6 +259,10 @@ class ReconstructionService:
         self._c["slo_missed"] = self.metrics.counter("service.slo.missed")
         self._c["loop_passes"] = self.metrics.counter("service.loop.passes")
         self._c["loop_errors"] = self.metrics.counter("service.loop.errors")
+        self._c["streams_opened"] = self.metrics.counter(
+            "service.streams.opened")
+        self._c["stream_deltas"] = self.metrics.counter(
+            "service.stream.deltas")
         self._h_queue_wait = self.metrics.histogram(
             "service.queue_wait_seconds", DEFAULT_TIME_BUCKETS)
         self._h_assembly = self.metrics.histogram(
@@ -230,8 +275,8 @@ class ReconstructionService:
     def _admit(self, family: ScanFamily):
         """Resolve the family's plan (cached) and check it serves: the
         schedule must be batchable and one scan's footprint must fit the
-        budget — the reject half of admission; the queue bound is the
-        backpressure half."""
+        budget left beside the open streams' resident state — the reject
+        half of admission; the queue bound is the backpressure half."""
         plan = self.plan_cache.resolve(family)
         if plan.schedule == "incremental":
             # build_batched would raise at drain time; reject NOW so a
@@ -239,15 +284,19 @@ class ReconstructionService:
             raise AdmissionError(
                 "scan rejected: schedule='incremental' is stateful "
                 "(projections arrive as deltas) and cannot be served by "
-                "the batched engine — use plan.build_incremental() "
-                "directly, or pin a batch schedule "
+                "the batched engine — stream it with open_stream() and "
+                "push() its deltas, or pin a batch schedule "
                 "(fused/pipelined/chunked)")
+        with self._lock:
+            held = self._stream_bytes
         ok, reason = check_feasible(family.geometry, point_from_plan(plan),
-                                    self.hbm_bytes, self.vmem_budget)
+                                    self.hbm_bytes - held, self.vmem_budget)
         if not ok:
             raise AdmissionError(
                 f"scan rejected: plan [{plan.describe()}] does not fit the "
-                f"budget ({self.hbm_bytes / 2**30:.2f} GiB HBM): {reason}")
+                f"budget ({self.hbm_bytes / 2**30:.2f} GiB HBM, "
+                f"{held / 2**30:.2f} GiB of it held by open streams): "
+                f"{reason}")
         return plan
 
     def submit(self, projections=None, *, geometry: CBCTGeometry,
@@ -333,18 +382,220 @@ class ReconstructionService:
         with self._lock:
             return len(self._queue)
 
+    # -- streams -------------------------------------------------------------
+
+    def open_stream(self, *, geometry: CBCTGeometry,
+                    scan_id: Optional[str] = None,
+                    deadline_s: Optional[float] = None,
+                    **pins) -> ScanTicket:
+        """Admit one streamed scan: its projections come later, as deltas
+        (`push`). `pins` (and the service's spec) must resolve the family
+        to a plan with schedule="incremental"; its session, and so its
+        resident accumulator, is built here. `deadline_s` is counted from
+        the arrival of the delta that completes the angles. Raises
+        AdmissionError when the plan is not incremental, when the stream's
+        footprint does not fit the budget next to the open streams'
+        resident state and the largest bucket of a pass being served
+        (planner/feasibility), or when `scan_id` is open
+        already, and QueueFullError when `max_queue` streams are open. Every
+        rejection counts in the `rejected` stat."""
+        try:
+            return self._open_stream(geometry, scan_id, deadline_s, pins)
+        except AdmissionError:
+            self._c["rejected"].inc()
+            raise
+
+    def _check_stream_bound(self) -> None:
+        if len(self._streams) >= self.max_queue:
+            raise QueueFullError(
+                f"{self.max_queue} streams are open; finish one or shed "
+                "load")
+
+    def _open_stream(self, geometry, scan_id, deadline_s, pins
+                     ) -> ScanTicket:
+        if deadline_s is not None and deadline_s < 0:
+            raise AdmissionError(
+                f"deadline_s={deadline_s} must be >= 0 (seconds from the "
+                "last delta's arrival)")
+        with self._lock:
+            self._check_stream_bound()
+        family = ScanFamily.make(geometry, self.mesh, pins)
+        plan = self.plan_cache.resolve(family)
+        if plan.schedule != "incremental":
+            raise AdmissionError(
+                f"stream rejected: plan [{plan.describe()}] has "
+                f"schedule={plan.schedule!r}; a stream folds its deltas "
+                "into an incremental session — pin schedule='incremental' "
+                "(or submit() the whole scan)")
+        point = point_from_plan(plan)
+        resident = session_resident_bytes(geometry, point)
+        with self._lock:
+            self._check_stream_bound()
+            held = self._stream_bytes + self._bucket_bytes
+            ok, reason = check_feasible(geometry, point,
+                                        self.hbm_bytes - held,
+                                        self.vmem_budget)
+            if not ok:
+                raise AdmissionError(
+                    f"stream rejected: plan [{plan.describe()}] does not fit "
+                    f"next to {len(self._streams)} open streams' "
+                    f"{self._stream_bytes / 2**30:.2f} GiB and a bucket's "
+                    f"{self._bucket_bytes / 2**30:.2f} GiB (budget "
+                    f"{self.hbm_bytes / 2**30:.2f} GiB HBM): {reason}")
+            self._stream_bytes += resident   # held against racing openers
+        try:
+            session = plan.build_incremental()
+        except Exception as e:
+            with self._lock:
+                self._stream_bytes -= resident
+            raise AdmissionError(f"stream rejected: {e!r}") from e
+        with self._lock:
+            self._seq += 1
+            scan_id = scan_id or f"scan-{self._seq}"
+            if scan_id in self._streams:
+                self._stream_bytes -= resident
+                raise AdmissionError(f"stream {scan_id!r} is open already")
+            now = time.perf_counter()
+            ticket = ScanTicket(scan_id=scan_id, family=family,
+                                submitted_at=now, deadline_s=deadline_s,
+                                arrived_at=now)
+            self._streams[scan_id] = _Stream(
+                ticket=ticket, session=session,
+                claimed=np.zeros(geometry.n_proj, dtype=bool),
+                resident=resident, opened_at=now)
+            self._c["submitted"].inc()
+            self._c["streams_opened"].inc()
+        return ticket
+
+    def push(self, ticket: ScanTicket, delta, angle_slice, *,
+             arrived_at: Optional[float] = None) -> None:
+        """Queue one delta of the open stream `ticket`: the raw projections
+        of angles `angle_slice` (a slice or (lo, hi)), (hi - lo, N_v, N_u)
+        of them (on a mesh, this rank's share), best already on the
+        service's device (elsewhere they are copied at the fold). The
+        serving thread folds queued deltas in arrival order; the delta
+        that completes the stream's angles runs the epilogue too, and its
+        `arrived_at` (a `time.perf_counter()` reading no later than now;
+        None: now) becomes the ticket's, so the time to volume counts from
+        the last projection. Raises AdmissionError, counted as `rejected`,
+        for a stream this service does not hold open (unknown, finished or
+        failed), a slice out of range, over angles pushed already or not
+        dividing over the rank grid, or a delta of the wrong shape;
+        QueueFullError when `max_queue` deltas wait to be folded."""
+        try:
+            self._push(ticket, delta, angle_slice, arrived_at)
+        except AdmissionError:
+            self._c["rejected"].inc()
+            raise
+
+    def _push(self, ticket, delta, angle_slice, arrived_at) -> None:
+        now = time.perf_counter()
+        if arrived_at is not None and not (math.isfinite(arrived_at)
+                                           and arrived_at <= now):
+            raise AdmissionError(
+                f"arrived_at={arrived_at} must be a time.perf_counter() "
+                "reading no later than now")
+        with self._cv:
+            stream = self._streams.get(ticket.scan_id)
+            if stream is None or stream.ticket is not ticket:
+                raise AdmissionError(
+                    f"delta rejected: stream {ticket.scan_id!r} is not open "
+                    "on this service (finished, failed, or never opened "
+                    "here)")
+            if len(self._deltas) >= self.max_queue:
+                raise QueueFullError(
+                    f"delta queue is full ({self.max_queue}); drain() or "
+                    "shed load")
+            try:
+                lo, hi = stream.session.check(delta, angle_slice,
+                                              taken=stream.claimed)
+            except ValueError as e:
+                raise AdmissionError(f"delta rejected: {e}") from e
+            stream.claimed[lo:hi] = True
+            final = bool(stream.claimed.all())
+            at = now if arrived_at is None else arrived_at
+            if final:
+                ticket.arrived_at = at
+            self._deltas.append(_QueuedDelta(stream=stream, delta=delta,
+                                             lo=lo, hi=hi, arrived_at=at,
+                                             final=final))
+            self._cv.notify_all()       # wake the background drain loop
+
+    def _fold_streams(self, tracer) -> List[ScanTicket]:
+        """Fold every queued delta, in arrival order (deltas pushed
+        meanwhile too). Returns the tickets of the streams that ended."""
+        ended: List[ScanTicket] = []
+        while True:
+            with self._lock:
+                if not self._deltas:
+                    return ended
+                item = self._deltas.pop(0)
+            ticket = self._fold(item, tracer)
+            if ticket is not None:
+                ended.append(ticket)
+
+    def _fold(self, item: _QueuedDelta, tracer) -> Optional[ScanTicket]:
+        """Fold one delta into its stream's session: the
+        ``service.stream.fold`` span around the session's own (fenced when
+        traced, one fence a fold, which takes the fold's device stages).
+        The final fold runs the epilogue and turns the ticket DONE once the
+        volume is computed. Never raises: a fold that fails fails its own
+        stream. Returns the ticket when the stream ended."""
+        stream = item.stream
+        ticket = stream.ticket
+        if ticket.terminal:     # failed at an earlier fold
+            return None
+        t0 = time.perf_counter()
+        try:
+            with tracer.span("service.stream.fold", scan_id=ticket.scan_id,
+                             lo=item.lo, hi=item.hi, final=item.final,
+                             wait_ms=1e3 * (t0 - item.arrived_at)):
+                ticket._set_state(TicketState.SERVING)
+                out = stream.session.update(item.delta, (item.lo, item.hi),
+                                            finalize=item.final)
+            self._c["stream_deltas"].inc()
+            if not item.final:
+                return None
+            # DONE means the volume is computed, as for a bucket
+            wait_for(out)
+            t_end = time.perf_counter()
+            ticket._set_state(TicketState.DONE, volume=out)
+            self._h_ttv.observe(t_end - ticket.start)
+            self._observe_slo(ticket, t_end)
+            self._c["served"].inc()
+        except Exception as e:
+            t_end = time.perf_counter()
+            ticket._set_state(TicketState.FAILED, error=e)
+            self._observe_slo(ticket, t_done=None)
+            self._c["failed"].inc()
+        self._end_stream(stream, t_end, tracer)
+        return ticket
+
+    def _end_stream(self, stream: _Stream, t_end: float, tracer) -> None:
+        """Forget a stream that is DONE or FAILED: its session (and so its
+        accumulator) and its share of the memory budget go."""
+        with self._lock:
+            if self._streams.get(stream.ticket.scan_id) is stream:
+                del self._streams[stream.ticket.scan_id]
+                self._stream_bytes -= stream.resident
+        stream.session = None
+        _trace_scan(stream.ticket, t_end, tracer, t_start=stream.opened_at)
+
     # -- bucketing -----------------------------------------------------------
 
-    def _bucket_capacity(self, family: ScanFamily, plan) -> int:
-        """Largest power-of-two batch the budget admits for this family
-        (>= 1: single-scan feasibility was checked at admission)."""
+    def _bucket_capacity(self, family: ScanFamily, plan) -> Tuple[int, int]:
+        """(the largest power-of-two batch the budget left beside the open
+        streams admits for this family, one scan's footprint); the batch is
+        >= 1: single-scan feasibility was checked at admission."""
         fp = plan_footprint(family.geometry, point_from_plan(plan))
         per_scan = max(1, fp.total)
+        with self._lock:
+            budget = self.hbm_bytes - self._stream_bytes
         cap = 1
         while (cap * 2 <= self.max_batch
-               and (cap * 2) * per_scan <= self.hbm_bytes):
+               and (cap * 2) * per_scan <= budget):
             cap *= 2
-        return cap
+        return cap, per_scan
 
     def _make_buckets(self) -> Tuple[List[_Bucket], List[ScanTicket]]:
         """Drain the queue into policy-ordered buckets, preserving
@@ -370,7 +621,7 @@ class ReconstructionService:
             scans = by_family[fam]
             try:
                 plan = self.plan_cache.resolve(fam)
-                cap = self._bucket_capacity(fam, plan)
+                cap, per_scan = self._bucket_capacity(fam, plan)
             except BaseException as e:
                 t_end = time.perf_counter()
                 for item in scans:
@@ -382,8 +633,9 @@ class ReconstructionService:
                 continue
             for i in range(0, len(scans), cap):
                 chunk = scans[i:i + cap]
-                buckets.append(_Bucket(fam, chunk, _next_pow2(len(chunk)),
-                                       chunk[0].seq))
+                bsz = _next_pow2(len(chunk))
+                buckets.append(_Bucket(fam, chunk, bsz, chunk[0].seq,
+                                       bsz * per_scan))
         return self._schedule(buckets), failed
 
     def _schedule(self, buckets: List[_Bucket]) -> List[_Bucket]:
@@ -612,11 +864,17 @@ class ReconstructionService:
         the serve loop's persistent prefetcher (extended with this pass's
         jobs); None builds a one-shot one (the synchronous drain() path)."""
         tracer = get_tracer()
+        served = self._fold_streams(tracer)
+        if not self._queue:
+            return served
         own_prefetch = prefetch is None
         with tracer.span("service.schedule"):
-            buckets, served = self._make_buckets()
+            buckets, failed = self._make_buckets()
+            served.extend(failed)
             if not buckets:
                 return served
+            with self._lock:
+                self._bucket_bytes = max(b.footprint for b in buckets)
             jobs = self._load_jobs(buckets)
             if own_prefetch:
                 prefetch = SourcePrefetcher(
@@ -630,7 +888,10 @@ class ReconstructionService:
             for bucket in buckets:
                 served.extend(self._serve_bucket(bucket, prefetch, writes,
                                                  tracer))
+                served.extend(self._fold_streams(tracer))
         finally:
+            with self._lock:
+                self._bucket_bytes = 0
             if own_prefetch:
                 prefetch.close()
             drain_span.__exit__(None, None, None)
@@ -638,12 +899,14 @@ class ReconstructionService:
         return served
 
     def drain(self) -> List[ScanTicket]:
-        """Serve every queued scan on the CALLER's thread: bucket by
-        family, order buckets by the scheduling policy, reconstruct each
-        bucket in one batched dispatch, store sink-ed results write-behind.
-        Returns the tickets served this drain in execution order (DONE or
-        FAILED — a failed bucket fails only its own tickets). Mutually
-        exclusive with the background loop (shutdown() first)."""
+        """Serve every queued scan on the CALLER's thread: fold the queued
+        stream deltas, bucket by family, order buckets by the scheduling
+        policy, reconstruct each bucket in one batched dispatch, store
+        sink-ed results write-behind. Returns the tickets served this
+        drain in execution order, with the streams that ended (DONE or
+        FAILED — a failed bucket fails only its own tickets, a failed
+        fold its own stream). Mutually exclusive with the background loop
+        (shutdown() first)."""
         if self.serving:
             raise RuntimeError(
                 "drain() is the synchronous serving path, but the "
@@ -700,22 +963,43 @@ class ReconstructionService:
         a pass that raises is counted in `service.loop.errors` and the
         loop keeps serving (its tickets were already failed by the
         per-bucket / per-family isolation — an unexpected error must not
-        take the whole service down with scans still arriving)."""
+        take the whole service down with scans still arriving).
+
+        While a stream is open the loop polls for work, POLL_S apart and
+        without the lock, instead of sleeping on the condition variable: a
+        stream's next delta is due, and waking a thread that sleeps costs
+        0.3-0.8 ms on a card's virtual host, all of it on the time to volume
+        of a stream's last delta. The sleep between looks leaves the
+        interpreter to the threads that push."""
         if cuda_index is not None:
             torch.cuda.set_device(cuda_index)
         prefetch = SourcePrefetcher(depth=self.prefetch_depth,
                                     persistent=True).start()
+
+        def idle() -> bool:
+            return (not self._queue and not self._deltas
+                    and not self._shutdown_requested)
         try:
             while True:
                 with self._cv:
-                    while not self._queue and not self._shutdown_requested:
+                    while idle():
+                        # One span a wait or a poll, so a tracer turned on
+                        # meanwhile sees the next.
+                        if self._streams:
+                            self._cv.release()
+                            try:
+                                with get_tracer().span("service.loop.poll"):
+                                    while idle() and self._streams:
+                                        time.sleep(POLL_S)
+                            finally:
+                                self._cv.acquire()
+                            continue
                         # The timeout is a lost-wakeup safety net; normal
-                        # wakeup is submit()/shutdown() notifying. One span
-                        # a wait, so a tracer turned on meanwhile sees the
-                        # next.
+                        # wakeup is submit()/push()/shutdown() notifying.
                         with get_tracer().span("service.loop.wait"):
                             self._cv.wait(timeout=0.1)
-                    if not self._queue and self._shutdown_requested:
+                    if (not self._queue and not self._deltas
+                            and self._shutdown_requested):
                         return
                 try:
                     self._drain_pass(prefetch)
@@ -768,6 +1052,13 @@ class ReconstructionService:
             "serving": self.serving,
         }
         counters["policy"] = self.policy
+        with self._lock:
+            counters["streams"] = {
+                "open": len(self._streams),
+                "opened": v("service.streams.opened", 0),
+                "deltas": v("service.stream.deltas", 0),
+                "resident_bytes": self._stream_bytes,
+            }
         counters["latency"] = {
             "queue_wait": self._h_queue_wait.snapshot(),
             "bucket_assembly": self._h_assembly.snapshot(),
@@ -778,8 +1069,22 @@ class ReconstructionService:
         return counters
 
     def close(self) -> None:
-        """Shut the background loop down (serving queued work first) and
-        join the write-behind pool."""
+        """Shut the background loop down (serving queued work first), fail
+        every stream still open (its angles never all arrived) and join the
+        write-behind pool."""
         if self.serving:
             self.shutdown()
+        with self._lock:
+            streams = list(self._streams.values())
+            self._deltas.clear()
+        tracer = get_tracer()
+        for stream in streams:
+            t_end = time.perf_counter()
+            if stream.ticket._set_state(TicketState.FAILED,
+                                        error=RuntimeError(
+                                            "the service closed with the "
+                                            "stream open")):
+                self._observe_slo(stream.ticket, t_done=None)
+                self._c["failed"].inc()
+            self._end_stream(stream, t_end, tracer)
         self._writeback.close()

@@ -1055,9 +1055,10 @@ def test_traced_bucket_on_the_card(cuda):
     assert args["lanes"] == 4 == launches
     ms = args["device_ms"]
     assert sorted(ms) == ["bp.kernel", "bp.operands", "bp.unfold",
-                          "stage.backproject", "stage.filter",
-                          "stage.reduce"]
+                          "filter.kernel", "stage.backproject",
+                          "stage.filter", "stage.reduce"]
     assert 0 < ms["bp.kernel"] <= ms["stage.backproject"] <= eng["dur"] / 1e3
+    assert 0 < ms["filter.kernel"] <= ms["stage.filter"]
     assert (args["tile_pairs"], args["direct_pairs"]) == (pairs, direct)
     assert pairs > 0 and 0 <= direct <= pairs
     (bucket,) = [e for e in tracer.spans("service.bucket")
@@ -1120,3 +1121,34 @@ def test_resumable_reconstruction_on_the_card(cuda, tmp_path):
                              precision="fp32").build()(proj)
     vol = got * fdk_scale(G16)
     assert float((vol - ref).abs().max() / ref.abs().max()) <= REL
+
+
+def test_rabbitct_stream_served_matches_the_fused_engine(cuda):
+    """A RabbitCT scan streamed through the service in the benchmark
+    cell's plan, 8 deltas of 62 projections pushed from this thread and
+    folded by the serve loop: one back-projection and one filter launch a
+    delta, and the volume within the cell's limits (rel_rmse 1.2e-05,
+    max_rel_err 1.2e-04) of the fused engine's."""
+    from repro_torch.service import ReconstructionService
+    proj = forward_project(RCT, device=cuda)
+    spec = ("impl=kernel,precision=fp32,schedule=incremental,"
+            "window=ramlak,reduce=psum,n_steps=8")
+    svc = ReconstructionService(spec=spec).serve()
+    names = (bpk.LAUNCHES, rfk.LAUNCHES)
+    try:
+        ticket = svc.open_stream(geometry=RCT)
+        before = [counted(n) for n in names]
+        for lo in range(0, RCT.n_proj, 62):
+            svc.push(ticket, proj[lo:lo + 62], (lo, lo + 62))
+        assert ticket.wait(timeout=300) and ticket.done, ticket.error
+        assert [counted(n) - b for n, b in zip(names, before)] == [8, 8]
+        vol = ticket.result()
+        st = svc.stats()["streams"]
+        assert (st["open"], st["deltas"], st["resident_bytes"]) == (0, 8, 0)
+    finally:
+        svc.close()
+    ref = ReconstructionPlan(geometry=RCT, impl="kernel",
+                             precision="fp32").build()(proj)
+    d = vol - ref
+    assert float(d.norm() / ref.norm()) <= 1.2e-5
+    assert float(d.abs().max() / ref.abs().max()) <= 1.2e-4
