@@ -21,9 +21,9 @@ Phases, in order; any failure exits non-zero:
    each x-slab of 256 with P shifted as the mesh shifts it, and each of its
    four y-chunks, on every 8th projection of each data rank's half.
    Max |kernel - plain| / max |plain| <= 1e-5: both read identical wire
-   bytes and scales; only nvcc's FMA contraction separates them, and
-   bilinear interpolation is continuous across pixel edges, so a flipped
-   floor() costs round-off only.
+   bytes and scales; only nvcc's FMA contraction and the kernel's lerps
+   separate them, and bilinear interpolation is continuous across pixel
+   edges, so a flipped floor() costs round-off only.
 4. Reconstruction path: ReconstructionPlan(geometry=RabbitCT,
    impl="kernel", precision=...).build()(proj) for fp32 and fp16 on
    projections from the port's forward_project. Per run: seconds, GUPS,
@@ -31,11 +31,12 @@ Phases, in order; any failure exits non-zero:
    (< 0.17); and fp16 within Precision("fp16").rmse_tol() of fp32. The
    share of (tile, projection) pairs whose footprint boxes exceeded the
    kernel's staging buffer and were gathered from global memory.
-5. Back-projection kernel time at that path's shapes (CUDA events over 10
-   launches after a warm-up), beside the bound; the same kernel with a
-   staging budget of 0, so that every projection is gathered from global
-   memory (the design without staged taps); the plain version's time, and
-   the kernel's beside it, on the 32-projection subset.
+5. Back-projection kernel time at that path's shapes, f32 and fp16 (CUDA
+   events over 10 launches after a warm-up), beside the bound, and at the
+   delta shape ([kernel-delta] times it, with its own [bp-time] line); the
+   same kernel with a staging budget of 0, so that every projection is
+   gathered from global memory (the design without staged taps); the plain
+   version's time, and the kernel's beside it, on the 32-projection subset.
    [filter] The ramp filter kernel on the RabbitCT projections, every
    window, against the torch.fft chain that filtered on the card before it
    (FILTER_REL of the max) and, on two projections, against the CPU's
@@ -441,7 +442,7 @@ TF32_SPLIT_PRODUCTS = 3  # 3xTF32: hi hi + hi lo + lo hi per f32 product
 COLUMN_OPS = 21
 PAIR_OPS = 35
 # The change that made each kernel's design.
-DESIGN = {"bp_dual_kernel<float>": "PR 13", "bp_dual_kernel<__half>": "PR 13",
+DESIGN = {"bp_dual_kernel<float>": "PR 30", "bp_dual_kernel<__half>": "PR 30",
           "fa_fwd_bf16_kernel": "PR 13", "fa_fwd_f32_kernel": "PR 16",
           "ramp_filter_kernel<11>": "PR 28"}
 # The ramp filter kernel against the torch.fft chain: two f32 transforms
@@ -1071,6 +1072,11 @@ def kernel_delta(g, proj, entries) -> None:
             entry["delta_n_proj"] = hi - lo
             entry["ms_at_delta_n_proj"] = ms
             rels[-1] += f" (kernel {ms:.3f} ms)"
+            rate = g.n_x * g.n_y * g.n_z * (hi - lo) / (ms * 1e-3 * 2**30)
+            print(f"[bp-time] {codec} at the delta shape {shape} x "
+                  f"{hi - lo} projections: kernel {ms:.3f} ms ({rate:.1f} "
+                  f"GUPS), {direct / pairs:.4%} of (tile, projection) "
+                  "pairs gathered directly")
         del got, want, params, qt
     # What the session's per-delta filter costs: cuFFT on the delta's own
     # batches (32 + 30 projections) against the whole scan's (the last

@@ -18,15 +18,15 @@
 // f32 operations per voxel update at the RabbitCT size, counted in
 // chip_smoke.py with the column terms once per column) over 67 TFLOP/s,
 // far above the bytes bound (Q^T read once + the volume written once over
-// 3.35 TB/s). The first port of this kernel ran at 5 % of that bound,
-// held inside the SM, not by HBM (halving the wire bytes bought nothing):
-// every lane recomputed its column's terms, a true division among them,
-// for each voxel pair, and every tap was a scattered global load with
-// 64-bit address arithmetic and four bound tests. Computing the column
-// terms once per block alone does not remove it: this kernel with a
-// staging budget of 0, which gathers every tap from global memory, is
-// barely faster than the first port with a 16-bit wire and slower with
-// f32 (PERF.md §6). The scattered tap loads were the cost.
+// 3.35 TB/s). It is held inside the SM, not by HBM: the first port (5 % of
+// that bound) recomputed each column's terms for every pair and gathered
+// every tap from global memory; the scattered tap loads were its cost
+// (PERF.md §6). What is left is the shared-memory gather loop: per voxel
+// pair 8 tap reads (each two wavefronts where v moves more than one pixel
+// a step of k, as at 512^3), ~49 instructions issued, and the block's
+// barrier once a projection. Time at RabbitCT follows the warps an SM holds
+// and the work each (warp, column, projection) step shares (PERF.md §6
+// times each step of this design alone).
 //
 // Design. The Pallas grid keeps an output tile resident in VMEM and sums
 // over a sequential projection-batch grid axis; Hopper blocks run in
@@ -39,25 +39,31 @@
 // - Column terms once per (column, projection) per block: x0, y0, z, 1/z,
 //   u, w and the row fraction are made by one thread each, two projections
 //   ahead, into a table in shared memory that the warps read; only v(k)
-//   and the gathers are per pair. Warp w owns kTI kTJ / kWarps columns and
-//   lane l the k = k0 + l + 32 e, so a warp's gathers for one column walk
-//   the contiguous N_v axis of two adjacent Q^T rows.
-// - A (column, projection) whose two tap rows both miss the detector is
-//   skipped as a whole, by a branch uniform across the warp (11.5 % of
-//   pair-projections at RabbitCT).
+//   and the gathers are per pair. A block has kWarps = 32 warps; warp w
+//   owns kTI kTJ / 32 columns and lane l the k = k0 + l + 32 e, so a warp's
+//   gathers for one column walk the contiguous N_v axis of two adjacent
+//   Q^T rows, and a lane shares a column's terms over kTK / 32 values of k
+//   (4 in the default tile).
 // - Taps come from shared memory. The tile's footprint on Q^T_s -- u and
 //   v are ratios of affine functions of (i, j, k) with z > 0, so their
 //   extremes lie at the tile's 8 corners; one pixel of margin, clipped to
 //   the detector -- is two boxes, front and mirror. They are staged with a
-//   ring of one more pixel, zero where it leaves the detector, by cp.async
+//   ring of two more pixels, zero where it leaves the detector, by cp.async
 //   into a two-buffer ring, so that projection s + 1 loads while s is
-//   gathered; the gathers then need no bound tests and use 32-bit offsets.
-//   A gather with no tap on the detector reads a clamped column and adds
-//   w * 0, exactly what skipping it would add, so the gathers carry no
-//   branch and the compiler overlaps their shared loads (a branch per
-//   gather kept them from overlapping).
+//   gathered. Every gather then reads inside the boxes with no test: its
+//   row and column are clamped to the box, and a gather that has no tap
+//   on the detector lies beyond the box only on a side where the box meets
+//   the detector's edge, so the clamp lands it on two zero pixels of the
+//   ring and it adds w * 0, exactly what skipping it would add (a box side
+//   with no pixel on the detector is staged from columns past it: all
+//   zeros). Columns outside the volume and k beyond it gather too, into
+//   accumulators that are never written. So the gathers carry no branch
+//   and no test, and use 32-bit offsets.
 //   Copies are 16, 8 or 4 bytes, the widest that divides the row pitch of
 //   Q^T and its start, or single elements where none does.
+// - One block-wide barrier a projection: after it, buffer s is full and
+//   every warp is done with projection s - 1, so the copies of s + 1 into
+//   that buffer and the tables of the step after next start behind it.
 // - A (tile, projection) whose boxes exceed the buffer, or whose z changes
 //   sign over the tile, gathers that projection from global memory in the
 //   same kernel with the same arithmetic and order, counted for the
@@ -75,10 +81,12 @@
 // result by 5.8e-5 of its max on an H100. So the coordinates (x0, y0, z,
 // 1/z, u, w, v and the mirror v~) are computed with the _rn intrinsics,
 // which are never contracted and round each operation as torch does. The
-// taps, weights and accumulation may still use FMAs: that costs relative
-// round-off of ~1e-7 per term, well inside the 1e-5 bound. The bilinear
-// interpolation is continuous across pixel edges, so a floor() that lands
-// on the other side of an edge costs round-off only.
+// staged taps are interpolated as three lerps (along v in rows r0 and
+// r0 + 1, then along u) where the plain version weights four taps; that
+// and the FMAs of the weights and accumulation cost relative round-off of
+// ~1e-7 per term, well inside the 1e-5 bound. The bilinear interpolation
+// is continuous across pixel edges, so a floor() that lands on the other
+// side of an edge costs round-off only.
 
 #include <climits>
 #include <cstdint>
@@ -212,31 +220,24 @@ __device__ __forceinline__ float bilinear(const T* row0, const T* row1,
 // parameter of the kernel: the compiled tiles are kTiles (`bp_tiles` lists
 // them; index 0 is the default). kTK is a multiple of 32 (a lane owns
 // k = k0 + l + 32 e) and kTI kTJ a multiple of kWarps (a warp owns
-// kTI kTJ / kWarps columns). A block has kWarps warps; kPrep projections'
-// terms and boxes are made at once.
-constexpr int kWarps = 8;
+// kTI kTJ / kWarps columns). A block has kWarps warps, 1024 threads of at
+// most 64 registers, one block an SM; kPrep projections' terms and boxes
+// are made at once.
+constexpr int kWarps = 32;
 constexpr int kPrep = 2;
 struct TileShape {
   int ti, tj, tk;
 };
-constexpr TileShape kTiles[] = {{8, 8, 64}, {8, 8, 32}, {16, 8, 32},
-                                {4, 8, 64}};
+constexpr TileShape kTiles[] = {{8, 8, 128}, {16, 8, 128}, {16, 8, 64},
+                                {8, 8, 64}};
 constexpr int kNumTiles = sizeof(kTiles) / sizeof(kTiles[0]);
 // The default staging budget, both buffers of the ring together, in Q^T
-// pixels: 104 KB in f32 (two blocks per SM), 52 KB in 16-bit wire types
-// and 26 KB in fp8 (three).
-constexpr int kStagePixels = 26 * 1024;
-
-// Blocks per SM the register cap is set for. Narrow wire types stage half
-// the bytes or less at the default budget, so three blocks fit an SM's
-// shared memory: 85 registers a thread (a few bytes spill with 32
-// accumulators). An f32 block's default staging allows two; a tile with
-// 16 accumulators a thread gets the cap of two blocks (128 registers),
-// one with 32 none (the default tile's f32 kernel holds 1 block's worth).
-template <typename T, int TI, int TJ, int TK>
-constexpr int min_blocks() {
-  return sizeof(T) < 4 ? 3 : ((TI * TJ / kWarps) * (TK / 32) <= 8 ? 2 : 1);
-}
+// pixels: 208 KB in f32 (the SM's one block takes nearly all its shared
+// memory), 104 KB in 16-bit wire types and 52 KB in fp8.
+constexpr int kStagePixels = 52 * 1024;
+// Pixels of zero ring staged around the footprint where it meets the
+// detector's edge: a clamped gather reads two of them.
+constexpr int kRing = 2;
 
 struct Box {
   int rlo, rows;  // first staged row of Q^T_s and the count (0: empty)
@@ -279,10 +280,9 @@ struct RawOf<4> {
 
 // Warp w owns columns [w * kColsPerWarp, (w + 1) * kColsPerWarp) of the
 // block's tile (i fastest across tiles, j within), lane l the
-// k = k0 + l + 32 e, e < kTK / 32. Registers are capped by min_blocks.
+// k = k0 + l + 32 e, e < kTK / 32.
 template <typename T, int kTI, int kTJ, int kTK>
-__global__ void __launch_bounds__(kWarps * 32,
-                                  min_blocks<T, kTI, kTJ, kTK>())
+__global__ void __launch_bounds__(kWarps * 32)
 bp_dual_kernel(const float* __restrict__ params, const T* __restrict__ qt,
                float* __restrict__ out, int n_proj, int nu, int nv, int nx,
                int ny, int nzh, int tiles_y, int n_ktiles, int buf_elems,
@@ -358,9 +358,9 @@ bp_dual_kernel(const float* __restrict__ params, const T* __restrict__ qt,
     // The footprint rule (`footprint_boxes` in kernel.py): a pair's taps
     // lie in [floor(x), floor(x) + 1] per axis, and u, v, v~ take their
     // extremes over the tile at its corners; one pixel of margin, clipped
-    // to the detector. Staged with a ring of one more pixel (zero where it
-    // leaves the detector), so that the gathers of every pair with a tap on
-    // the detector stay inside and need no bound tests.
+    // to the detector. Staged with a ring of kRing more pixels (zero where
+    // it leaves the detector): the gathers of every pair with a tap on the
+    // detector stay inside, and a clamped one lands on two ring pixels.
     auto lo = [](float x, int n) {
       return static_cast<int>(
           fminf(fmaxf(floorf(x) - 1.f, 0.f), static_cast<float>(n)));
@@ -378,12 +378,14 @@ bp_dual_kernel(const float* __restrict__ params, const T* __restrict__ qt,
     if (!zpos) {
       b.direct = 1;  // z changes sign over the tile: no corner rule
     } else if (rlo <= rhi && (front || mirror)) {
-      b.rlo = rlo - 1;
-      b.rows = rhi - rlo + 3;
-      b.cf = (cflo - 1) & -vec_e;  // aligned down to the copy width
-      b.cm = (cmlo - 1) & -vec_e;
-      const int width =
-          max(front ? cfhi + 2 - b.cf : 0, mirror ? cmhi + 2 - b.cm : 0);
+      // a side with no pixel on the detector: columns past it, all zero
+      const int past = (nv + vec_e) & -vec_e;
+      b.rlo = rlo - kRing;
+      b.rows = rhi - rlo + 1 + 2 * kRing;
+      b.cf = front ? (cflo - kRing) & -vec_e : past;  // aligned down to the
+      b.cm = mirror ? (cmlo - kRing) & -vec_e : past;  // copy width
+      const int width = max(front ? cfhi + 1 + kRing - b.cf : 0,
+                            mirror ? cmhi + 1 + kRing - b.cm : 0);
       b.pitch = (width + vec_e - 1) & -vec_e;
       b.direct = 2 * b.rows * b.pitch > buf_elems;
     }
@@ -423,10 +425,13 @@ bp_dual_kernel(const float* __restrict__ params, const T* __restrict__ qt,
   };
 
   float acc_f[kColsPerWarp][kLaneK], acc_b[kColsPerWarp][kLaneK];
+  float fk[kLaneK];  // this lane's k
 #pragma unroll
-  for (int cc = 0; cc < kColsPerWarp; ++cc)
+  for (int e = 0; e < kLaneK; ++e) {
+    fk[e] = static_cast<float>(k0 + lane + 32 * e);
 #pragma unroll
-    for (int e = 0; e < kLaneK; ++e) acc_f[cc][e] = acc_b[cc][e] = 0.f;
+    for (int cc = 0; cc < kColsPerWarp; ++cc) acc_f[cc][e] = acc_b[cc][e] = 0.f;
+  }
 
   prepare(0);
   prepare(1);
@@ -434,13 +439,15 @@ bp_dual_kernel(const float* __restrict__ params, const T* __restrict__ qt,
   stage(0, bufs);
   asm volatile("cp.async.commit_group;\n" ::);
   for (int s = 0; s < n_proj; ++s) {
-    // Projection s + 1 loads while s is gathered; the terms and boxes of
-    // the step after next are made meanwhile.
+    // After the barrier buffer s & 1 is full and every warp is done with
+    // projection s - 1: projection s + 1 loads into the other buffer, and
+    // the terms and boxes of the step after next into the table that
+    // s - 2 and s - 1 used, while s is gathered.
+    asm volatile("cp.async.wait_group 0;\n" ::);
+    __syncthreads();
     stage(s + 1, bufs + ((s + 1) & 1) * buf_elems);
     asm volatile("cp.async.commit_group;\n" ::);
     if (s % kPrep == 0 && s > 0) prepare(s / kPrep + 1);
-    asm volatile("cp.async.wait_group 1;\n" ::);
-    __syncthreads();
 
     const int t = (s / kPrep) & 1;
     const int q = s % kPrep;
@@ -458,8 +465,7 @@ bp_dual_kernel(const float* __restrict__ params, const T* __restrict__ qt,
         const T* row1 = row0 + nv;
 #pragma unroll
         for (int e = 0; e < kLaneK; ++e) {
-          const float v =
-              v_of(t4.x, b.p6, static_cast<float>(k0 + lane + 32 * e), t4.y);
+          const float v = v_of(t4.x, b.p6, fk[e], t4.y);
           const float vm = __fsub_rn(vmax, v);  // Theorem-1 mirror
           acc_f[cc][e] += t4.z * bilinear(row0, row1, r0 >= 0, r0 + 1 < nu,
                                           t4.w, v, nv);
@@ -468,50 +474,48 @@ bp_dual_kernel(const float* __restrict__ params, const T* __restrict__ qt,
         }
       }
     } else if (b.rows > 0) {
-      // Staged: rows r0, r0 + 1 and columns c0, c0 + 1 of every gather with
-      // a tap on the detector lie in the boxes, zero where they leave it.
-      // The other gathers read a clamped column and add w * 0 -- exactly
-      // what skipping them adds -- so the gathers have no branches.
+      // Staged: every gather clamped into the boxes, none tested (the
+      // design note at the top); three lerps a gather.
       const T* fb = bufs + (s & 1) * buf_elems;
       const T* mb = fb + b.rows * b.pitch;
 #pragma unroll
       for (int cc = 0; cc < kColsPerWarp; ++cc) {
         const int col = warp * kColsPerWarp + cc;
-        if (i0 + col / kTJ >= nx || j0 + col % kTJ >= ny) continue;  // per warp
         const float4 t4 = tf[t][q][col];
         const int r0 = tr[t][q][col];
-        if (r0 < -1 || r0 >= nu) continue;  // both tap rows off: all 0
         const float y0 = t4.x, f = t4.y, w = t4.z, dr = t4.w;
-        const int off = (r0 - b.rlo) * b.pitch;
+        // clamped before the offset: a column outside the volume may hold
+        // any r0 (its sums are never written)
+        const int off =
+            (min(max(r0, b.rlo), b.rlo + b.rows - 2) - b.rlo) * b.pitch;
         const T* rows[2] = {fb + off, mb + off};
         const int c_lo[2] = {b.cf, b.cm};
 #pragma unroll
         for (int e = 0; e < kLaneK; ++e) {
-          const int k = k0 + lane + 32 * e;
-          const float v = v_of(y0, b.p6, static_cast<float>(k), f);
+          const float v = v_of(y0, b.p6, fk[e], f);
           const float vs[2] = {v, __fsub_rn(vmax, v)};  // Theorem-1 mirror
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const float c0f = floorf(vs[h]);
             const float dc = vs[h] - c0f;
             const int c0 = static_cast<int>(c0f);
-            const bool on = static_cast<unsigned>(c0 + 1) <=
-                                static_cast<unsigned>(nv) && k <= k_hi;
-            const T* p = rows[h] + min(max(c0 - c_lo[h], 0), b.pitch - 2);
-            const float sum = smem_tap(p) * ((1.f - dr) * (1.f - dc)) +
-                              smem_tap(p + 1) * ((1.f - dr) * dc) +
-                              smem_tap(p + b.pitch) * (dr * (1.f - dc)) +
-                              smem_tap(p + b.pitch + 1) * (dr * dc);
+            const T* p = rows[h] +
+                         (min(max(c0, c_lo[h]), c_lo[h] + b.pitch - 2) - c_lo[h]);
+            const float t00 = smem_tap(p), t01 = smem_tap(p + 1);
+            const float t10 = smem_tap(p + b.pitch);
+            const float t11 = smem_tap(p + b.pitch + 1);
+            const float a0 = fmaf(dc, t01 - t00, t00);
+            const float a1 = fmaf(dc, t11 - t10, t10);
+            const float sum = fmaf(dr, a1 - a0, a0);
             if (h == 0) {
-              acc_f[cc][e] += w * (on ? sum : 0.f);
+              acc_f[cc][e] = fmaf(w, sum, acc_f[cc][e]);
             } else {
-              acc_b[cc][e] += w * (on ? sum : 0.f);
+              acc_b[cc][e] = fmaf(w, sum, acc_b[cc][e]);
             }
           }
         }
       }
     }
-    __syncthreads();  // buffer s & 1 and its table entries are consumed
   }
 
 #pragma unroll

@@ -17,9 +17,12 @@ tile of columns x k, loops over every projection with its accumulators in
 registers (each output element written once, no atomics, a fixed and
 deterministic summation order), and gathers the taps from the footprint
 boxes of Q^T that it stages in shared memory. `footprint_boxes` is that
-rule in plain torch. A (tile, projection) whose boxes exceed the staging
-buffer is gathered from global memory inside the same kernel with the same
-arithmetic; the kernel counts them on the card.
+rule in plain torch. The boxes are staged with `RING` more pixels, zero
+where they leave the detector, and every gather is clamped into them with
+no test: one with no tap on the detector lands on ring zeros. A (tile,
+projection) whose boxes exceed the staging buffer is gathered from global
+memory inside the same kernel with the same arithmetic; the kernel counts
+them on the card.
 
 The launch shape is (tile, staging bytes). The tile is a template
 parameter of the kernel, compiled for each of `TILES` (the library lists
@@ -29,9 +32,9 @@ kernel's staging decisions for a launch, both computed here without the
 card: the tuner (tune.py) ranks launch shapes with them.
 
 `backproject_dual_torch` is the plain torch version of the same function
-with the kernel's arithmetic in the kernel's order; `backproject_dual`
-takes it only for tensors on the CPU. For a CUDA tensor it launches the
-kernel or raises.
+with the kernel's coordinate chain (the kernel weights its staged taps as
+lerps, a round-off apart); `backproject_dual` takes it only for tensors on
+the CPU. For a CUDA tensor it launches the kernel or raises.
 
 The launches count into the default metrics registry (obs/metrics.py):
 ``kernels.backproject.launches`` every launch. The count of directly
@@ -79,12 +82,14 @@ WIRE_DTYPES = {
 # of the CUDA source's kTiles; the first is the default. `_bound_library`
 # checks the library's listing against this one.
 TILES: Tuple[Tuple[int, int, int], ...] = (
-    (8, 8, 64), (8, 8, 32), (16, 8, 32), (4, 8, 64))
+    (8, 8, 128), (16, 8, 128), (16, 8, 64), (8, 8, 64))
 DEFAULT_TILE = TILES[0]
-WARPS = 8         # warps per block (kWarps)
 PREP = 2          # projections whose terms and boxes are made at once
 # The default staging budget in Q^T pixels, both buffers (kStagePixels).
-STAGE_PIXELS = 26 * 1024
+STAGE_PIXELS = 52 * 1024
+# Zero pixels staged around a footprint box where it meets the detector's
+# edge (kRing): the kernel clamps every gather into the box untested.
+RING = 2
 # f32 operations the back-projection needs (a multiply-add counts 2). Per
 # voxel column (i, j) and projection, the Theorem 2/3 invariants: x0, y0,
 # z (4 each), 1/z, u = x0/z, w = s/z^2 (2), floor(u), its fraction and
@@ -427,10 +432,12 @@ def _staging_chunk(p, nu, nv, nx, ny, nzh, t, buf, vec, itemsize) -> dict:
     rlo, rhi, zpos = rlo[..., None], rhi[..., None], zpos[..., None]
     front, mirror = cflo <= cfhi, cmlo <= cmhi
     nonempty = (rlo <= rhi) & (front | mirror)
-    rows = rhi - rlo + 3
-    cf, cm = (cflo - 1) & -vec, (cmlo - 1) & -vec
-    width = torch.maximum(torch.where(front, cfhi + 2 - cf, 0),
-                          torch.where(mirror, cmhi + 2 - cm, 0))
+    rows = rhi - rlo + 1 + 2 * RING
+    past = (nv + vec) & -vec     # a side off the detector: zero columns
+    cf = torch.where(front, (cflo - RING) & -vec, past)
+    cm = torch.where(mirror, (cmlo - RING) & -vec, past)
+    width = torch.maximum(torch.where(front, cfhi + 1 + RING - cf, 0),
+                          torch.where(mirror, cmhi + 1 + RING - cm, 0))
     pitch = (width + vec - 1) & -vec
     fits = 2 * rows * pitch <= buf
     direct = ~zpos | (nonempty & ~fits)

@@ -14,12 +14,12 @@ global memory). The tuner
      narrow wire type stages more pixels in the same bytes);
   2. ranks the survivors with the kernel's own staging rule
      (`kernel.staging_stats`, the footprint boxes of `footprint_boxes`)
-     evaluated on the call's projection matrices: the voxel pairs staged
-     and gathered directly, the bytes the staged pairs copy, and each
-     warp's per-column work per (tile, projection), weighted in
+     evaluated on the call's projection matrices: the voxel pairs staged,
+     weighted by tile, and those gathered directly, weighted in
      `_model_cost` by weights fitted to the tiles' times on an H100; a
      candidate displaces the source's default launch only when it is
-     modeled more than `DEFAULT_MARGIN` faster;
+     modeled more than `DEFAULT_MARGIN` faster, and of launches modeled
+     alike the one with the larger staging budget comes first;
   3. in measured mode, times the best few on the card with CUDA events on
      the call's real matrices (the kernel's time depends on P: its boxes
      and which pairs overflow to direct gathers, not only on the shapes),
@@ -64,28 +64,28 @@ from .kernel import TILES, smem_bytes, staging_stats
 # budget where no card is asked (the planner's feasibility check, CPU).
 DEFAULT_SMEM_BUDGET = 232_448
 # Staging budgets tried, in Q^T pixels (bytes = pixels x wire itemsize);
-# 26 Ki is the source's default (kernel.STAGE_PIXELS).
+# 52 Ki is the source's default (kernel.STAGE_PIXELS).
 STAGE_PIXELS = (0, 13 * 1024, 26 * 1024, 52 * 1024)
 # A candidate must beat the default launch by more than this share of
 # modeled cost to displace it without a measurement.
-DEFAULT_MARGIN = 0.15
+DEFAULT_MARGIN = 0.05
 # Projections the model samples (evenly spaced) per call.
 MODEL_PROJECTIONS = 16
-_KEY_TAG = "hopper"
+_KEY_TAG = "hopper-2"
 
-# _model_cost weights, ms per 1e9 units: a staged voxel pair (front and
-# mirror gathers), a directly gathered one, a staged byte, and a column of
-# a warp in one (tile, projection) step (its column terms, row pointers
-# and loop over its lane's k values). Fitted (non-negative least squares)
-# to the four tiles' times at the full RabbitCT shape, f32 and fp16, on an
-# H100 80GB HBM3 at 700 W (chip_smoke.py [tiles], PERF.md §6); they
-# predict the delta shape's within 10 %. The direct weight comes from the
-# same card's staging-budget-0 time ([bp-time]): 456 ms where every pair
-# is gathered directly.
-_W_STAGED = 0.640
-_W_DIRECT = 12.0
-_W_BYTE = 0.370
-_W_WARP_COLUMN = 1144.5
+# _model_cost weights, ms per 1e9 voxel pairs: a staged pair, by tile (a
+# tile sets how many values of k a lane shares its column's terms over,
+# and how many pairs share a (tile, projection) step's barrier, tables and
+# copies), and a pair gathered directly from global memory. Fitted
+# (non-negative least squares on the relative error) to the four tiles'
+# times at the default staging and the default tile's at staging budgets
+# 0, 13 Ki and 26 Ki pixels, at RabbitCT 512^3, 1024^3 and the delta shape
+# (62 projections), f32 and fp16: 42 times on an H100 80GB HBM3 at 700 W
+# (PERF.md §6). They predict each within 17 % and put the measured
+# fastest launch first at each shape and wire type, by 5.5-10 %.
+_W_STAGED = {(8, 8, 128): 3.231, (16, 8, 128): 2.927, (16, 8, 64): 3.557,
+             (8, 8, 64): 4.439}
+_W_DIRECT = 8.076
 
 
 @dataclasses.dataclass(frozen=True)
@@ -217,10 +217,8 @@ def _model_cost(c: BlockConfig, params: torch.Tensor, shape, qt_dtype,
     st = staging_stats(params, nu, nv, nx, ny, nz // 2, c.tile,
                        c.stage_bytes, qt_dtype)
     staged_vox = st["voxel_pairs"] - st["direct_voxel_pairs"]
-    steps = st["staged"] + st["direct"]
-    work = (_W_STAGED * staged_vox + _W_DIRECT * st["direct_voxel_pairs"]
-            + _W_BYTE * st["staged_bytes"]
-            + _W_WARP_COLUMN * steps * c.tile[0] * c.tile[1] / bpk.WARPS)
+    work = (_W_STAGED[c.tile] * staged_vox
+            + _W_DIRECT * st["direct_voxel_pairs"])
     return work * scale * 1e-9
 
 
@@ -235,7 +233,7 @@ def _rank(cands: List[BlockConfig], params: torch.Tensor, shape,
     ranked = sorted(
         (dataclasses.replace(c, cost=_model_cost(c, sample, shape, qt_dtype,
                                                  scale)) for c in cands),
-        key=lambda c: c.cost)
+        key=lambda c: (c.cost, -c.stage_bytes))
     dflt = default_config(qt_dtype)
     for i, c in enumerate(ranked):
         if c.as_tuple() == dflt.as_tuple() and \

@@ -274,7 +274,7 @@ def _taps_outside(u, v, rows, cols, nu, nv):
     return bad
 
 
-@pytest.mark.parametrize("tile", [(8, 8, 64), (3, 5, 4)])
+@pytest.mark.parametrize("tile", list(tker.TILES) + [(3, 5, 4)])
 @pytest.mark.parametrize("name", ["default_geometry(16)",
                                   "default_geometry(24)", "shifted detector"])
 def test_footprint_boxes_hold_every_tap(monkeypatch, name, tile):
@@ -305,6 +305,117 @@ def test_footprint_boxes_hold_every_tap(monkeypatch, name, tile):
     assert n_taps == g.n_proj * g.n_x * g.n_y * nzh
     if name == "shifted detector":
         assert n_empty > 0   # some tiles miss the detector there
+
+
+def integer_landing_params():
+    """(6, 13) rows of parallel projections (z = 1 or 2, so 1/z is exact)
+    whose u and v land on whole and half pixels at many voxels, on, at and
+    past both edges of a 20 x 16 detector: floor's edge cases, for a
+    (12, 10, 24) volume."""
+    rows = [
+        # u = i + j - 3, v = j + k - 4: whole pixels, off both v edges
+        [1, 1, 0, -3, 0, 1, 1, -4, 0, 0, 0, 1],
+        # v moves 2 pixels a step of k, half pixels in u
+        [1, 0, 0, 4.5, 0, 1, 2, -9, 0, 0, 0, 1],
+        # v moves half a pixel a step of k, u past the last row for large i
+        [2, 0, 0, 0, 0, 0, 0.5, 7, 0, 0, 0, 1],
+        # z = 2: u = (i - j + 12) / 2, v = (2 j + k - 10) / 2
+        [1, -1, 0, 12, 0, 2, 1, -10, 0, 0, 0, 2],
+        # the whole volume past the detector's far v edge
+        [1, 0, 0, 2, 0, 0, 1, 40, 0, 0, 0, 1],
+        # u before the first row for every voxel but i = 11
+        [1, 0, 0, -12, 0, 1, 1, 0, 0, 0, 0, 1],
+    ]
+    return torch.tensor([r + [1.0] for r in rows], dtype=torch.float32)
+
+
+def _staged_gather(params, qt, shape, t):
+    """The kernel's staged gather loop on the CPU: for each tile and
+    projection, the front and mirror boxes staged as the kernel stages them
+    (footprint boxes widened by `RING` pixels, zero off the detector, a
+    side with no pixel on the detector taken from columns past it, starts
+    aligned down to the copy width), every gather's row and column clamped
+    into the box with no test, three lerps, w times the sum. The dual-slab
+    volume; every (tile, projection) is staged (no buffer limit)."""
+    nx, ny, nz = shape
+    n_p, nu, nv = qt.shape
+    nzh, ring = nz // 2, tker.RING
+    vec = tker.copy_elems(nv, qt.dtype)
+    q = torch.zeros((n_p, nu + 8, nv + 8 + 2 * vec))  # zero outside
+    q[:, 4:4 + nu, 4 + vec:4 + vec + nv] = qt.float()
+    out = torch.zeros((nx, ny, 2, nzh))
+    vmax = float(nv - 1)
+    for i0 in range(0, nx, t[0]):
+        for j0 in range(0, ny, t[1]):
+            for k0 in range(0, nzh, t[2]):
+                hi = (min(i0 + t[0], nx) - 1, min(j0 + t[1], ny) - 1,
+                      min(k0 + t[2], nzh) - 1)
+                boxes, zpos = tker.footprint_boxes(params, nu, nv,
+                                                   (i0, j0, k0), hi)
+                assert zpos.all()
+                i = torch.arange(i0, hi[0] + 1, dtype=torch.float32)
+                j = torch.arange(j0, hi[1] + 1, dtype=torch.float32)
+                k = torch.arange(k0, hi[2] + 1, dtype=torch.float32)
+                i, j = i[:, None], j[None, :]
+                for s, (rlo, rhi, cfl, cfh, cml, cmh) in enumerate(
+                        boxes.tolist()):
+                    front, mirror = cfl <= cfh, cml <= cmh
+                    if rlo > rhi or not (front or mirror):
+                        continue
+                    p = params[s].tolist()
+                    brlo, rows = rlo - ring, rhi - rlo + 1 + 2 * ring
+                    past = (nv + vec) & -vec
+                    cf = (cfl - ring) & -vec if front else past
+                    cm = (cml - ring) & -vec if mirror else past
+                    pitch = -(-max(cfh + 1 + ring - cf if front else 0,
+                                   cmh + 1 + ring - cm if mirror else 0)
+                              // vec) * vec
+                    x0 = p[0] * i + p[1] * j + p[3]
+                    y0 = p[4] * i + p[5] * j + p[7]
+                    f = 1.0 / (p[8] * i + p[9] * j + p[11])
+                    u, w = x0 * f, f * f * p[12]
+                    r0 = torch.floor(u)
+                    dr = (u - r0)[..., None]
+                    roff = (r0.long().clamp(brlo, brlo + rows - 2) - brlo)
+                    v = (y0[..., None] + p[6] * k) * f[..., None]
+                    for h, (vv, c_lo) in enumerate(((v, cf), (vmax - v, cm))):
+                        c0 = torch.floor(vv)
+                        dc = vv - c0
+                        col = (c0.long().clamp(c_lo, c_lo + pitch - 2)
+                               - c_lo)
+                        box = q[s, 4 + brlo:4 + brlo + rows,
+                                4 + vec + c_lo:4 + vec + c_lo + pitch]
+                        assert box.shape == (rows, pitch)
+                        r = roff[..., None].expand(col.shape)
+                        t00, t01 = box[r, col], box[r, col + 1]
+                        t10, t11 = box[r + 1, col], box[r + 1, col + 1]
+                        a0 = t00 + dc * (t01 - t00)
+                        a1 = t10 + dc * (t11 - t10)
+                        out[i0:hi[0] + 1, j0:hi[1] + 1, h, k0:hi[2] + 1] += \
+                            w[..., None] * (a0 + dr * (a1 - a0))
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+@pytest.mark.parametrize("tile", tker.TILES)
+@pytest.mark.parametrize("name", ["default_geometry(16)", "shifted detector",
+                                  "integer landings"])
+def test_staged_gather_needs_no_bound_tests(name, tile, dtype):
+    """The kernel's staged loop, with the ring of zeros and the clamps in
+    place of bound tests, gives the plain version's sums: a gather with no
+    tap on the detector lands on zeros wherever its clamp puts it."""
+    if name == "integer landings":
+        params, nu, nv, shape = integer_landing_params(), 20, 16, (12, 10, 24)
+    else:
+        g, pm = _footprint_case(name)
+        params = torch.from_numpy(_params13(pm, None))
+        nu, nv, shape = g.n_u, g.n_v, (g.n_x, g.n_y, g.n_z)
+    qt = torch.randn((params.shape[0], nu, nv),
+                     generator=torch.Generator().manual_seed(3)).to(dtype)
+    want = tker.backproject_dual_torch(params, qt, *shape)
+    got = _staged_gather(params, qt, shape, tile)
+    assert float(want.abs().max()) > 0
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
 
 
 @pytest.mark.parametrize("axis", ["u", "v"])

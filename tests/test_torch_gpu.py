@@ -199,6 +199,93 @@ def test_compiled_tiles_and_shared_memory_model(cuda):
         bpk.backproject_dual(params, qt, *SHAPE, stage_bytes=1 << 20)
 
 
+# Geometries where v moves ~2 pixels a step of k (as at RabbitCT 512^3,
+# where a warp's tap reads span two shared-memory wavefronts) and ~0.75 (as
+# at 1024^3), with partial tiles on every axis.
+STRIDES = {
+    "2px": (CBCTGeometry(n_proj=5, n_u=48, n_v=140, d_u=0.1, d_v=0.05,
+                         d=4.0, dsd=8.0, n_x=20, n_y=12, n_z=130,
+                         d_x=0.1, d_y=0.1, d_z=0.05), (1.5, 2.5)),
+    "0.75px": (CBCTGeometry(n_proj=5, n_u=48, n_v=112, d_u=0.1, d_v=0.1,
+                            d=4.0, dsd=8.0, n_x=20, n_y=12, n_z=140,
+                            d_x=0.1, d_y=0.1, d_z=0.0375), (0.6, 0.9)),
+}
+
+
+def integer_landing_params():
+    """(6, 13) rows of parallel projections (z = 1 or 2, so 1/z is exact)
+    whose u and v land on whole and half pixels at many voxels, on, at and
+    past both edges of a 20 x 16 detector, for a (12, 10, 24) volume (the
+    CPU tests' staged-gather model runs the same rows)."""
+    rows = [
+        [1, 1, 0, -3, 0, 1, 1, -4, 0, 0, 0, 1],
+        [1, 0, 0, 4.5, 0, 1, 2, -9, 0, 0, 0, 1],
+        [2, 0, 0, 0, 0, 0, 0.5, 7, 0, 0, 0, 1],
+        [1, -1, 0, 12, 0, 2, 1, -10, 0, 0, 0, 2],
+        [1, 0, 0, 2, 0, 0, 1, 40, 0, 0, 0, 1],
+        [1, 0, 0, -12, 0, 1, 1, 0, 0, 0, 0, 1],
+    ]
+    return torch.tensor([r + [1.0] for r in rows], dtype=torch.float32)
+
+
+def _mixed_stage_bytes(params, nu, nv, shape, t, dtype):
+    """A staging budget between the boxes of a launch's (tile, projection)
+    pairs: some stage, some go to the direct gather."""
+    for px in (256, 512, 1024, 2048, 4096, 8192):
+        st = bpk.staging_stats(params.cpu(), nu, nv, shape[0], shape[1],
+                               shape[2] // 2, t, px * dtype.itemsize, dtype)
+        if st["direct"] and st["staged"]:
+            return px * dtype.itemsize
+    return None
+
+
+@pytest.mark.parametrize("stage", ["default", "direct", "mixed"])
+@pytest.mark.parametrize("t", bpk.TILES)
+@pytest.mark.parametrize("codec", sorted(CODECS))
+@pytest.mark.parametrize("case", sorted(STRIDES) + ["integer landings"])
+def test_every_tile_in_both_stride_regimes_and_at_whole_pixels(
+        cuda, case, codec, t, stage):
+    """Every compiled tile and wire type against the plain version where v
+    moves ~2 and ~0.75 pixels a step of k, and where u and v land on whole
+    and half pixels on and past the detector's edges (floor's edge
+    cases); staged at the default budget, all gathered directly, and with
+    a budget that stages some (tile, projection)s and not others. The
+    kernel's direct count is the staging model's."""
+    if case == "integer landings":
+        params, nu, nv, shape = integer_landing_params(), 20, 16, (12, 10, 24)
+    else:
+        g, (lo, hi) = STRIDES[case]
+        nu, nv, shape = g.n_u, g.n_v, (g.n_x, g.n_y, g.n_z)
+        params, _ = kernel_operands(projection_matrices(g),
+                                    torch.zeros(g.proj_shape()))
+        # v's step a step of k at the volume's central column
+        p = params[:, :12].double()
+        ci, cj = g.n_x / 2, g.n_y / 2
+        z = p[:, 8] * ci + p[:, 9] * cj + p[:, 11]
+        step = float((p[:, 6] / z).abs().median())
+        assert lo <= step <= hi
+    q = torch.randn((params.shape[0], nv, nu),
+                    generator=torch.Generator().manual_seed(5))
+    data, scales = CODECS[codec].encode(q.to(cuda))
+    params, qt = kernel_operands(params[:, :12].reshape(-1, 3, 4), data,
+                                 scales)
+    stage_bytes = {"default": None, "direct": 0,
+                   "mixed": _mixed_stage_bytes(params, nu, nv, shape, t,
+                                               qt.dtype)}[stage]
+    if stage == "mixed":
+        assert stage_bytes is not None
+    got, moved = launch_counts(lambda: bpk.backproject_dual(
+        params, qt, *shape, tile=t, stage_bytes=stage_bytes))
+    want = bpk.backproject_dual_torch(params, qt, *shape)
+    torch.cuda.synchronize()
+    assert float(want.abs().max()) > 0
+    assert float((got - want).abs().max() / want.abs().max()) <= REL
+    model = bpk.staging_stats(params, nu, nv, shape[0], shape[1],
+                              shape[2] // 2, t, stage_bytes, qt.dtype)
+    assert moved["direct_pairs"] == model["direct"]
+    assert moved["tile_pairs"] == model["pairs"]
+
+
 @pytest.mark.parametrize("codec", ["fp32", "fp16"])
 def test_measured_autotune_times_compiled_tiles(cuda, codec):
     pm = torch.as_tensor(projection_matrices(G), device=cuda)

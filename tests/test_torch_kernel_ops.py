@@ -95,7 +95,7 @@ def test_backprojection_operator_on_fake_tensors(device, dtype):
             qt = torch.empty(n_p, nu, nv, dtype=dtype, device=device)
             with FlopCounterMode(display=False) as fc:
                 vol = bpk.backproject_dual(params, qt, nx, ny, nz,
-                                           tile=(16, 8, 32))
+                                           tile=(16, 8, 64))
             sp.fence(None)
     finally:
         trace.set_tracer(prev)
@@ -105,7 +105,7 @@ def test_backprojection_operator_on_fake_tensors(device, dtype):
     assert bpk.backproject_ops(n_p, nx, ny, nz) == want
     assert fc.get_total_flops() == want
     pairs = n_p * math.ceil(nx / 16) * math.ceil(ny / 8) \
-        * math.ceil(nz // 2 / 32)
+        * math.ceil(nz // 2 / 64)
     assert [reg.value(n) - b for n, b in zip(names, before)] == [0, pairs, 0]
     assert bpk._BOUND is bound
     assert sp.args["tile_pairs"] == pairs and "direct_pairs" not in sp.args

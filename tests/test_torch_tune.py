@@ -16,7 +16,8 @@ import pytest
 import torch
 
 from repro.kernels.backproject import tune as jtune
-from repro_torch.core.geometry import default_geometry, projection_matrices
+from repro_torch.core.geometry import (CBCTGeometry, default_geometry,
+                                       projection_matrices)
 from repro_torch.core.plan import ReconstructionPlan, plan_from_spec
 from repro_torch.core.backprojection import backproject_factorized
 from repro_torch.kernels.backproject import kernel as bpk
@@ -91,8 +92,8 @@ class TestAutotuner:
             tune.pick_blocks(*ARGS)
 
     def test_pins_are_kept(self):
-        cfg = tune.autotune(*ARGS, fix_tile=(4, 8, 64))
-        assert cfg.tile == (4, 8, 64)
+        cfg = tune.autotune(*ARGS, fix_tile=(16, 8, 64))
+        assert cfg.tile == (16, 8, 64)
         cfg = tune.autotune(*ARGS, fix_stage=0)
         assert cfg.stage_bytes == 0
         with pytest.raises(ValueError, match="not compiled"):
@@ -133,6 +134,38 @@ class TestAutotuner:
             assert tune.min_smem_bytes(dtype) == smallest
 
 
+def _rabbitct(n):
+    return CBCTGeometry(n_proj=496, n_u=1248, n_v=960, d_u=4.8 / 1248,
+                        d_v=4.8 / 1248, d=4.0, dsd=8.0, n_x=n, n_y=n, n_z=n,
+                        d_x=2 / n, d_y=2 / n, d_z=2 / n)
+
+
+class TestModelPicks:
+    def test_every_compiled_tile_has_a_weight(self):
+        assert set(tune._W_STAGED) == set(bpk.TILES)
+
+    @pytest.mark.parametrize("shape,dtype,want", [
+        ("512", torch.float32, (8, 8, 128)),
+        ("512", torch.float16, (8, 8, 128)),
+        ("delta", torch.float32, (8, 8, 128)),
+        ("delta", torch.float16, (8, 8, 128)),
+        ("1024", torch.float32, (16, 8, 128)),
+    ])
+    def test_model_pick_is_the_measured_fastest_at_rabbitct(self, shape,
+                                                            dtype, want):
+        """At RabbitCT 512^3, its last delta of 62 projections and 1024^3,
+        the unmeasured pick is the launch timed fastest on an H100 (PERF.md
+        §6): the tile `want` at the default staging."""
+        n = 1024 if shape == "1024" else 512
+        g = _rabbitct(n)
+        pm = torch.as_tensor(projection_matrices(g))
+        if shape == "delta":
+            pm = pm[434:]
+        cfg = tune.autotune(n, n, n, pm, g.n_u, g.n_v, qt_dtype=dtype,
+                            budget=tune.DEFAULT_SMEM_BUDGET)
+        assert cfg.as_tuple() == (want, bpk.default_stage_bytes(dtype))
+
+
 class TestStagingModel:
     """`staging_stats`, the tuner's model, is the kernel's staging rule:
     tile by tile it agrees with `footprint_boxes` and the kernel's box
@@ -156,10 +189,13 @@ class TestStagingModel:
                     for row, zp in zip(boxes.tolist(), zpos.tolist()):
                         rlo, rhi, cfl, cfh, cml, cmh = row
                         front, mirror = cfl <= cfh, cml <= cmh
-                        rows = rhi - rlo + 3
-                        cf, cm = (cfl - 1) & -vec, (cml - 1) & -vec
-                        width = max(cfh + 2 - cf if front else 0,
-                                    cmh + 2 - cm if mirror else 0)
+                        ring = bpk.RING
+                        rows = rhi - rlo + 1 + 2 * ring
+                        past = (g.n_v + vec) & -vec
+                        cf = (cfl - ring) & -vec if front else past
+                        cm = (cml - ring) & -vec if mirror else past
+                        width = max(cfh + 1 + ring - cf if front else 0,
+                                    cmh + 1 + ring - cm if mirror else 0)
                         pitch = (width + vec - 1) & -vec
                         nonempty = rlo <= rhi and (front or mirror)
                         if not zp or (nonempty and 2 * rows * pitch > buf):
@@ -212,7 +248,7 @@ class TestFileBackedCache:
         monkeypatch.setenv("REPRO_TUNE_CACHE", str(tmp_path / "tc.json"))
         tune.autotune(*ARGS)
         (key, _), = tune.cache_info().items()
-        timed = tune.BlockConfig((4, 8, 64), 0, tune.min_smem_bytes(),
+        timed = tune.BlockConfig((16, 8, 64), 0, tune.min_smem_bytes(),
                                  elapsed=1e-3)
         tune._file_cache_put(key, timed)
         tune.clear_cache()
@@ -236,7 +272,7 @@ class TestFileBackedCache:
     def test_port_and_reference_keys_do_not_collide(self, tmp_path,
                                                     monkeypatch):
         """Both packages' tuners on one file: each entry stays in its own
-        key space (the port's keys lead with "hopper" and the device)."""
+        key space (the port's keys lead with its tag and the device)."""
         path = tmp_path / "tc.json"
         monkeypatch.setenv("REPRO_TUNE_CACHE", str(path))
         jtune.clear_cache()
@@ -245,7 +281,7 @@ class TestFileBackedCache:
         entries = json.loads(path.read_text())["entries"]
         keys = [json.loads(k) for k in entries]
         assert len(keys) == 2
-        ours = [k for k in keys if k[0] == "hopper"]
+        ours = [k for k in keys if k[0] == tune._KEY_TAG]
         assert len(ours) == 1 and ours[0][1] == "cpu"
         j_hits, t_hits = jtune.file_cache_hits(), tune.file_cache_hits()
         jtune.clear_cache()
@@ -260,9 +296,9 @@ class TestFileBackedCache:
 class TestPlanLaunchFields:
     def test_resolved_launch_reaches_the_engine(self):
         plan = ReconstructionPlan(geometry=G, impl="kernel", device="cpu",
-                                  blocks=(4, 8, 64), vmem_budget=64 * 1024)
+                                  blocks=(8, 8, 64), vmem_budget=64 * 1024)
         t, sb = plan.resolved_launch()
-        assert t == (4, 8, 64) == plan.resolved_blocks()
+        assert t == (8, 8, 64) == plan.resolved_blocks()
         assert bpk.smem_bytes(t, sb, torch.float32) <= 64 * 1024
         desc = plan.describe()
         assert (desc["blocks"], desc["stage_bytes"]) == (t, sb)
@@ -283,8 +319,8 @@ class TestPlanLaunchFields:
             ReconstructionPlan(geometry=G, device="cpu", **kw).validate()
 
     def test_spec_keys_parse_as_in_the_reference(self):
-        plan = plan_from_spec(G, "impl=kernel,blocks=16:8:32,"
+        plan = plan_from_spec(G, "impl=kernel,blocks=16:8:64,"
                               "vmem_budget=65536", device="cpu")
-        assert plan.blocks == (16, 8, 32) and plan.vmem_budget == 65536
-        assert plan.validate().resolved_blocks() == (16, 8, 32)
+        assert plan.blocks == (16, 8, 64) and plan.vmem_budget == 65536
+        assert plan.validate().resolved_blocks() == (16, 8, 64)
 
