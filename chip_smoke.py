@@ -112,21 +112,21 @@ Phases, in order; any failure exits non-zero:
 16. [service] ReconstructionService(device="cuda", max_batch=4) with
    spec="auto" (the calibration [traced] filled), two rounds of the same
    traffic: family A pins impl="kernel" and sends the phantom's scan and
-   copies scaled by 1.5 and 0.5 (one bucket of 4 with 1 pad lane); family
+   copies scaled by 1.5 and 0.5 (one bucket of 3 lanes); family
    B pins impl="kernel", precision="fp16" and sends the phantom's scan in
    memory and [io]'s fp16 ProjectionSource with a VolumeSink. Gates:
    every ticket DONE; each volume bit-equal to
    plan_cache.resolve(family).build()(scan); the sink's read() bit-equal
    to its ticket's volume; the phantom scan's interior RMSE < 0.17;
-   padded_lanes 1 per round; planner searches 2 after both rounds; a
-   service whose hbm_bytes is below one scan's footprint raises
-   AdmissionError and counts it; max_queue=2 raises QueueFullError on the
-   third submit. Printed: seconds per drain beside the warm single-scan
+   5 lanes run per round (its engine spans' lanes); planner searches 2
+   after both rounds; a service whose hbm_bytes is below one scan's
+   footprint raises AdmissionError and counts it; max_queue=2 raises
+   QueueFullError on the third submit. Printed: seconds per drain beside the warm single-scan
    build() seconds of the same scans, the footprint, the bucket capacity
    under the card's memory and the peak memory, the queue-wait, assembly
    and time-to-volume means, each bucket's assembly, engine and
    write-behind spans, the source load's seconds under an engine span
-   (prefetch overlapping compute), and a pad lane's seconds.
+   (prefetch overlapping compute).
 17. [serve-loop] serve(), 4 family-A submits with deadline_s = 4 x the
    measured per-scan seconds, wait(timeout=120), shutdown(): every ticket
    DONE and bit-equal as above, and the mean time-to-volume at least one
@@ -1848,7 +1848,7 @@ def count_launches(svc, plans: dict, launches: dict) -> None:
     """Tally the back-projector's launches per codec of each bucket's plan
     while `svc` serves: the wrapper's count read at the bucket's ends. The
     wrapper's `filter_calls` adds up the filter_fn calls the buckets make,
-    one a lane (pads too) and micro-batch, for `count_filter`."""
+    one a lane (a bucket's scans) and micro-batch, for `count_filter`."""
     serve_bucket = svc._serve_bucket
 
     def counted(bucket, *args):
@@ -1859,7 +1859,7 @@ def count_launches(svc, plans: dict, launches: dict) -> None:
             plan = plans[bucket.family]
             codec = plan.resolved_precision().storage
             launches[codec] = launches.get(codec, 0) + BP_LAUNCHES.n - n0
-            counted.filter_calls += bucket.bsz * filter_calls(plan)
+            counted.filter_calls += len(bucket.scans) * filter_calls(plan)
 
     counted.filter_calls = 0
     svc._serve_bucket = counted
@@ -1885,7 +1885,7 @@ def overlap_s(spans: list, others: list) -> float:
 def service_phase(g, proj, phantom, work: str) -> tuple:
     """Phase 16 [service]: ReconstructionService(device="cuda",
     max_batch=4) with spec="auto" serving two rounds of family A (impl=
-    "kernel": 3 in-memory scans, one bucket of 4 with 1 pad lane) and
+    "kernel": 3 in-memory scans, one bucket of 3 lanes) and
     family B (impl="kernel", precision="fp16": an in-memory scan, and
     [io]'s fp16 ProjectionSource with a VolumeSink). Returns (the
     service, the kernel's launches per codec of the two drains, the family
@@ -1964,6 +1964,7 @@ def service_phase(g, proj, phantom, work: str) -> tuple:
         loads = [s for s in tracer.spans("io.prefetch.load")
                  if s["dur"] > 1e3]
         engines = tracer.spans("engine.batched")
+        lanes_run = sum(e["args"]["lanes"] for e in engines)
         assembly = tracer.spans("service.bucket.assemble")
         writes = tracer.spans("io.writeback.write")
         lat = st["latency"]
@@ -1971,7 +1972,7 @@ def service_phase(g, proj, phantom, work: str) -> tuple:
               f"{st['buckets'] - st0['buckets']} buckets beside "
               f"{sum(single):.4f} s of warm single-scan build() "
               f"({', '.join(f'{s:.4f}' for s in single)}); kernel launches "
-              f"{n_launch}; padded lanes {st['padded_lanes'] - st0['padded_lanes']}; "
+              f"{n_launch}; lanes {lanes_run}; "
               f"volumes bit-equal to plan_cache.resolve(family).build()"
               f"(scan): {same}; sink read() bit-equal: {same_sink}; "
               f"phantom scan interior RMSE {rmse:.4f} (bound {RMSE_BOUND}); "
@@ -1990,9 +1991,9 @@ def service_phase(g, proj, phantom, work: str) -> tuple:
             fail(f"service round {rnd}: a volume is not bit-equal")
         if not rmse < RMSE_BOUND:
             fail(f"service round {rnd}: RMSE {rmse:.4f} >= {RMSE_BOUND}")
-        pads = st["padded_lanes"] - st0["padded_lanes"]
-        if pads != 1:
-            fail(f"service round {rnd}: {pads} padded lanes, expected 1")
+        if lanes_run != len(tickets):
+            fail(f"service round {rnd}: {lanes_run} lanes run for "
+                 f"{len(tickets)} scans")
         if n_launch < 1:
             fail(f"service round {rnd} did not launch the kernel")
         drains.append(dt)
@@ -2006,23 +2007,14 @@ def service_phase(g, proj, phantom, work: str) -> tuple:
     fam_a = next(f for f in plans if dict(f.pins) == pins_a)
     plan_a = plans[fam_a]
     fp = plan_footprint(g, point_from_plan(plan_a)).total
-    cap = svc._bucket_capacity(fam_a, plan_a)
-    fn = plan_a.build()
-    pad = torch.zeros_like(proj)
-    fn(pad)
-    sync()
-    t1 = time.perf_counter()
-    fn(pad)
-    sync()
-    t_pad = time.perf_counter() - t1
-    del pad, fn
+    cap, _ = svc._bucket_capacity(fam_a, plan_a)
     print(f"[service] family A plan {plan_a.describe()}; family B plan "
           f"{plans[next(f for f in plans if f is not fam_a)].describe()}; "
           f"plan_cache {st['plan_cache']}; per-scan footprint "
           f"{fp / 2**30:.3f} GiB, bucket capacity {cap} under the card's "
           f"{total / 2**30:.2f} GiB (max_batch 4), capacity x footprint "
-          f"{cap * fp / 2**30:.2f} GiB; a pad lane (build() of zeros) "
-          f"{t_pad:.4f} s; kernel launches per codec {launches}")
+          f"{cap * fp / 2**30:.2f} GiB; kernel launches per codec "
+          f"{launches}")
     # the two rejections
     low = ReconstructionService(device="cuda", hbm_bytes=fp - 1)
     try:
@@ -2082,8 +2074,7 @@ def serve_loop_phase(svc, g, proj, seconds_a: list) -> dict:
         fail(f"serve-loop: tickets {[t.state for t in tickets]}, waited "
              f"{waited}: {[repr(t.error) for t in tickets if t.error]}")
     plan = svc.plan_cache.resolve(tickets[0].family)
-    lanes = len(scans) + st["padded_lanes"] - st0["padded_lanes"]
-    count_filter("serve-loop", lanes * filter_calls(plan))
+    count_filter("serve-loop", len(scans) * filter_calls(plan))
     fn = plan.build()
     same = [torch.equal(fn(p), t.result()) for p, t in zip(scans, tickets)]
     met = st["slo"]["met"] - st0["slo"]["met"]
@@ -2097,8 +2088,7 @@ def serve_loop_phase(svc, g, proj, seconds_a: list) -> dict:
           f"time-to-volume {ttv_mean:.4f} s; SLO met {met}, "
           f"missed {missed}, attainment {met / (met + missed):.2f}; loop "
           f"passes {st['loop']['passes']}, errors {st['loop']['errors']}; "
-          f"buckets {st['buckets'] - st0['buckets']}, padded lanes "
-          f"{st['padded_lanes'] - st0['padded_lanes']}; kernel launches "
+          f"buckets {st['buckets'] - st0['buckets']}; kernel launches "
           f"{n_launch}; volumes bit-equal to build(): {same}; phase "
           f"{time.perf_counter() - t_phase:.1f} s")
     if not all(same):

@@ -97,10 +97,11 @@ _REDUCES = ("psum",) + SCATTER_REDUCES
 _IMPLS = ("reference", "factorized", "kernel")
 _PRECISIONS = ("fp32", "bf16", "fp16", "fp8_e4m3", "fp8_e5m2")
 
-# build()/build_batched() results keyed by the (hashable) plan (plus the
-# batch size for batched engines) and, on a mesh, the mesh's process
-# groups (a new group behind an equal mesh is a new engine). Its counts
-# also go to the metrics registry as cache.core.engine_cache.*.
+# build() results, one a plan: the engine over the plan's stage
+# composition, carrying the lane runner every build_batched() size wraps.
+# Keyed by the (hashable) plan and, on a mesh, the mesh's process groups
+# (a new group behind an equal mesh is a new engine). Its counts also go
+# to the metrics registry as cache.core.engine_cache.*.
 _ENGINE_CACHE = CountingLRU(capacity=64, name="core.engine_cache")
 
 
@@ -672,9 +673,11 @@ class ReconstructionPlan:
         scatter reduce, and the 4-D (N_x/R, y_chunks, N_y/y_chunks/C_data,
         N_z) store layout for chunked + scatter; `assemble_volume` gathers
         the global volume. Projections may be a tensor or an array; they
-        are placed on the plan's device. The engine's `collectives`
+        are placed on the plan's device. The engine is cached per plan
+        (and mesh process groups); the plan's batched engines run its
+        stage composition too (its `lanes`), so its `collectives`
         attribute (None without a mesh) counts the bytes each collective
-        moved. Results are cached per plan (and mesh process groups).
+        of all of them moved.
 
         `source`/`sink` (io/streams.py) close the pipeline at the
         filesystem like the paper's ranks do: with a `ProjectionSource`
@@ -707,9 +710,28 @@ class ReconstructionPlan:
                     f"got {tuple(proj.shape)}")
             return rank_fn(pm_steps, proj)
 
+        def lanes_fn(projections, n: int) -> torch.Tensor:
+            got = [tuple(p.shape) for p in projections]
+            if got != [shape] * n:
+                raise ValueError(
+                    f"projections must be (B, ) + {what} = {(n,) + shape}, "
+                    f"got {len(got)} lanes shaped {sorted(set(got))}")
+            out = None
+            for b, p in enumerate(projections):
+                lane = rank_fn(pm_steps, torch.as_tensor(p, device=dev))
+                with device_stage("stage.reduce", dev):
+                    if out is None:
+                        out = torch.empty((n,) + tuple(lane.shape),
+                                          dtype=lane.dtype,
+                                          device=lane.device)
+                    out[b] = lane
+                del lane
+            return out
+
         reconstruct_fn = _traced_call(reconstruct_fn, "engine.reconstruct",
                                       self._span_attrs())
         reconstruct_fn.collectives = st.coll
+        reconstruct_fn.lanes = lanes_fn
         _ENGINE_CACHE.put(key, reconstruct_fn)
         return reconstruct_fn
 
@@ -752,8 +774,10 @@ class ReconstructionPlan:
         """Batched engine: reconstruct `batch_size` same-geometry scans in
         one call — the service layer's geometry-bucketed serving path.
 
-        Input : (B, N_p, N_v, N_u) projections, B == batch_size (on a mesh
-                (B, N_p/(R*C), N_v, N_u): this rank's rows of every scan).
+        Input : a sequence of B == batch_size lanes, each (N_p, N_v, N_u)
+                (on a mesh (N_p/(R*C), N_v, N_u): this rank's rows of the
+                scan) — a (B, ...) array or a list of tensors alike. Each
+                lane is placed on the plan's device alone, as it runs.
         Output: (B,) + build()'s output shape, f32.
 
         Exactness contract: lane b of the output is BIT-IDENTICAL to
@@ -765,11 +789,13 @@ class ReconstructionPlan:
         FFT batches of a lane are build()'s (a batch never straddles two
         scans).
 
-        Engines are cached per (plan, batch_size) in build()'s LRU. With
-        the tracer on, the engine's fenced ``engine.batched`` span carries
-        `lanes` and the device times of every lane's stages summed
-        (``device_ms``; the lane's store into the output counts as
-        ``stage.reduce``).
+        Every batch size runs the plan's one stage composition, cached
+        with build()'s engine: a size not asked for before costs no tuner
+        pick, filter tables or projection matrices. The engine's
+        `collectives` is build()'s. With the tracer on, the engine's fenced
+        ``engine.batched`` span carries `lanes` and the device times of
+        every lane's stages summed (``device_ms``; the lane's store into
+        the output counts as ``stage.reduce``).
         """
         if self.schedule == "incremental":
             raise ValueError(
@@ -778,39 +804,15 @@ class ReconstructionPlan:
         bsz = int(batch_size)
         if bsz < 1:
             raise ValueError(f"batch_size={batch_size} must be >= 1")
-        key = (self._cache_key(), "batched", bsz)
-        cached = _ENGINE_CACHE.get(key)
-        if cached is not None:
-            return cached
-        self.validate()
-        st = self._make_stages()
-        rank_fn = self._build_rank_fn(st)
-        dev, pm_steps, shape, what = self._engine_inputs()
-        shape = (bsz,) + shape
+        engine = self.build()
 
         def batched_fn(projections) -> torch.Tensor:
-            proj = torch.as_tensor(projections, device=dev)
-            if tuple(proj.shape) != shape:
-                raise ValueError(
-                    f"projections must be (B, ) + {what} = {shape}, "
-                    f"got {tuple(proj.shape)}")
-            out = None
-            for b in range(bsz):
-                lane = rank_fn(pm_steps, proj[b])
-                with device_stage("stage.reduce", dev):
-                    if out is None:
-                        out = torch.empty((bsz,) + tuple(lane.shape),
-                                          dtype=lane.dtype,
-                                          device=lane.device)
-                    out[b] = lane
-                del lane
-            return out
+            return engine.lanes(projections, bsz)
 
         attrs = self._span_attrs()
         attrs["batch"] = attrs["lanes"] = bsz
         batched_fn = _traced_call(batched_fn, "engine.batched", attrs)
-        batched_fn.collectives = st.coll
-        _ENGINE_CACHE.put(key, batched_fn)
+        batched_fn.collectives = engine.collectives
         return batched_fn
 
     def build_incremental(self, source=None, sink=None

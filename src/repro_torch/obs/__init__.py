@@ -24,9 +24,9 @@ the tracer on:
   service.loop.poll        the same while a stream is open: it polls
   service.schedule         a pass's buckets formed, its loads queued
   service.drain            one pass over its buckets
-  service.bucket           one bucket: args scan_ids, queue_ms (each
-                           scan's arrival to the bucket's start), pads;
-                           fenced, device_ms {"service.stack": ...}
+  service.bucket           one bucket: args scans, scan_ids, queue_ms
+                           (each scan's arrival to the bucket's start);
+                           fenced
     service.bucket.assemble   its lanes made device tensors
       service.lane.get        one lane's prefetch wait
       service.lane.h2d        one lane's copy to the device: args bytes,

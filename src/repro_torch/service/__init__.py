@@ -8,9 +8,10 @@ staged engine (core/plan.py) into a throughput machine:
     their footprint cannot fit the memory budget (planner/feasibility) or
     the queue is full (backpressure), never half-served;
   * geometry-bucketed batching — same-family scans (identical geometry,
-    mesh, plan pins) are padded to power-of-two buckets and reconstructed
-    by ONE batched engine call (`ReconstructionPlan.build_batched`),
-    bit-exact per scan vs the single-scan engine;
+    mesh, plan pins) share buckets of up to `max_batch` scans, each
+    reconstructed by ONE batched engine call over its real scans
+    (`ReconstructionPlan.build_batched`), bit-exact per scan vs the
+    single-scan engine;
   * plan cache — planner search (`plan_from_spec(g, "auto")`) runs once
     per scan family, not per request; hit/miss/search counters are the
     service's proof of amortization;

@@ -1,17 +1,21 @@
 """The service scheduler: queue -> admission -> buckets -> batched engine.
 
 Port of `repro/service/scheduler.py`: the same semantics, counters
-(``service.*``) and stats keys. Where the port differs:
+(``service.*``) and stats keys, less the reference's count of pad lanes.
+Where the port differs:
 
   * `device` (default "cuda") is where every family's plan runs; the
     service never moves to the CPU on its own. `hbm_bytes=None` is the
     card's own memory (`total_memory`) on a CUDA device and
     `DEFAULT_HBM_BYTES` on the CPU (the reference's default, so CPU runs
     price buckets as it does).
-  * Lanes are assembled with `torch.stack` on the device; pad lanes are
-    zero tensors of a lane's shape. The batched engine runs its lanes in
-    series (core/plan.py `build_batched`), so a pad lane costs a whole
-    reconstruction here, where it was one lane of a vmap in the reference.
+  * A bucket is its real scans only: the batched engine runs its lanes
+    one after another (core/plan.py `build_batched`), so the service hands
+    it the list of lane tensors as they are, with no pad lanes and no
+    stacked copy. The reference pads a bucket with zero scans to a power
+    of two and stacks it, because each batch size is one compiled vmap
+    there; the port's plan runs every batch size through one stage
+    composition, so neither is needed.
   * Projection sources are read to HOST memory on the prefetch thread and
     copied to the device at assembly: a load straight to the card from
     another thread would queue its copy on the stream the compute uses.
@@ -33,14 +37,10 @@ Bucketing rules:
   * Only same-FAMILY scans share a bucket (requests.ScanFamily — identical
     geometry, mesh and plan pins; the batched engine runs every lane
     through one plan).
-  * Bucket sizes are powers of two, capped by `max_batch` AND by the
-    memory budget: the largest b with b * footprint(plan) <= hbm_bytes
-    less the open streams' resident state (planner/feasibility prices one
-    scan's per-rank footprint; the batched engine replicates it per lane). Power-of-two buckets bound the number
-    of distinct batch engines at log2(max_batch) per family.
-  * A partial bucket is padded with zero scans; padding lanes are dropped
-    from the output. The batched engine is bit-exact per lane
-    (core/plan.py build_batched), so padding cannot perturb real scans.
+  * A bucket holds at most the largest b <= `max_batch` with
+    b * footprint(plan) <= hbm_bytes less the open streams' resident state
+    (planner/feasibility prices one scan's per-rank footprint; the batched
+    engine replicates it per lane), and runs exactly its scans' lanes.
 
 Scheduling (the cross-family order buckets execute in, `policy=`):
 
@@ -95,12 +95,11 @@ Tracing (obs/__init__.py lists the spans): with the process tracer on, the
 serving thread's time is spans of its own — waiting for work
 (``service.loop.wait``), forming buckets (``service.schedule``), each
 bucket's lanes fetched and copied (``service.lane.get``,
-``service.lane.h2d``, with the bytes copied) and stacked (the
-``service.stack`` device stage) — and each scan's life from arrival to its
-terminal state is one async event pair (category ``scan``, id its
-scan_id). A stream's folds are ``service.stream.fold`` spans, each around
-its session's fenced ``session.fold`` with the fold's device stages, and
-its async event runs from its open.
+``service.lane.h2d``, with the bytes copied) — and each scan's life from
+arrival to its terminal state is one async event pair (category ``scan``,
+id its scan_id). A stream's folds are ``service.stream.fold`` spans, each
+around its session's fenced ``session.fold`` with the fold's device
+stages, and its async event runs from its open.
 Latencies start at the scan's arrival: `submit(arrived_at=)`, submit time
 by default; a stream's at its last delta's `push(arrived_at=)`.
 """
@@ -121,7 +120,7 @@ from ..core.geometry import CBCTGeometry
 from ..device import resolve_device
 from ..io.streams import AsyncWriteback, SourcePrefetcher
 from ..obs.metrics import DEFAULT_TIME_BUCKETS, MetricsRegistry
-from ..obs.trace import device_stage, get_tracer, wait_for
+from ..obs.trace import get_tracer, wait_for
 from ..planner import (
     DEFAULT_HBM_BYTES, check_feasible, plan_footprint, point_from_plan,
 )
@@ -142,22 +141,15 @@ SCHEDULING_POLICIES = ("fifo", "largest_bucket", "deadline")
 POLL_S = 50e-6
 
 
-def _next_pow2(n: int) -> int:
-    b = 1
-    while b < n:
-        b *= 2
-    return b
-
-
 class _Bucket(NamedTuple):
     """One schedulable unit: same-family scans sharing a batched dispatch.
     `seq` is the bucket's earliest admission sequence number — the
     arrival-order key every policy tie-breaks on. `footprint` is what its
-    dispatch holds on a device: bsz times one scan's footprint."""
+    dispatch holds on a device: its scan count times one scan's
+    footprint."""
 
     family: ScanFamily
     scans: List[_QueuedScan]
-    bsz: int
     seq: int
     footprint: int
 
@@ -190,7 +182,7 @@ class ReconstructionService:
                    each rank's current device of that type).
     spec         : plan spec families resolve through ("auto" = planner
                    search, once per family — see PlanCache).
-    max_batch    : bucket-size ceiling (power of two recommended).
+    max_batch    : bucket-size ceiling.
     max_queue    : admission bound on queued scans (QueueFullError beyond).
     hbm_bytes    : per-device memory budget for admission + bucket sizing
                    (None: the card's total memory; DEFAULT_HBM_BYTES on
@@ -252,8 +244,7 @@ class ReconstructionService:
             for k in ("submitted", "rejected", "served", "failed",
                       "store_failed")
         }
-        for k in ("buckets", "padded_lanes", "prefetched_loads",
-                  "writebacks"):
+        for k in ("buckets", "prefetched_loads", "writebacks"):
             self._c[k] = self.metrics.counter(f"service.{k}")
         self._c["slo_met"] = self.metrics.counter("service.slo.met")
         self._c["slo_missed"] = self.metrics.counter("service.slo.missed")
@@ -584,18 +575,15 @@ class ReconstructionService:
     # -- bucketing -----------------------------------------------------------
 
     def _bucket_capacity(self, family: ScanFamily, plan) -> Tuple[int, int]:
-        """(the largest power-of-two batch the budget left beside the open
-        streams admits for this family, one scan's footprint); the batch is
-        >= 1: single-scan feasibility was checked at admission."""
+        """(the largest bucket, up to `max_batch` scans, that the budget
+        left beside the open streams admits for this family, one scan's
+        footprint); the bucket is >= 1: single-scan feasibility was checked
+        at admission."""
         fp = plan_footprint(family.geometry, point_from_plan(plan))
         per_scan = max(1, fp.total)
         with self._lock:
             budget = self.hbm_bytes - self._stream_bytes
-        cap = 1
-        while (cap * 2 <= self.max_batch
-               and (cap * 2) * per_scan <= budget):
-            cap *= 2
-        return cap, per_scan
+        return max(1, min(self.max_batch, budget // per_scan)), per_scan
 
     def _make_buckets(self) -> Tuple[List[_Bucket], List[ScanTicket]]:
         """Drain the queue into policy-ordered buckets, preserving
@@ -633,9 +621,8 @@ class ReconstructionService:
                 continue
             for i in range(0, len(scans), cap):
                 chunk = scans[i:i + cap]
-                bsz = _next_pow2(len(chunk))
-                buckets.append(_Bucket(fam, chunk, bsz, chunk[0].seq,
-                                       bsz * per_scan))
+                buckets.append(_Bucket(fam, chunk, chunk[0].seq,
+                                       len(chunk) * per_scan))
         return self._schedule(buckets), failed
 
     def _schedule(self, buckets: List[_Bucket]) -> List[_Bucket]:
@@ -743,11 +730,11 @@ class ReconstructionService:
                       writes: List[Tuple[ScanTicket, object]],
                       tracer) -> List[ScanTicket]:
         """Serve one bucket: consume its prefetched lanes, dispatch the
-        batched engine, hand sink-ed volumes to the write-behind pool.
-        Never raises — a failure fails exactly this bucket's tickets."""
-        fam, scans, bsz = bucket.family, bucket.scans, bucket.bsz
-        bucket_span = tracer.span("service.bucket", batch=bsz,
-                                  scans=len(scans))
+        batched engine on them, hand sink-ed volumes to the write-behind
+        pool. Never raises — a failure fails exactly this bucket's
+        tickets."""
+        fam, scans = bucket.family, bucket.scans
+        bucket_span = tracer.span("service.bucket", scans=len(scans))
         bucket_span.__enter__()
         t_bucket0 = time.perf_counter()
         tickets = [s.ticket for s in scans]
@@ -757,7 +744,7 @@ class ReconstructionService:
                 self._h_queue_wait.observe(t_bucket0 - t.start)
         if tracer.enabled:
             bucket_span.set(
-                scan_ids=[t.scan_id for t in tickets], pads=bsz - len(scans),
+                scan_ids=[t.scan_id for t in tickets],
                 queue_ms=[None if t.start is None
                           else 1e3 * (t_bucket0 - t.start) for t in tickets])
         # Consume EXACTLY len(scans) prefetch items FIRST, before
@@ -784,22 +771,17 @@ class ReconstructionService:
             if lane_err is not None:
                 raise lane_err
             plan = self.plan_cache.resolve(fam)
-            engine = plan.build_batched(bsz)
+            engine = plan.build_batched(len(scans))
             lanes = [self._lane(item, l, tracer)
                      for item, l in zip(scans, lanes)]
             n_loads = sum(1 for s in scans if s.source is not None)
-            n_pad = bsz - len(lanes)
-            with device_stage("service.stack", lanes[0].device):
-                if n_pad:
-                    lanes.extend([torch.zeros_like(lanes[0])] * n_pad)
-                batch = torch.stack(lanes)
-            del lanes
             asm_span.__exit__(None, None, None)
             asm_span = None
             self._h_assembly.observe(time.perf_counter() - t_bucket0)
             for t in tickets:
                 t._set_state(TicketState.SERVING)
-            out = engine(batch)
+            out = engine(lanes)
+            del lanes
             bucket_span.fence(out)
             # DONE means the volume is computed: the launches return
             # before the card finishes, and time-to-volume and the SLOs
@@ -822,7 +804,6 @@ class ReconstructionService:
                     writes.append((item.ticket,
                                    self._store(item, vol, layout, spec)))
             self._c["buckets"].inc()
-            self._c["padded_lanes"].inc(n_pad)
             self._c["prefetched_loads"].inc(n_loads)
             self._c["served"].inc(len(scans))
             self._c["writebacks"].inc(
@@ -1016,8 +997,8 @@ class ReconstructionService:
         per-instance registry), keeping the historical flat keys.
         `plan_cache.searches` staying flat while `submitted` grows is the
         amortization proof (one planner search per scan family);
-        `engine_cache` covers the batched engines (core/plan.py's
-        engine cache). `latency` holds
+        `engine_cache` covers the plans' engines (core/plan.py's engine
+        cache, one entry a plan). `latency` holds
         the queue-wait / bucket-assembly / time-to-volume histogram
         snapshots; `slo` the met/missed counts and attainment fraction
         over deadline-carrying scans; `loop` the background loop's
@@ -1033,7 +1014,6 @@ class ReconstructionService:
                        - v("service.scans.store_failed", 0)),
             "failed": v("service.scans.failed", 0),
             "buckets": v("service.buckets", 0),
-            "padded_lanes": v("service.padded_lanes", 0),
             "prefetched_loads": v("service.prefetched_loads", 0),
             "writebacks": v("service.writebacks", 0),
         }

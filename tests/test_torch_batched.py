@@ -3,8 +3,10 @@ of `repro_torch.core.plan` against the port's own `build()` and against
 `repro.core.plan`'s `build_batched`.
 
 The contract is the reference's: lane b of the batched engine is
-BIT-equal to `build()(proj[b])`, for every impl, codec and schedule, and a
-junk or NaN lane does not perturb the real lanes. Against the JAX
+BIT-equal to `build()(proj[b])`, for every impl, codec and schedule,
+whether the lanes come stacked or as a list of tensors, and a junk or NaN
+lane does not perturb the real lanes. Every batch size runs the plan's
+one stage composition. Against the JAX
 package's batched engine the lanes agree within 1e-5 of the max. The
 filter sees each lane in the batches `build()` filters a scan in (per
 micro-batch, restarting at the lane): checked on a scan whose N_p is not a
@@ -47,12 +49,36 @@ def plan(geom=G, **kw):
 
 
 def assert_lanes_bit_equal(p, batch):
-    out = p.build_batched(batch.shape[0])(batch)
+    """Lane b of the stacked batch and of the same lanes as a list of
+    tensors is bit-equal to build() of lane b."""
+    engine = p.build_batched(batch.shape[0])
+    out = engine(batch)
+    listed = engine([torch.as_tensor(lane) for lane in batch])
     single = p.build()
-    assert out.shape == (batch.shape[0],) + p.geometry.volume_shape()
+    assert out.shape == listed.shape == ((batch.shape[0],)
+                                         + p.geometry.volume_shape())
     for b in range(batch.shape[0]):
-        assert torch.equal(out[b], single(batch[b])), f"lane {b}"
+        want = single(batch[b])
+        assert torch.equal(out[b], want), f"lane {b}"
+        assert torch.equal(listed[b], want), f"listed lane {b}"
     return out
+
+
+def test_a_list_of_lane_tensors_is_the_stacked_batch():
+    """build_batched(3) fed its lanes as a list of tensors gives the
+    stacked batch's volumes, bit for bit, and build()'s of each lane."""
+    p = plan(impl="kernel", precision="fp16")
+    batch = scans()
+    lanes = [torch.as_tensor(lane) for lane in batch]
+    engine = p.build_batched(3)
+    got = engine(lanes)
+    assert torch.equal(got, engine(batch))
+    for lane, vol in zip(lanes, got):
+        assert torch.equal(vol, p.build()(lane))
+    with pytest.raises(ValueError, match=r"got 2 lanes"):
+        engine(lanes[:2])
+    with pytest.raises(ValueError, match=r"projections must be \(B, \)"):
+        engine(lanes[:2] + [lanes[2][:4]])
 
 
 @pytest.mark.parametrize("codec", CODECS)
@@ -122,13 +148,18 @@ def test_filter_sees_the_batches_build_sees(monkeypatch, schedule, kw,
 
 
 def test_engine_contract():
+    """One cache entry a plan: its first engine of any batch size makes
+    the stage composition, and build() and every other size reuse it."""
     tplan.clear_engine_cache()
+    before = tplan.engine_cache_stats()
     p = plan()
     a = p.build_batched(2)
-    assert p.build_batched(2) is a
     assert p.build_batched(4) is not a and p.build() is not a
+    assert p.build() is p.build()
     stats = tplan.engine_cache_stats()
-    assert stats["hits"] >= 1 and stats["misses"] >= 3
+    assert stats["size"] == 1
+    assert stats["misses"] - before["misses"] == 1
+    assert stats["hits"] - before["hits"] == 4
     with pytest.raises(ValueError, match="must be >= 1"):
         p.build_batched(0)
     with pytest.raises(ValueError, match=r"projections must be \(B, \)"):

@@ -4,10 +4,12 @@ tests/test_service.py classes on the port with device="cpu", at its 16^3
 geometry; the mesh cases on a (1, 1, 1) gloo mesh over a world of one in
 this process. Against the JAX package's service on the same numpy scans and
 spec: lanes within 1e-5 of the max of its volumes, and its plan-cache
-searches, bucket count and padded lanes. Every lane is BIT-equal to the
+searches and bucket count. A bucket of n scans runs exactly n lanes (the
+reference pads it to a power of two). Every lane is BIT-equal to the
 family plan's `build()`. The serve loop, scheduling policies and SLOs are
 tests/test_torch_service_loop.py.
 """
+import contextlib
 import dataclasses
 import datetime
 
@@ -23,6 +25,7 @@ from repro.core import phantom as jph
 from repro_torch.core.geometry import CBCTGeometry
 from repro_torch.core.plan import clear_engine_cache, plan_from_spec
 from repro_torch.io import PrefetchError, ProjectionSource, VolumeSink
+from repro_torch.obs.trace import Tracer, set_tracer
 from repro_torch.parallel.mesh import make_mesh
 from repro_torch.planner import DEFAULT_HBM_BYTES
 from repro_torch.service import (
@@ -70,6 +73,21 @@ def plan_of(g, mesh=None, **pins):
     return plan_from_spec(g, "auto", mesh=mesh, device=CPU, **pins)
 
 
+@contextlib.contextmanager
+def lanes_run():
+    """The lanes of each batched engine call made inside, in order (the
+    ``engine.batched`` spans of a tracer of its own)."""
+    tracer = Tracer(enabled=True)
+    prev = set_tracer(tracer)
+    lanes = []
+    try:
+        yield lanes
+    finally:
+        set_tracer(prev)
+        lanes.extend(e["args"]["lanes"]
+                     for e in tracer.spans("engine.batched"))
+
+
 class ExplodingSource:
     def load(self, mesh=None, device="cuda"):
         raise IOError("bad shard")
@@ -81,15 +99,16 @@ class TestServeAndBucket:
         clear_engine_cache()
         svc = service(mesh, max_batch=8)
         tickets = [svc.submit(projections=p, geometry=g) for p in scans]
-        served = svc.drain()
+        with lanes_run() as lanes:
+            served = svc.drain()
         assert [t.scan_id for t in served] == [t.scan_id for t in tickets]
         assert all(t.state is TicketState.DONE for t in tickets)
         ref = plan_of(g, mesh).build()
         for p, t in zip(scans, tickets):
             assert torch.equal(ref(p), t.result())
         st = svc.stats()
-        # 5 scans -> one bucket of 8 (next power of two), 3 pad lanes
-        assert st["buckets"] == 1 and st["padded_lanes"] == 3
+        # 5 scans -> one bucket that runs exactly its 5 lanes
+        assert st["buckets"] == 1 and lanes == [5]
         assert st["served"] == 5 and st["queued"] == 0
         svc.close()
 
@@ -102,11 +121,12 @@ class TestServeAndBucket:
         svc = service(max_batch=4)
         tickets = [svc.submit(projections=p, geometry=g, **pins)
                    for p in scans[:3]]
-        svc.drain()
+        with lanes_run() as lanes:
+            svc.drain()
         build = svc.plan_cache.resolve(tickets[0].family).build()
         for p, t in zip(scans, tickets):
             assert t.done and torch.equal(build(p), t.result())
-        assert svc.stats()["padded_lanes"] == 1
+        assert lanes == [3]
         svc.close()
 
     def test_plan_cache_amortizes_planner_search(self, case16):
@@ -144,12 +164,12 @@ class TestServeAndBucket:
         svc = service(max_batch=2)
         for p in scans:                       # 5 scans, cap 2
             svc.submit(projections=p, geometry=g)
-        tickets = svc.drain()
+        with lanes_run() as lanes:
+            tickets = svc.drain()
         assert all(t.done for t in tickets)
         st = svc.stats()
         assert st["buckets"] == 3             # 2 + 2 + 1
-        # the trailing bucket of 1 runs at batch size 1 — no pad needed
-        assert st["padded_lanes"] == 0
+        assert lanes == [2, 2, 1]
         svc.close()
 
     def test_budget_caps_the_bucket(self, case16):
@@ -160,9 +180,56 @@ class TestServeAndBucket:
         svc = service(max_batch=8, hbm_bytes=2 * fp + 1)
         for p in scans:
             svc.submit(projections=p, geometry=g)
+        with lanes_run() as lanes:
+            svc.drain()
+        assert svc.stats()["buckets"] == 3 and lanes == [2, 2, 1]
+        svc.close()
+
+    def test_a_bucket_filters_only_its_scans(self, case16, monkeypatch):
+        """5 same-family scans under max_batch 8 are filtered as 5 scans
+        are, not as a bucket of 8: no lane runs for a scan not sent."""
+        from repro_torch.core import filtering as tfilt
+        g, scans = case16
+        calls = []
+        real = tfilt._filter_batch
+
+        def spy(proj, *args, **kwargs):
+            calls.append(proj.shape[0])
+            return real(proj, *args, **kwargs)
+
+        monkeypatch.setattr(tfilt, "_filter_batch", spy)
+        svc = service(max_batch=8)
+        tickets = [svc.submit(projections=p, geometry=g) for p in scans]
+        svc.plan_cache.resolve(tickets[0].family).build()(scans[0])
+        per_scan, calls[:] = list(calls), []
         svc.drain()
-        st = svc.stats()
-        assert (st["buckets"], st["padded_lanes"]) == (3, 0)
+        assert all(t.done for t in tickets)
+        assert per_scan and calls == per_scan * 5
+        svc.close()
+
+    def test_new_bucket_sizes_make_no_stages(self, case16, monkeypatch):
+        """Buckets of 1, then 3, then 5 scans of one family compose the
+        family plan's stages once: a bucket size not served before costs
+        no tuner pick, filter tables or projection matrices."""
+        from repro_torch.core.plan import ReconstructionPlan
+        g, scans = case16
+        clear_engine_cache()
+        made = []
+        real = ReconstructionPlan._make_stages
+
+        def spy(plan):
+            made.append(plan)
+            return real(plan)
+
+        monkeypatch.setattr(ReconstructionPlan, "_make_stages", spy)
+        svc = service(max_batch=8)
+        for n in (1, 3, 5):
+            tickets = [svc.submit(projections=p, geometry=g)
+                       for p in scans[:n]]
+            with lanes_run() as lanes:
+                svc.drain()
+            assert lanes == [n] and all(t.done for t in tickets)
+        assert made == [svc.plan_cache.resolve(tickets[0].family)]
         svc.close()
 
 
@@ -193,6 +260,9 @@ class TestAgainstTheJaxService:
 
     @pytest.mark.parametrize("max_batch", [1, 2, 8])
     def test_counts_match_the_jax_service(self, case16, max_batch):
+        """Submitted, served and bucket counts, the order and the planner
+        searches match; the reference's padded_lanes count has no
+        counterpart, since the port runs no pad lanes."""
         g, scans = case16
         pins_list = [{}, {"precision": "bf16"}]
         _, order, st = self._run(service(max_batch=max_batch), scans, g,
@@ -201,7 +271,7 @@ class TestAgainstTheJaxService:
             jservice.ReconstructionService(max_batch=max_batch), scans, JG,
             pins_list)
         assert order == jorder
-        for k in ("submitted", "served", "buckets", "padded_lanes"):
+        for k in ("submitted", "served", "buckets"):
             assert st[k] == jst[k], k
         assert st["plan_cache"]["searches"] == jst["plan_cache"]["searches"]
 

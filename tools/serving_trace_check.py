@@ -11,8 +11,8 @@ from the root of a checkout. Each mode is one run of the benchmark's cell
           `bench/run.py --trace 1`: the per-layer metrics, and per lane run
           the program's device stages beside the device trace —
           `bp.kernel` against the back-projection kernels' time; the
-          filter, relayout and `service.stack` against every other device
-          operation (`plan.nonbp_device_ms`); the lane copies' rate
+          filter and relayout against every other device operation
+          (`plan.nonbp_device_ms`); the lane copies' rate
           (`service.h2d_gbps`) against the HtoD copies' device rate — and
           the idle seconds by label;
   plain   no tracing, as `--trace 0`: the end-to-end metrics, the mean
@@ -40,11 +40,10 @@ RELAYOUT = ("bp.operands", "bp.unfold", "stage.reduce")
 
 
 def stage_sums(events):
-    """(lanes run, {stage: ms}) of the window's engine and bucket spans."""
+    """(lanes run, {stage: ms}) of the window's batched engine spans."""
     lanes, ms = 0, {}
     for e in events:
-        if e.get("ph") != "X" or e["name"] not in ("engine.batched",
-                                                   "service.bucket"):
+        if e.get("ph") != "X" or e["name"] != "engine.batched":
             continue
         args = e.get("args", {})
         lanes += args.get("lanes", 0)
@@ -92,8 +91,8 @@ def traced(reg, name, seed, seconds):
         "trace_nonbp_ms_per_lane": 1e3 * (device_s - kernel_s) / lanes
         if lanes else None,
         "inside_nonbp_ms_per_lane": sum(
-            ms.get(k, 0.0) for k in ("stage.filter", "service.stack")
-            + RELAYOUT) / lanes if lanes else None,
+            ms.get(k, 0.0) for k in ("stage.filter",) + RELAYOUT)
+        / lanes if lanes else None,
         "lane_copy_bytes": nbytes,
         "device_h2d_gbps": nbytes / h2d_s / 1e9 if h2d_s and nbytes
         else None,
