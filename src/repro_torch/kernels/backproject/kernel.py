@@ -17,12 +17,23 @@ tile of columns x k, loops over every projection with its accumulators in
 registers (each output element written once, no atomics, a fixed and
 deterministic summation order), and gathers the taps from the footprint
 boxes of Q^T that it stages in shared memory. `footprint_boxes` is that
-rule in plain torch. The boxes are staged with `RING` more pixels, zero
-where they leave the detector, and every gather is clamped into them with
-no test: one with no tap on the detector lands on ring zeros. A (tile,
-projection) whose boxes exceed the staging buffer is gathered from global
-memory inside the same kernel with the same arithmetic; the kernel counts
-them on the card.
+rule in plain torch. Where a box meets the detector's edge it is staged
+with `RING` more pixels, zeros, and every gather is clamped into the
+boxes with no test: one with no tap on the detector lands on ring zeros.
+Front and mirror boxes that lie side by side are staged as one, a copy a
+row. A (tile, projection) whose boxes, ringed on every side at one pitch,
+exceed half the staging budget is gathered from global memory inside the
+same kernel with the same arithmetic; the kernel counts them on the
+card.
+
+The staged projections flow through a ring of `records(tile)` stages
+with no block-wide barrier: each stage holds one projection's column
+terms and boxes, a warp waits only for the stage it gathers next, and the
+warps take turns making the stages ahead. Each projection's pixels are
+placed in the staging right after the previous one's, wrapping to its
+start, and copied once every warp is done with what was there, so the
+copies run as many steps ahead as the staging holds boxes (`ring_depths`
+computes each block's depth).
 
 The launch shape is (tile, staging bytes). The tile is a template
 parameter of the kernel, compiled for each of `TILES` (the library lists
@@ -37,12 +48,15 @@ lerps, a round-off apart); `backproject_dual` takes it only for tensors on
 the CPU. For a CUDA tensor it launches the kernel or raises.
 
 The launches count into the default metrics registry (obs/metrics.py):
-``kernels.backproject.launches`` every launch. The count of directly
-gathered pairs stays on the card unless the tracer is on: then each launch
-hands it, with its number of (tile, projection) pairs, to the enclosing
-fencing span (`obs.trace.device_count`), which reads it after its wait,
-carries both as its ``direct_pairs`` and ``tile_pairs`` args and advances
-``kernels.backproject.direct_pairs`` and ``kernels.backproject.tile_pairs``.
+``kernels.backproject.launches`` every launch. The kernel's two counts,
+the directly gathered (tile, projection) pairs and the ring waits (the
+(warp, projection) steps at which a warp found its stage not yet full),
+stay on the card unless the tracer is on: then each launch hands them,
+with its number of (tile, projection) pairs, to the enclosing fencing
+span (`obs.trace.device_count`), which reads them after its wait, carries
+them as its ``direct_pairs``, ``ring_waits`` and ``tile_pairs`` args and
+advances ``kernels.backproject.direct_pairs``, ``.ring_waits`` and
+``.tile_pairs``.
 
 The launch is the operator `torch.ops.repro_torch.backproject_dual_launch`
 (`backproject_dual_launch`): on fake tensors (a dry run,
@@ -84,9 +98,14 @@ WIRE_DTYPES = {
 TILES: Tuple[Tuple[int, int, int], ...] = (
     (8, 8, 128), (16, 8, 128), (16, 8, 64), (8, 8, 64))
 DEFAULT_TILE = TILES[0]
-PREP = 2          # projections whose terms and boxes are made at once
-# The default staging budget in Q^T pixels, both buffers (kStagePixels).
+# The default staging budget in Q^T pixels, all slots (kStagePixels).
 STAGE_PIXELS = 52 * 1024
+# Stage records a tile's kernel keeps (kMaxRecords, kSmemOptin): as many
+# as fit beside the default f32 staging in an H100 block's 227 KiB; a
+# record's table is made RECORDS - 1 steps ahead of its gathers.
+MAX_RECORDS = 8
+SMEM_OPTIN = 232_448
+TILE_BYTES = 48   # the block's shared launch values (kTileBytes)
 # Zero pixels staged around a footprint box where it meets the detector's
 # edge (kRing): the kernel clamps every gather into the box untested.
 RING = 2
@@ -105,6 +124,7 @@ PAIR_OPS = 35
 LAUNCHES = "kernels.backproject.launches"
 TILE_PAIRS = "kernels.backproject.tile_pairs"
 DIRECT_PAIRS = "kernels.backproject.direct_pairs"
+RING_WAITS = "kernels.backproject.ring_waits"
 
 _BOUND: Optional[ctypes.CDLL] = None
 
@@ -174,22 +194,33 @@ def default_stage_bytes(dtype: torch.dtype) -> int:
     return STAGE_PIXELS * dtype.itemsize
 
 
+def _record_bytes(t) -> int:
+    """A stage record (a float4 and an int per column, the 32-byte boxes,
+    the place of its pixels) and its two barriers."""
+    return 20 * t[0] * t[1] + 64
+
+
+def records(t) -> int:
+    """Stage records of a tile's kernel (the CUDA source's `records`)."""
+    return min(MAX_RECORDS, (SMEM_OPTIN - 4 * STAGE_PIXELS - TILE_BYTES)
+               // _record_bytes(t))
+
+
 def static_smem_bytes(t) -> int:
-    """Static shared memory of a tile's kernel: the column-term tables
-    (a float4 and an int per column, 2 x PREP projections) and the boxes
-    (32 bytes, 2 x PREP); `compiled_static_smem` reads it on the card."""
-    cols = t[0] * t[1]
-    return 2 * PREP * (cols * 20 + 32)
+    """Static shared memory of a tile's kernel: its stage records and the
+    block's launch values; `compiled_static_smem` reads it on the card."""
+    return records(t) * _record_bytes(t) + TILE_BYTES
 
 
 def _buf_elems(stage_bytes: int, itemsize: int) -> int:
-    """Elements per staging buffer: two buffers, each 16-byte aligned."""
+    """Elements in half the staging budget, a multiple of 16 bytes: the
+    largest box the kernel stages."""
     return stage_bytes // 2 // 16 * 16 // itemsize
 
 
 def smem_bytes(t, stage_bytes: Optional[int], dtype: torch.dtype) -> int:
-    """Shared memory of one block of a launch: the tile's static tables
-    plus the two staging buffers (`stage_bytes` None: the default)."""
+    """Shared memory of one block of a launch: the tile's static records
+    plus the staging (`stage_bytes` None: the default)."""
     if stage_bytes is None:
         stage_bytes = default_stage_bytes(dtype)
     return (static_smem_bytes(t)
@@ -362,14 +393,15 @@ def staging_stats(params13: torch.Tensor, nu: int, nv: int,
                   stage_bytes: Optional[int], dtype: torch.dtype) -> dict:
     """The kernel's staging decisions for one launch, over every (tile,
     projection) pair of the projections in `params13`: `direct` (gathered
-    from global memory: the boxes exceed a staging buffer, or z changes
-    sign over the tile; the kernel's `direct_pairs`), `staged` (boxes
-    copied to shared memory), `empty` (no tap on the detector), `pairs`
-    (all of them), `staged_bytes` (bytes the staged pairs copy, ring and
-    alignment included), `voxel_pairs` (mirrored voxel pairs of the
-    direct and staged (tile, projection)s) and `direct_voxel_pairs`.
+    from global memory: the two boxes, ringed on every side at one pitch,
+    exceed half the staging budget, or z changes sign over the tile; the
+    kernel's `direct_pairs`), `staged` (boxes copied to shared memory),
+    `empty` (no tap on the detector), `pairs` (all of them),
+    `staged_bytes` (bytes of the staged boxes, ring and alignment
+    included), `voxel_pairs` (mirrored voxel pairs of the direct and
+    staged (tile, projection)s) and `direct_voxel_pairs`.
 
-    The same rule as the kernel's `prepare` and `footprint_boxes`, made
+    The same rule as the kernel's `footprint` and `footprint_boxes`, made
     for all tiles at once from the tile corners' f32 coordinates, 32
     projections at a time. Q^T's start is taken to be 16-byte aligned, as
     torch allocates it."""
@@ -387,7 +419,76 @@ def staging_stats(params13: torch.Tensor, nu: int, nv: int,
     return out
 
 
+def ring_depths(params13: torch.Tensor, nu: int, nv: int,
+                nx: int, ny: int, nzh: int, t,
+                stage_bytes: Optional[int], dtype: torch.dtype
+                ) -> torch.Tensor:
+    """The depth of each block's ring, int64 (tiles along i, j, k): how
+    many steps ahead of its gathers the block's copies are issued at
+    worst, over its staged projections. The kernel's placement, replayed:
+    projection p's pixels (16-byte units) go right after p - 1's, or at
+    the start of the staging where they would pass its end; they are
+    copied at the end of the step of the newest projection whose pixels
+    overlap them, or of p - (records - 2), when its table is made,
+    whichever is later. A block with no staged projection reads
+    records - 2. From the same boxes as `staging_stats`."""
+    if stage_bytes is None:
+        stage_bytes = default_stage_bytes(dtype)
+    p = params13.to(torch.float32)
+    t = tuple(int(x) for x in t)
+    buf = _buf_elems(stage_bytes, dtype.itemsize)
+    gran = max(16 // dtype.itemsize, 1)
+    sizes = []
+    for lo in range(0, p.shape[0], 32):
+        b = _chunk_boxes(p[lo:lo + 32], nu, nv, nx, ny, nzh, t, buf,
+                         copy_elems(nv, dtype))
+        sizes.append(torch.where(b["staged"], (b["elems"] + gran - 1)
+                                 // gran * gran, 0))
+    size = torch.cat(sizes)
+    shape = size.shape[1:]
+    size = size.reshape(size.shape[0], -1)
+    rec = records(t)
+    lead = torch.full(size.shape[1:], rec - 2, dtype=torch.int64)
+    end = torch.zeros_like(lead)
+    offs, sizes = [], []
+    for q in range(size.shape[0]):
+        n = size[q]
+        off = torch.where(end + n > 2 * buf, 0, end)
+        wait = torch.full_like(lead, q - rec)
+        found = n == 0
+        for o in range(q - 1, max(q - rec, -1), -1):
+            hit = ~found & (sizes[o] > 0) & (offs[o] < off + n) \
+                & (off < offs[o] + sizes[o])
+            wait = torch.where(hit, o, wait)
+            found = found | hit
+        ahead = q - torch.clamp(wait, min=q - (rec - 2))
+        lead = torch.where(n > 0, torch.minimum(lead, ahead), lead)
+        offs.append(off)
+        sizes.append(n)
+        end = off + n
+    return lead.reshape(shape)
+
+
 def _staging_chunk(p, nu, nv, nx, ny, nzh, t, buf, vec, itemsize) -> dict:
+    b = _chunk_boxes(p, nu, nv, nx, ny, nzh, t, buf, vec)
+    direct, staged, nvox = b["direct"], b["staged"], b["nvox"]
+    return {
+        "direct": int(direct.sum()),
+        "staged": int(staged.sum()),
+        "empty": int((~direct & ~staged).sum()),
+        "pairs": int(direct.numel()),
+        "staged_bytes": int(torch.where(staged, b["elems"], 0).sum())
+        * itemsize,
+        "voxel_pairs": int(((direct | staged) * nvox).sum()),
+        "direct_voxel_pairs": int((direct * nvox).sum()),
+    }
+
+
+def _chunk_boxes(p, nu, nv, nx, ny, nzh, t, buf, vec) -> dict:
+    """The kernel's decisions for projections `p` on every tile: bool
+    (Np, tiles along i, j, k) `direct` and `staged`, the staged elements
+    of both boxes `elems` (2 rows x pitch), and the voxel pairs of each
+    tile `nvox`."""
     ti, tj, tk = t
     dev = p.device
     i_lo, i_hi = _edges(nx, ti, dev)
@@ -432,28 +533,40 @@ def _staging_chunk(p, nu, nv, nx, ny, nzh, t, buf, vec, itemsize) -> dict:
     rlo, rhi, zpos = rlo[..., None], rhi[..., None], zpos[..., None]
     front, mirror = cflo <= cfhi, cmlo <= cmhi
     nonempty = (rlo <= rhi) & (front | mirror)
+    # what is staged: both boxes with the ring on every side, at one
+    # pitch, no larger than half the budget
     rows = rhi - rlo + 1 + 2 * RING
-    past = (nv + vec) & -vec     # a side off the detector: zero columns
-    cf = torch.where(front, (cflo - RING) & -vec, past)
-    cm = torch.where(mirror, (cmlo - RING) & -vec, past)
-    width = torch.maximum(torch.where(front, cfhi + 1 + RING - cf, 0),
-                          torch.where(mirror, cmhi + 1 + RING - cm, 0))
-    pitch = (width + vec - 1) & -vec
-    fits = 2 * rows * pitch <= buf
+    width = torch.maximum(
+        torch.where(front, cfhi + 1 + RING - ((cflo - RING) & -vec), 0),
+        torch.where(mirror, cmhi + 1 + RING - ((cmlo - RING) & -vec), 0))
+    fits = 2 * rows * ((width + vec - 1) & -vec) <= buf
     direct = ~zpos | (nonempty & ~fits)
     staged = zpos & nonempty & fits
+    # the staged box: the ring only where it meets the detector's edge, a
+    # side off the detector staged from zero columns past it, and one box
+    # for both where it is no wider than the two
+    rows = (rhi + torch.where(rhi == nu - 1, RING, 0) + 1
+            - (rlo - torch.where(rlo == 0, RING, 0)))
+    past = (nv + vec) & -vec
+
+    def first(c):
+        return (c - torch.where(c == 0, RING, 0)) & -vec
+
+    def end(c):
+        return c + 1 + torch.where(c == nv - 1, RING, 0)
+
+    cf = torch.where(front, first(cflo), past)
+    cm = torch.where(mirror, first(cmlo), past)
+    wf = torch.where(front, end(cfhi) - cf, 0)
+    wm = torch.where(mirror, end(cmhi) - cm, 0)
+    pitch = (torch.maximum(wf, wm) + vec - 1) & -vec
+    both = (torch.maximum(cf + wf, cm + wm) - torch.minimum(cf, cm) + vec
+            - 1) & -vec
+    one = front & mirror & (both <= 2 * pitch)
+    elems = torch.where(one, rows * both, 2 * rows * pitch)
     nvox = ((i_hi - i_lo + 1)[:, None, None] * (j_hi - j_lo + 1)[None, :, None]
             * (k_hi - k_lo + 1)[None, None, :])
-    return {
-        "direct": int(direct.sum()),
-        "staged": int(staged.sum()),
-        "empty": int((~direct & ~staged).sum()),
-        "pairs": int(direct.numel()),
-        "staged_bytes": int(torch.where(staged, 2 * rows * pitch, 0).sum())
-        * itemsize,
-        "voxel_pairs": int(((direct | staged) * nvox).sum()),
-        "direct_voxel_pairs": int((direct * nvox).sum()),
-    }
+    return {"direct": direct, "staged": staged, "elems": elems, "nvox": nvox}
 
 
 def backproject_dual(params13: torch.Tensor, qt: torch.Tensor,
@@ -467,9 +580,9 @@ def backproject_dual(params13: torch.Tensor, qt: torch.Tensor,
     is the kernel's shared-memory staging budget (None: the CUDA source's
     default); a (tile, projection) whose boxes exceed half of it is
     gathered from global memory with the same arithmetic, and counted on
-    the card (read at a traced fence, see the module docstring). With 0,
-    every projection is gathered so. A launch shape the card refuses (too
-    much shared memory) raises."""
+    the card, as are the ring's waits (both read at a traced fence, see
+    the module docstring). With 0, every projection is gathered so. A
+    launch shape the card refuses (too much shared memory) raises."""
     _check(params13, qt, nx, ny, nz)
     t = DEFAULT_TILE if tile is None else tuple(int(x) for x in tile)
     t_index = _tile_index(t)
@@ -479,14 +592,15 @@ def backproject_dual(params13: torch.Tensor, qt: torch.Tensor,
         if qt.device.type == "cpu":
             return backproject_dual_torch(params13, qt, nx, ny, nz)
         raise ValueError(f"no back-projection kernel for device {qt.device}")
-    out, direct = backproject_dual_launch(
+    out, counts = backproject_dual_launch(
         params13.contiguous(), qt.contiguous(), nx, ny, nz, t_index,
         -1 if stage_bytes is None else stage_bytes)
     pairs = qt.shape[0] * math.prod(-(-n // d) for n, d in
                                     zip((nx, ny, nz // 2), t))
     device_count("tile_pairs", pairs, TILE_PAIRS)
-    if not is_fake(direct):    # a dry run's launch counts nothing
-        device_count("direct_pairs", direct, DIRECT_PAIRS)
+    if not is_fake(counts):    # a dry run's launch counts nothing
+        device_count("direct_pairs", counts[:1], DIRECT_PAIRS)
+        device_count("ring_waits", counts[1:], RING_WAITS)
     return out
 
 
@@ -498,15 +612,15 @@ def backproject_dual_launch(params13: torch.Tensor, qt: torch.Tensor,
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's launch as a PyTorch operator (checked, contiguous
     operands; stage_bytes -1 for the source's default): the volume, and
-    the count of directly gathered (tile, projection) pairs as a 1-element
-    int64 tensor. A fake tensor gets both shapes from the fake
-    implementation below, without the library, and a FlopCounterMode the
-    count of `backproject_ops`."""
+    its counts as a 2-element int64 tensor, the directly gathered (tile,
+    projection) pairs and the ring waits. A fake tensor gets both shapes
+    from the fake implementation below, without the library, and a
+    FlopCounterMode the count of `backproject_ops`."""
     lib = _bound_library()
     n_p, nu, nv = qt.shape
     out = torch.empty((nx, ny, 2, nz // 2), dtype=torch.float32,
                       device=qt.device)
-    count = torch.zeros(1, dtype=torch.int64, device=qt.device)
+    count = torch.zeros(2, dtype=torch.int64, device=qt.device)
     with torch.cuda.device(qt.device):
         stream = torch.cuda.current_stream(qt.device).cuda_stream
         rc = lib.bp_dual_launch(params13.data_ptr(), qt.data_ptr(),
@@ -525,7 +639,7 @@ def backproject_dual_launch(params13: torch.Tensor, qt: torch.Tensor,
 @backproject_dual_launch.register_fake
 def _(params13, qt, nx, ny, nz, tile_index, stage_bytes):
     return (qt.new_empty((nx, ny, 2, nz // 2), dtype=torch.float32),
-            qt.new_empty((1,), dtype=torch.int64))
+            qt.new_empty((2,), dtype=torch.int64))
 
 
 def backproject_ops(n_p: int, nx: int, ny: int, nz: int) -> int:

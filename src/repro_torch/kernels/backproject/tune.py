@@ -3,14 +3,14 @@
 Port of `repro/kernels/backproject/tune.py`. The Pallas kernel's search
 space was its (bi, bj, bs) block under a VMEM budget. This kernel's launch
 shape is (tile, staging bytes): the tile, a template parameter compiled
-for each of `kernel.TILES`, and the bytes of the two shared-memory buffers
-that stage the tiles' footprint boxes (0: every projection gathered from
-global memory). The tuner
+for each of `kernel.TILES`, and the bytes of shared memory whose slots
+stage the tiles' footprint boxes, a ring of projections (0: every
+projection gathered from global memory). The tuner
 
   1. enumerates candidates: every compiled tile x the staging budgets
      `STAGE_PIXELS` (in Q^T pixels of the wire dtype, the source's default
      among them), pruned against a per-block SHARED-MEMORY budget with
-     `smem_bytes` (the tile's static tables plus the two buffers; a
+     `smem_bytes` (the tile's static stage records plus the staging; a
      narrow wire type stages more pixels in the same bytes);
   2. ranks the survivors with the kernel's own staging rule
      (`kernel.staging_stats`, the footprint boxes of `footprint_boxes`)
@@ -75,14 +75,19 @@ _KEY_TAG = "hopper-2"
 
 # _model_cost weights, ms per 1e9 voxel pairs: a staged pair, by tile (a
 # tile sets how many values of k a lane shares its column's terms over,
-# and how many pairs share a (tile, projection) step's barrier, tables and
+# and how many pairs share a (tile, projection) step's stage record and
 # copies), and a pair gathered directly from global memory. Fitted
 # (non-negative least squares on the relative error) to the four tiles'
 # times at the default staging and the default tile's at staging budgets
 # 0, 13 Ki and 26 Ki pixels, at RabbitCT 512^3, 1024^3 and the delta shape
 # (62 projections), f32 and fp16: 42 times on an H100 80GB HBM3 at 700 W
 # (PERF.md §6). They predict each within 17 % and put the measured
-# fastest launch first at each shape and wire type, by 5.5-10 %.
+# fastest launch first at each shape and wire type, by 5.5-10 %. Against
+# the ring kernel's 24 times at the default staging (the four tiles at the
+# three shapes, f32 and fp16) the picks hold at 512^3 and the delta (the
+# fastest, or within 0.5 % of it); at 1024^3 (16, 8, 128) stays the pick,
+# 3.3 % behind (8, 8, 128) in f32 and 4.9 % ahead of it in fp16, which
+# weights per tile cannot tell apart, so they were not refitted.
 _W_STAGED = {(8, 8, 128): 3.231, (16, 8, 128): 2.927, (16, 8, 64): 3.557,
              (8, 8, 64): 4.439}
 _W_DIRECT = 8.076

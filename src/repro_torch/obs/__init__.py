@@ -35,8 +35,8 @@ the tracer on:
                            device_ms {"stage.filter", "filter.kernel",
                            "stage.backproject", "bp.operands", "bp.kernel",
                            "bp.unfold", "stage.reduce"} summed over its
-                           lanes, and direct_pairs / tile_pairs of its
-                           kernel launches
+                           lanes, and direct_pairs / ring_waits /
+                           tile_pairs of its kernel launches
   service.stream.fold      one delta of an open stream folded into its
                            session (`open_stream`/`push`): args scan_id,
                            lo, hi, final (the fold that completes the
@@ -55,8 +55,8 @@ The service counts streams in its own registry:
 service.streams.opened and service.stream.deltas (deltas folded).
 
 The kernels count into the default registry: kernels.backproject.launches,
-.tile_pairs and .direct_pairs (the last two for launches read at a
-traced fence), kernels.attention.launches and .window_launches, and
+.tile_pairs, .direct_pairs and .ring_waits (the last three for launches
+read at a traced fence), kernels.attention.launches and .window_launches, and
 kernels.filter.launches and .rows (the detector rows each launch
 filtered: every filter_fn call on the card is one launch).
 

@@ -329,19 +329,44 @@ def integer_landing_params():
     return torch.tensor([r + [1.0] for r in rows], dtype=torch.float32)
 
 
+def _staged_box(row, nu, nv, vec):
+    """The kernel's staged box for a footprint row (rows, front and mirror
+    columns, inclusive): its first row and rows, the first columns of the
+    front and mirror boxes and their pitch. `RING` pixels more where the
+    box meets the detector's edge, a side with no pixel on the detector
+    taken from columns past it, starts aligned down to the copy width; front
+    and mirror side by side share one box (both start at its first column)
+    where it is no wider than the two."""
+    rlo, rhi, cfl, cfh, cml, cmh = row
+    ring = tker.RING
+    front, mirror = cfl <= cfh, cml <= cmh
+    brlo = rlo - (ring if rlo == 0 else 0)
+    rows = rhi + (ring if rhi == nu - 1 else 0) + 1 - brlo
+    past = (nv + vec) & -vec
+    cf = (cfl - (ring if cfl == 0 else 0)) & -vec if front else past
+    cm = (cml - (ring if cml == 0 else 0)) & -vec if mirror else past
+    wf = cfh + 1 + (ring if cfh == nv - 1 else 0) - cf if front else 0
+    wm = cmh + 1 + (ring if cmh == nv - 1 else 0) - cm if mirror else 0
+    pitch = -(-max(wf, wm) // vec) * vec
+    both = -(-(max(cf + wf, cm + wm) - min(cf, cm)) // vec) * vec
+    if front and mirror and both <= 2 * pitch:
+        cf = cm = min(cf, cm)
+        pitch = both
+    return brlo, rows, cf, cm, pitch
+
+
 def _staged_gather(params, qt, shape, t):
     """The kernel's staged gather loop on the CPU: for each tile and
     projection, the front and mirror boxes staged as the kernel stages them
-    (footprint boxes widened by `RING` pixels, zero off the detector, a
-    side with no pixel on the detector taken from columns past it, starts
-    aligned down to the copy width), every gather's row and column clamped
-    into the box with no test, three lerps, w times the sum. The dual-slab
-    volume; every (tile, projection) is staged (no buffer limit)."""
+    (`_staged_box`: zero off the detector), every gather's row and column
+    clamped into its box with no test, three lerps, w times the sum. The
+    dual-slab volume; every (tile, projection) is staged (no buffer
+    limit)."""
     nx, ny, nz = shape
     n_p, nu, nv = qt.shape
-    nzh, ring = nz // 2, tker.RING
+    nzh = nz // 2
     vec = tker.copy_elems(nv, qt.dtype)
-    q = torch.zeros((n_p, nu + 8, nv + 8 + 2 * vec))  # zero outside
+    q = torch.zeros((n_p, nu + 8, 2 * nv + 8 + 2 * vec))  # zero outside
     q[:, 4:4 + nu, 4 + vec:4 + vec + nv] = qt.float()
     out = torch.zeros((nx, ny, 2, nzh))
     vmax = float(nv - 1)
@@ -363,13 +388,8 @@ def _staged_gather(params, qt, shape, t):
                     if rlo > rhi or not (front or mirror):
                         continue
                     p = params[s].tolist()
-                    brlo, rows = rlo - ring, rhi - rlo + 1 + 2 * ring
-                    past = (nv + vec) & -vec
-                    cf = (cfl - ring) & -vec if front else past
-                    cm = (cml - ring) & -vec if mirror else past
-                    pitch = -(-max(cfh + 1 + ring - cf if front else 0,
-                                   cmh + 1 + ring - cm if mirror else 0)
-                              // vec) * vec
+                    brlo, rows, cf, cm, pitch = _staged_box(
+                        (rlo, rhi, cfl, cfh, cml, cmh), nu, nv, vec)
                     x0 = p[0] * i + p[1] * j + p[3]
                     y0 = p[4] * i + p[5] * j + p[7]
                     f = 1.0 / (p[8] * i + p[9] * j + p[11])
@@ -396,18 +416,29 @@ def _staged_gather(params, qt, shape, t):
     return out
 
 
+# A volume tall in z for its 8 x 8 columns (130 k's a half), v moving ~2
+# pixels a step of k: the outer k tiles' front and mirror boxes lie far
+# apart and are staged as two, the middle ones side by side as one.
+TALL = jgeo.CBCTGeometry(
+    n_proj=3, n_u=24, n_v=600, d_u=0.1, d_v=0.025, d=4.0, dsd=8.0,
+    n_x=8, n_y=8, n_z=260, d_x=0.1, d_y=0.1, d_z=0.025)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
 @pytest.mark.parametrize("tile", tker.TILES)
 @pytest.mark.parametrize("name", ["default_geometry(16)", "shifted detector",
-                                  "integer landings"])
+                                  "integer landings", "tall volume"])
 def test_staged_gather_needs_no_bound_tests(name, tile, dtype):
-    """The kernel's staged loop, with the ring of zeros and the clamps in
-    place of bound tests, gives the plain version's sums: a gather with no
-    tap on the detector lands on zeros wherever its clamp puts it."""
+    """The kernel's staged loop, with the ring of zeros where a box meets
+    the detector's edge, front and mirror side by side in one box, and the
+    clamps in place of bound tests, gives the plain version's sums: a
+    gather with no tap on the detector lands on zeros wherever its clamp
+    puts it."""
     if name == "integer landings":
         params, nu, nv, shape = integer_landing_params(), 20, 16, (12, 10, 24)
     else:
-        g, pm = _footprint_case(name)
+        g, pm = ((TALL, np.asarray(jgeo.projection_matrices(TALL)))
+                 if name == "tall volume" else _footprint_case(name))
         params = torch.from_numpy(_params13(pm, None))
         nu, nv, shape = g.n_u, g.n_v, (g.n_x, g.n_y, g.n_z)
     qt = torch.randn((params.shape[0], nu, nv),

@@ -61,9 +61,9 @@ def counted(name):
 
 def launch_counts(fn):
     """fn() in one fenced span of an enabled tracer, whose fence reads the
-    back-projection launches' direct counts: its result, and how far it
-    advanced the registry's `kernels.backproject.*` counters."""
-    names = (bpk.LAUNCHES, bpk.TILE_PAIRS, bpk.DIRECT_PAIRS)
+    back-projection launches' direct and ring-wait counts: its result, and
+    how far it advanced the registry's `kernels.backproject.*` counters."""
+    names = (bpk.LAUNCHES, bpk.TILE_PAIRS, bpk.DIRECT_PAIRS, bpk.RING_WAITS)
     before = [counted(n) for n in names]
     tracer = Tracer(enabled=True)
     prev = set_tracer(tracer)
@@ -74,8 +74,9 @@ def launch_counts(fn):
         set_tracer(prev)
     moved = {n.rsplit(".", 1)[1]: counted(n) - b
              for n, b in zip(names, before)}
-    assert (sp.args.get("direct_pairs", 0), sp.args.get("tile_pairs", 0)) \
-        == (moved["direct_pairs"], moved["tile_pairs"])
+    assert (sp.args.get("direct_pairs", 0), sp.args.get("tile_pairs", 0),
+            sp.args.get("ring_waits", 0)) \
+        == (moved["direct_pairs"], moved["tile_pairs"], moved["ring_waits"])
     return out, moved
 
 
@@ -284,6 +285,97 @@ def test_every_tile_in_both_stride_regimes_and_at_whole_pixels(
                               shape[2] // 2, t, stage_bytes, qt.dtype)
     assert moved["direct_pairs"] == model["direct"]
     assert moved["tile_pairs"] == model["pairs"]
+
+
+# One block of the default tile (8 x 8 columns, 33 < 128 values of k) and
+# 24 projections, so that every ring wraps.
+RING_G = CBCTGeometry(n_proj=24, n_u=48, n_v=140, d_u=0.1, d_v=0.05, d=4.0,
+                      dsd=8.0, n_x=8, n_y=8, n_z=66, d_x=0.1, d_y=0.1,
+                      d_z=0.02)
+
+
+def _ring_operands(cuda, codec, g):
+    q = torch.randn((g.n_proj, g.n_v, g.n_u),
+                    generator=torch.Generator().manual_seed(11))
+    data, scales = CODECS[codec].encode(q.to(cuda))
+    return kernel_operands(projection_matrices(g), data, scales)
+
+
+@pytest.mark.parametrize("codec", ["fp32", "fp16", "fp8_e4m3"])
+def test_ring_depth_does_not_change_a_bit(cuda, codec):
+    """Staging budgets at which the ring's copies run 1, 2, 3 and 4 steps
+    ahead at worst (`ring_depths`), none of them gathering a projection
+    directly: the same volume to the bit (the sum order does not follow
+    the depth), within the plain version's bound.
+    The wire types take bulk copies (f32), 8-byte (fp16) and 4-byte
+    (fp8) cp.async copies at this detector's pitch."""
+    g = RING_G
+    shape = (g.n_x, g.n_y, g.n_z)
+    params, qt = _ring_operands(cuda, codec, g)
+    t = bpk.DEFAULT_TILE
+    budgets = {}
+    for px in range(256, 16384, 64):
+        sb = px * qt.element_size()
+        args = (params.cpu(), g.n_u, g.n_v, *shape[:2], g.n_z // 2, t, sb,
+                qt.dtype)
+        depth = bpk.ring_depths(*args).unique().tolist()
+        if len(depth) == 1 and bpk.staging_stats(*args)["direct"] == 0:
+            budgets.setdefault(depth[0], sb)
+    assert {1, 2, 3, 4} <= set(budgets)
+    vols = []
+    for d in (1, 2, 3, 4):
+        got, moved = launch_counts(lambda: bpk.backproject_dual(
+            params, qt, *shape, tile=t, stage_bytes=budgets[d]))
+        assert moved["direct_pairs"] == 0
+        vols.append(got)
+    want = bpk.backproject_dual_torch(params, qt, *shape)
+    torch.cuda.synchronize()
+    assert all(torch.equal(vols[0], v) for v in vols[1:])
+    assert float((vols[0] - want).abs().max() / want.abs().max()) <= REL
+
+
+@pytest.mark.parametrize("t", bpk.TILES)
+@pytest.mark.parametrize("codec", sorted(CODECS))
+def test_every_tile_through_a_wrapping_ring_with_direct_gathers(cuda, codec,
+                                                                t):
+    """Every tile and wire type over 20 projections with a budget that
+    stages some (tile, projection)s and gathers others directly: every
+    record is used at least twice, the staging wraps, and the sums are
+    the plain version's."""
+    g = dataclasses.replace(STRIDES["2px"][0], n_proj=20)
+    shape = (g.n_x, g.n_y, g.n_z)
+    params, qt = _ring_operands(cuda, codec, g)
+    sb = _mixed_stage_bytes(params, g.n_u, g.n_v, shape, t, qt.dtype)
+    assert sb is not None
+    assert g.n_proj > 2 * bpk.records(t)
+    got, moved = launch_counts(lambda: bpk.backproject_dual(
+        params, qt, *shape, tile=t, stage_bytes=sb))
+    want = bpk.backproject_dual_torch(params, qt, *shape)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max() / want.abs().max()) <= REL
+    model = bpk.staging_stats(params, g.n_u, g.n_v, *shape[:2], g.n_z // 2,
+                              t, sb, qt.dtype)
+    assert moved["direct_pairs"] == model["direct"] > 0
+    assert model["staged"] > 0
+
+
+@pytest.mark.parametrize("stage_bytes", [None, 0])
+def test_ring_waits_are_read_at_the_fence(cuda, stage_bytes):
+    """The kernel's ring waits reach the fencing span's `ring_waits` arg
+    and the registry, and count at most one a (warp, projection) step."""
+    g = dataclasses.replace(STRIDES["2px"][0], n_proj=20)
+    shape = (g.n_x, g.n_y, g.n_z)
+    params, qt = _ring_operands(cuda, "fp32", g)
+    tracer = Tracer(enabled=True)
+    prev = set_tracer(tracer)
+    try:
+        with tracer.span("test.ring") as sp:
+            sp.fence(bpk.backproject_dual(params, qt, *shape,
+                                          stage_bytes=stage_bytes))
+    finally:
+        set_tracer(prev)
+    assert "ring_waits" in sp.args
+    assert 0 <= sp.args["ring_waits"] <= 32 * sp.args["tile_pairs"]
 
 
 @pytest.mark.parametrize("codec", ["fp32", "fp16"])

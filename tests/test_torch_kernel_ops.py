@@ -84,7 +84,7 @@ def test_backprojection_operator_on_fake_tensors(device, dtype):
     count to read); `launches` and the library untouched."""
     n_p, nu, nv, nx, ny, nz = 6, 40, 24, 16, 12, 20
     reg = default_registry()
-    names = (bpk.LAUNCHES, bpk.TILE_PAIRS, bpk.DIRECT_PAIRS)
+    names = (bpk.LAUNCHES, bpk.TILE_PAIRS, bpk.DIRECT_PAIRS, bpk.RING_WAITS)
     before = [reg.value(n) for n in names]
     bound = bpk._BOUND
     tracer = trace.Tracer(enabled=True)
@@ -106,9 +106,50 @@ def test_backprojection_operator_on_fake_tensors(device, dtype):
     assert fc.get_total_flops() == want
     pairs = n_p * math.ceil(nx / 16) * math.ceil(ny / 8) \
         * math.ceil(nz // 2 / 64)
-    assert [reg.value(n) - b for n, b in zip(names, before)] == [0, pairs, 0]
+    assert [reg.value(n) - b for n, b in zip(names, before)] == \
+        [0, pairs, 0, 0]
     assert bpk._BOUND is bound
     assert sp.args["tile_pairs"] == pairs and "direct_pairs" not in sp.args
+    assert "ring_waits" not in sp.args
+
+
+@pytest.mark.parametrize("traced", [True, False])
+def test_backprojection_counts_reach_the_fence(monkeypatch, traced):
+    """The launch's 2-element count (directly gathered pairs, ring waits),
+    here made up for a launch that never runs: under a traced fence it
+    becomes the span's `direct_pairs` and `ring_waits` args beside
+    `tile_pairs`, and advances the registry's counters by the same; with
+    the tracer off nothing is read or counted."""
+    n_p, nu, nv, nx, ny, nz = 5, 40, 24, 16, 12, 20
+    counts = torch.tensor([3, 41], dtype=torch.int64)
+
+    def launch(params, qt, nx_, ny_, nz_, tile_index, stage_bytes):
+        assert (tile_index, stage_bytes) == (0, -1)
+        return torch.zeros((nx_, ny_, 2, nz_ // 2)), counts
+
+    monkeypatch.setattr(bpk, "on_card", lambda x: True)
+    monkeypatch.setattr(bpk, "backproject_dual_launch", launch)
+    reg = default_registry()
+    names = (bpk.TILE_PAIRS, bpk.DIRECT_PAIRS, bpk.RING_WAITS)
+    before = [reg.value(n) for n in names]
+    tracer = trace.Tracer(enabled=traced)
+    prev = trace.set_tracer(tracer)
+    try:
+        with tracer.span("launch") as sp:
+            vol = bpk.backproject_dual(torch.zeros(n_p, 13),
+                                       torch.zeros(n_p, nu, nv), nx, ny, nz)
+            sp.fence(vol)
+    finally:
+        trace.set_tracer(prev)
+    pairs = n_p * math.prod(-(-n // d) for n, d in
+                            zip((nx, ny, nz // 2), bpk.DEFAULT_TILE))
+    moved = [reg.value(n) - b for n, b in zip(names, before)]
+    if traced:
+        assert (sp.args["tile_pairs"], sp.args["direct_pairs"],
+                sp.args["ring_waits"]) == (pairs, 3, 41)
+        assert moved == [pairs, 3, 41]
+    else:
+        assert moved == [0, 0, 0]
 
 
 def test_real_cpu_tensors_run_the_plain_versions():

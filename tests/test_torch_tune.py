@@ -166,10 +166,33 @@ class TestModelPicks:
         assert cfg.as_tuple() == (want, bpk.default_stage_bytes(dtype))
 
 
+def _staged_elems(row, nu, nv, vec):
+    """The kernel's staged box for one footprint row of `footprint_boxes`
+    (rows, front and mirror columns, each inclusive): the ring only where
+    it meets the detector's edge, a side off the detector staged from
+    zero columns past it, and one box for both halves where it is no
+    wider than the two; its elements."""
+    rlo, rhi, cfl, cfh, cml, cmh = row
+    ring = bpk.RING
+    rows = rhi + (ring if rhi == nu - 1 else 0) + 1 \
+        - (rlo - (ring if rlo == 0 else 0))
+    past = (nv + vec) & -vec
+    front, mirror = cfl <= cfh, cml <= cmh
+    cf = (cfl - (ring if cfl == 0 else 0)) & -vec if front else past
+    cm = (cml - (ring if cml == 0 else 0)) & -vec if mirror else past
+    wf = cfh + 1 + (ring if cfh == nv - 1 else 0) - cf if front else 0
+    wm = cmh + 1 + (ring if cmh == nv - 1 else 0) - cm if mirror else 0
+    pitch = (max(wf, wm) + vec - 1) & -vec
+    both = (max(cf + wf, cm + wm) - min(cf, cm) + vec - 1) & -vec
+    if front and mirror and both <= 2 * pitch:
+        return rows * both
+    return 2 * rows * pitch
+
+
 class TestStagingModel:
     """`staging_stats`, the tuner's model, is the kernel's staging rule:
     tile by tile it agrees with `footprint_boxes` and the kernel's box
-    arithmetic (`prepare` in csrc/backproject.cu)."""
+    arithmetic (`footprint` in csrc/backproject.cu)."""
 
     @staticmethod
     def _brute(params, g, t, stage_bytes, dtype):
@@ -202,8 +225,8 @@ class TestStagingModel:
                             out["direct"] += 1
                         elif nonempty:
                             out["staged"] += 1
-                            out["staged_bytes"] += (2 * rows * pitch
-                                                    * dtype.itemsize)
+                            out["staged_bytes"] += _staged_elems(
+                                row, g.n_u, g.n_v, vec) * dtype.itemsize
                         else:
                             out["empty"] += 1
         return out
@@ -224,10 +247,95 @@ class TestStagingModel:
         assert got["pairs"] == got["direct"] + got["staged"] + got["empty"]
 
     def test_smem_model(self):
-        assert bpk.static_smem_bytes((8, 8, 64)) == 80 * 64 + 128
+        # 8 records of 64 columns (a float4 and an int each, the 32-byte
+        # boxes, the place of the pixels, two 8-byte barriers), 7 of 128,
+        # and the block's 48 bytes of launch values
+        assert bpk.records((8, 8, 64)) == 8 and bpk.records((16, 8, 64)) == 7
+        assert bpk.static_smem_bytes((8, 8, 64)) == 8 * (20 * 64 + 64) + 48
+        assert bpk.static_smem_bytes((16, 8, 128)) == \
+            7 * (20 * 128 + 64) + 48
         assert bpk.smem_bytes((8, 8, 64), None, torch.float32) == \
-            80 * 64 + 128 + bpk.STAGE_PIXELS * 4
-        assert bpk.smem_bytes((8, 8, 64), 0, torch.float16) == 80 * 64 + 128
+            8 * (20 * 64 + 64) + 48 + bpk.STAGE_PIXELS * 4
+        assert bpk.smem_bytes((8, 8, 64), 0, torch.float16) == \
+            8 * (20 * 64 + 64) + 48
+
+    @pytest.mark.parametrize("t", bpk.TILES)
+    def test_records_fill_the_block_beside_the_default_staging(self, t):
+        """Every tile's kernel fits an H100 block at the default f32
+        staging, and one record more would not, unless it has the most."""
+        per = 20 * t[0] * t[1] + 64
+        used = bpk.smem_bytes(t, None, torch.float32)
+        assert used <= tune.DEFAULT_SMEM_BUDGET
+        assert bpk.records(t) == bpk.MAX_RECORDS or \
+            used + per > tune.DEFAULT_SMEM_BUDGET
+
+    @staticmethod
+    def _brute_depths(params, g, t, stage_bytes, dtype):
+        """Each tile's ring depth, tile by tile and projection by
+        projection from `footprint_boxes`: each staged box (in 16-byte
+        units) placed after the previous one or at the staging's start,
+        and copied after the newest overlapping one's release, at most
+        records - 2 steps ahead; the fewest steps over the tile's boxes."""
+        nzh = g.n_z // 2
+        vec = bpk.copy_elems(g.n_v, dtype)
+        buf = bpk._buf_elems(bpk.default_stage_bytes(dtype)
+                             if stage_bytes is None else stage_bytes,
+                             dtype.itemsize)
+        gran = max(16 // dtype.itemsize, 1)
+        rec = bpk.records(t)
+        out = []
+        for i0 in range(0, g.n_x, t[0]):
+            for j0 in range(0, g.n_y, t[1]):
+                for k0 in range(0, nzh, t[2]):
+                    hi = (min(i0 + t[0], g.n_x) - 1,
+                          min(j0 + t[1], g.n_y) - 1, min(k0 + t[2], nzh) - 1)
+                    boxes, zpos = bpk.footprint_boxes(
+                        params, g.n_u, g.n_v, (i0, j0, k0), hi)
+                    placed, end, depth = [], 0, rec - 2
+                    for p, (row, zp) in enumerate(zip(boxes.tolist(),
+                                                      zpos.tolist())):
+                        rlo, rhi, cfl, cfh, cml, cmh = row
+                        front, mirror = cfl <= cfh, cml <= cmh
+                        ring = bpk.RING
+                        past = (g.n_v + vec) & -vec
+                        cf = (cfl - ring) & -vec if front else past
+                        cm = (cml - ring) & -vec if mirror else past
+                        width = max(cfh + 1 + ring - cf if front else 0,
+                                    cmh + 1 + ring - cm if mirror else 0)
+                        elems = 2 * (rhi - rlo + 1 + 2 * ring) * (
+                            (width + vec - 1) & -vec)
+                        n = 0
+                        if zp and rlo <= rhi and (front or mirror) \
+                                and elems <= buf:
+                            n = -(-_staged_elems(row, g.n_u, g.n_v, vec)
+                                  // gran) * gran
+                        off = 0 if end + n > 2 * buf else end
+                        if n:
+                            wait = p - rec
+                            for q in range(p - 1, max(p - rec, -1), -1):
+                                o, m = placed[q]
+                                if m and o < off + n and off < o + m:
+                                    wait = q
+                                    break
+                            depth = min(depth, p - max(wait, p - rec + 2))
+                        placed.append((off, n))
+                        end = off + n
+                    out.append(depth)
+        return out
+
+    @pytest.mark.parametrize("stage_bytes", [None, 3000, 1200])
+    @pytest.mark.parametrize("t", bpk.TILES)
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+    def test_ring_depths_match_the_footprint_rule(self, t, stage_bytes,
+                                                  dtype):
+        g = default_geometry(20, n_proj=6)
+        params, _ = kernel_operands(
+            projection_matrices(g), torch.zeros(g.proj_shape()))
+        got = bpk.ring_depths(params, g.n_u, g.n_v, g.n_x, g.n_y,
+                              g.n_z // 2, t, stage_bytes, dtype)
+        assert got.flatten().tolist() == \
+            self._brute_depths(params, g, t, stage_bytes, dtype)
+        assert 1 <= int(got.min()) <= int(got.max()) < bpk.records(t)
 
 
 class TestFileBackedCache:

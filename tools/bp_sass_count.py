@@ -1,19 +1,25 @@
 """Instructions of the back-projector's staged gather loop, per voxel pair.
 
     PYTHONPATH=src python3 tools/bp_sass_count.py [--source CU]
+    python3 tools/bp_sass_count.py --sass LISTING [--log PTXAS_LOG]
 
 Builds the back-projection library (`kernels/backproject/csrc/backproject.cu`,
 or another revision of it given by `--source`) with the port's nvcc flags,
 disassembles it with `cuobjdump -sass` and, for each `bp_dual_kernel`
-instance, finds the staged gather loop: the densest run of shared-memory
-tap loads (`LDS` that is not a 64- or 128-bit table read) that holds no
-global load or copy, widened to the basic blocks around it. Its
+instance, finds the staged gather: the basic block (cut at branches and
+at branch targets) with the most shared-memory tap loads (`LDS` that is
+not a 64- or 128-bit table read) and no global load, copy or shared
+store -- the unrolled gathers of one (warp, projection) step. Its
 instructions are counted by class and divided by the mirrored voxel pairs
-one pass of it gathers a thread, (TI TJ / warps) x (TK / 32), the tile
-read from the instance's template arguments and the warps from the
-source's `kWarps`. Prints one row per instance, with the registers and
-spill bytes of nvcc's `-Xptxas -v` report. Needs nvcc and cuobjdump (the
-card's machine); imports neither JAX nor the JAX package.
+it gathers a thread, (TI TJ / warps) x (TK / 32), the tile read from the
+instance's template arguments and the warps from the source's `kWarps`.
+The step's synchronisation (a block-wide `BAR`, or the ring's `SYNCS`
+mbarrier waits and arrivals) lies outside the block and is not counted.
+Prints one row per instance, with the registers and spill bytes of nvcc's
+`-Xptxas -v` report. Needs nvcc and cuobjdump (the
+card's machine), unless `--sass` reads a saved `cuobjdump -sass` listing
+(and `--log` the build's ptxas report, the library's `.log` beside it);
+imports neither JAX nor the JAX package.
 """
 from __future__ import annotations
 
@@ -53,7 +59,6 @@ INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)"
                   r"([^;]*);")
 FUNC = re.compile(r"Function : (\S+)")
 NAME = re.compile(r"bp_dual_kernel(I.*?)EEv")
-GAP = 128     # tap loads further apart than this (instructions) split runs
 
 
 def instance(mangled: str):
@@ -89,45 +94,32 @@ def is_tap_load(op: str) -> bool:
     return op.startswith("LDS") and not (".64" in op or ".128" in op)
 
 
+BRANCHES = ("BRA", "BRX", "JMP", "EXIT", "RET", "CALL", "BREAK")
+
+
 def staged_loop(insns):
-    """Index range [lo, hi) of the staged gather loop in `insns`: of the
-    runs of tap loads (split where two loads lie more than GAP
-    instructions apart) that hold no global load or copy, the one with the
-    most, widened back to the branch target that enters it and on to the
-    barrier, the backward branch or the unconditional branch that leaves
-    it."""
-    taps = [n for n, (_, _, op, _) in enumerate(insns) if is_tap_load(op)]
-    if not taps:
-        return None
-    runs, start = [], taps[0]
-    for a, b in zip(taps, taps[1:]):
-        if b - a > GAP:
-            runs.append((start, a))
-            start = b
-    runs.append((start, taps[-1]))
-    # the gather loop copies nothing: runs holding a global load or copy
-    # are the staging or the direct path
-    runs = [r for r in runs if not any(
-        op.startswith(("LDG", "STS")) for _, _, op, _ in insns[r[0]:r[1]])]
-    if not runs:
-        return None
-    lo, hi = max(runs, key=lambda r: sum(r[0] <= t <= r[1] for t in taps))
-    targets = {int(t, 16) for _, _, op, rest in insns if op.startswith("BRA")
-               for t in re.findall(r"0x([0-9a-f]+)", rest)}
-    while lo > 0 and insns[lo][0] not in targets and \
-            not insns[lo - 1][2].startswith("BAR"):
-        lo -= 1
-    while hi + 1 < len(insns):
-        hi += 1
-        _, pred, op, rest = insns[hi]
-        if op.startswith("BAR"):
-            break
-        if op.startswith("BRA"):
-            dest = [int(t, 16) for t in re.findall(r"0x([0-9a-f]+)", rest)]
-            if not pred or (dest and dest[0] < insns[lo][0]):
-                hi += 1
-                break
-    return lo, hi
+    """Index range [lo, hi) of the staged gather in `insns`: of the basic
+    blocks that hold no global load or copy and no shared store, the one
+    with the most tap loads."""
+    targets = {int(x, 16) for _, _, op, rest in insns
+               if op.startswith(BRANCHES)
+               for x in re.findall(r"0x([0-9a-f]+)", rest)}
+    cuts = {0, len(insns)}
+    for n, (addr, _, op, _) in enumerate(insns):
+        if addr in targets:
+            cuts.add(n)
+        if op.startswith(BRANCHES):
+            cuts.add(n + 1)
+    cuts = sorted(cuts)
+    best, most = None, 0
+    for lo, hi in zip(cuts, cuts[1:]):
+        ops = [op for _, _, op, _ in insns[lo:hi]]
+        if any(op.startswith(("LDG", "STS", "STG")) for op in ops):
+            continue
+        taps = sum(is_tap_load(op) for op in ops)
+        if taps > most:
+            best, most = (lo, hi), taps
+    return best
 
 
 def warps_of(source: Path) -> int:
@@ -167,12 +159,19 @@ def build(source: Path):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--source", type=Path, default=SOURCE)
+    ap.add_argument("--sass", type=Path, help="a saved SASS listing")
+    ap.add_argument("--log", type=Path, help="its build's ptxas report")
     args = ap.parse_args()
     warps = warps_of(args.source)
-    path, log = build(args.source)
-    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([cuobjdump, "-sass", str(path)], check=True,
-                          capture_output=True, text=True).stdout
+    if args.sass is not None:
+        sass = args.sass.read_text()
+        log = args.log.read_text() if args.log is not None else ""
+    else:
+        path, log = build(args.source)
+        cuobjdump = shutil.which("cuobjdump") or \
+            "/usr/local/cuda/bin/cuobjdump"
+        sass = subprocess.run([cuobjdump, "-sass", str(path)], check=True,
+                              capture_output=True, text=True).stdout
     regs = ptxas(log)
     cols = ["lds", "conversion", "fp32", "fp16", "integer", "local",
             "barrier", "branch", "other"]
